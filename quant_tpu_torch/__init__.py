@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of quant_tpu for NVIDIA Hopper (H100).
+
+The JAX package `quant_tpu` is the reference; this package mirrors its
+module names and public layouts (NHWC activations, HWIO weights, packed
+sign words as (kh, kw, ceil(I/32), O) int32) so that one exported
+variable tree serves from both. It imports torch and numpy only.
+
+Ported so far: the packed, threshold-folded, stripped XNOR ResNet serving
+forward (`nn.resnet.QResNet(block='xnor')`, `serving.engine`). Its four
+hand-written CUDA kernels live in `csrc/` and are built with nvcc at first
+use (`_build.py`); each wrapper runs its plain PyTorch twin only for CPU
+tensors.
+"""
+
+__version__ = '0.1.0'

@@ -1,0 +1,49 @@
+"""Stem max pool kernel wrapper (port of quant_tpu/ops/pool.py:107-150).
+
+`max_pool_3x3_s2_p1` launches the CUDA kernel in csrc/pool.cu for a CUDA
+tensor and runs its plain twin, `ops.conv.max_pool2d`, for a CPU tensor.
+Both are a max over the same 9 values, so they agree bit for bit.
+"""
+
+import ctypes
+
+import torch
+
+from quant_tpu_torch import _build
+from quant_tpu_torch.ops.conv import IntOr2, _pair, max_pool2d
+
+_SIG = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+_SIGNATURES = {'qtt_max_pool_3x3_s2_p1_f32': _SIG,
+               'qtt_max_pool_3x3_s2_p1_bf16': _SIG}
+_ENTRY = {torch.float32: 'qtt_max_pool_3x3_s2_p1_f32',
+          torch.bfloat16: 'qtt_max_pool_3x3_s2_p1_bf16'}
+
+launches = _build.LaunchCounter('max_pool_3x3_s2_p1')
+
+
+def pool_fusable(x_shape: tuple[int, ...], kernel_size: IntOr2,
+                 stride: IntOr2, padding: IntOr2) -> bool:
+    """True when max_pool_3x3_s2_p1 computes this pool exactly."""
+    _, h, w, _ = x_shape
+    return (_pair(kernel_size) == (3, 3) and _pair(stride) == (2, 2)
+            and _pair(padding) == (1, 1) and h % 2 == 0 and w % 2 == 0)
+
+
+def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
+    """3x3/stride-2/pad-1 max pool, NHWC, H and W even."""
+    _build.require(x.ndim == 4, f'expected NHWC, got shape {x.shape}')
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f'fused pool needs even H, W; got {(h, w)}')
+    if _build.on_cpu(x):
+        return max_pool2d(x, kernel_size=3, stride=2, padding=1)
+    _build.require(x.dtype in _ENTRY, f'unsupported dtype {x.dtype}')
+    _build.require(x.is_contiguous(), 'x must be contiguous')
+    out = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    lib = _build.load('pool', _SIGNATURES)
+    status = getattr(lib, _ENTRY[x.dtype])(
+        _build.ptr(x), _build.ptr(out), n, h, w, c, _build.stream(x))
+    _build.check(lib, status, 'max_pool_3x3_s2_p1')
+    launches.bump()
+    return out

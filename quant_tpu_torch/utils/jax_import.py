@@ -1,0 +1,124 @@
+"""Fill the port's modules from a quant_tpu (JAX) variable tree.
+
+The tree is nested dicts of numpy arrays with the JAX collections
+`params`, `batch_stats`, `quant_state` and `packed_params`, exactly as
+`jax.device_get(variables)` gives them; nothing of JAX is imported.
+"""
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+# One row per leaf: port module class -> [(attribute, collection, path
+# below the module's own node, optional)]. An optional leaf that is
+# absent sets the attribute to None; a required one raises KeyError.
+_LEAVES: dict[str, list[tuple[str, str, tuple[str, ...], bool]]] = {
+    'Conv': [('kernel', 'params', ('kernel',), False),
+             ('bias', 'params', ('bias',), False)],
+    'Dense': [('kernel', 'params', ('kernel',), False),
+              ('bias', 'params', ('bias',), False)],
+    'BatchNorm': [('weight', 'params', ('bn', 'scale'), False),
+                  ('bias', 'params', ('bn', 'bias'), False),
+                  ('running_mean', 'batch_stats', ('bn', 'mean'), False),
+                  ('running_var', 'batch_stats', ('bn', 'var'), False)],
+    'PReLU': [('negative_slope', 'params', ('negative_slope',), False)],
+    'ActivationQuantizer': [
+        ('ema', 'quant_state', ('ema',), False),
+        ('ema_count', 'quant_state', ('ema_count',), False)],
+    'QuantConv2d': [
+        ('kernel', 'params', ('kernel',), True),
+        ('bias', 'params', ('bias',), False),
+        ('w_vs', 'quant_state', ('w_quantizer', 'vs'), True),
+        ('w_packed', 'packed_params', ('w_packed',), True),
+        ('w_scales', 'packed_params', ('w_scales',), True),
+        ('x_thresh', 'packed_params', ('x_thresh',), True),
+        ('x_flip', 'packed_params', ('x_flip',), True),
+        ('x_va', 'packed_params', ('x_va',), True)],
+}
+
+
+def _lookup(tree: Mapping[str, Any], path: list[str]) -> Optional[Any]:
+    node: Any = tree
+    for key in path:
+        if not isinstance(node, Mapping) or key not in node:
+            return None
+        node = node[key]
+    return node
+
+
+def from_jax_variables(model: nn.Module,
+                       variables: Mapping[str, Any]) -> nn.Module:
+    """Load a JAX variable tree into `model` in place and return it.
+
+    A port module at dotted path `a.b` reads the JAX node at `a/b` of
+    each collection. The leaf map (JAX key below that node -> port
+    attribute):
+
+    ===================  =================================  ==============
+    port module          JAX leaf                           attribute
+    ===================  =================================  ==============
+    Conv (stem conv1,    params/kernel (kh,kw,I,O)          kernel (HWIO)
+    shortcut.conv)       params/bias                        bias
+    Dense (fc)           params/kernel (in,out)             kernel
+                         params/bias                        bias
+    BatchNorm (bn1, bn2, params/bn/scale                    weight
+    shortcut.norm)       params/bn/bias                     bias
+                         batch_stats/bn/mean                running_mean
+                         batch_stats/bn/var                 running_var
+    PReLU (nonlin1/2)    params/negative_slope ()           negative_slope
+    QuantConv2d          params/kernel (absent if stripped) kernel or None
+    (blockN.conv1/2)     params/bias                        bias
+                         quant_state/w_quantizer/vs (1,O)   w_vs or None
+                         (absent if stripped)
+                         packed_params/w_packed             w_packed or
+                         (1,kh,kw,Wd,O) int32               None
+                         packed_params/w_scales (1,O)       w_scales
+                         packed_params/x_thresh (C,)        x_thresh
+                         packed_params/x_flip (C,)          x_flip
+                         packed_params/x_va (1,C)           x_va
+                         (the three fold leaves only after
+                         fold_xnor_thresholds)
+    ActivationQuantizer  quant_state/ema (1,)               ema
+    (convN.x_quantizer)  quant_state/ema_count () int32     ema_count
+    ===================  =================================  ==============
+
+    Stripped trees (strip_for_deployment) lack the QuantConv2d kernel
+    and w_vs, which are then set to None; unexported trees lack every
+    packed_params leaf. A required leaf that is missing raises KeyError;
+    a leaf whose shape differs from the module's, or that the module's
+    configuration has no place for (a bias of a bias-free conv, EMA
+    state of a moving_average_mode 'off' model), raises ValueError.
+    Serve a folded tree with model.bn_fold = True.
+    """
+    device = next(model.parameters()).device
+    for name, module in model.named_modules():
+        rows = _LEAVES.get(type(module).__name__)
+        if rows is None:
+            continue
+        prefix = name.split('.') if name else []
+        for attr, coll, path, optional in rows:
+            current = getattr(module, attr)
+            value = _lookup(variables.get(coll, {}), prefix + list(path))
+            if value is None:
+                if optional:
+                    setattr(module, attr, None)
+                elif current is not None:
+                    raise KeyError(f"required leaf missing: "
+                                   f"{coll}/{'/'.join(prefix + list(path))}")
+                continue
+            t = torch.from_numpy(np.array(value)).to(device)
+            if current is None and not optional:
+                raise ValueError(
+                    f"{coll}/{'/'.join(prefix + list(path))}: the tree has "
+                    'it, the module has no such state (config mismatch)')
+            if current is not None and current.shape != t.shape:
+                raise ValueError(
+                    f"{coll}/{'/'.join(prefix + list(path))}: shape "
+                    f'{tuple(t.shape)} != {tuple(current.shape)}')
+            if attr in module._parameters:
+                setattr(module, attr, nn.Parameter(t, requires_grad=False))
+            else:
+                setattr(module, attr, t)
+    return model
