@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (quant_tpu_torch) on one GPU.
 
-Drives the port's serving path end to end on the card:
+Drives the port's two paths end to end on the card, the serving path and
+the chip-probe path:
 
 1. prints the card's name and power limit (nvidia-smi) and builds the
-   four CUDA kernels from quant_tpu_torch/csrc with nvcc (sm_90a);
-2. holds each kernel against its plain PyTorch twin on the card, at the
-   serving path's shapes (TF32 off everywhere);
+   CUDA sources of quant_tpu_torch/csrc (xnor.cu, pool.cu, probe.cu)
+   with nvcc (sm_90a), all at once;
+2. holds each kernel against its plain PyTorch twin on the card: the
+   serving kernels at the serving path's shapes, the probe kernels (add,
+   tiled tensor-core matmul in bf16 and int8) at the probes' 4096^3 and
+   at a non-square shape (TF32 off everywhere);
 3. builds the packed XNOR ResNet-18 (224 px, 1000 classes, the bench
    configuration of the JAX package) from seeded weights, prepares it
    with the port's own export, fold and strip, runs the bf16 chain at
    batch 128 and checks the launch counts (16 xnor_conv2d, 16 producer,
-   1 pool per forward), then holds the fp32 chain on the card against
-   the same model on the CPU;
+   1 pool per forward, no probe kernel), then holds the fp32 chain on
+   the card against the same model on the CPU;
 4. serves 16 requests through InferenceEngine on the card;
-5. times each kernel, its plain twin and a library yardstick at the
-   path's shapes with CUDA events, and the forward's images per second.
+5. times each kernel, its plain twin and a library yardstick with CUDA
+   events, and the forward's images per second;
+6. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+   rates, the stem against its s2d form and the served model's batch
+   sweep at 128 and 512) and checks that it launched each probe kernel.
 
-Prints the card line, a JSON line {"kernels": [...]} and, last,
-{"ok": true, "device": {...}}. Any failed phase raises and exits
-non-zero; without CUDA it exits 2 before printing any result.
+Prints the card line, a JSON line {"kernels": [...]}, a JSON line
+{"probes": [...]} and, last, {"ok": true, "device": {...}}. Any failed
+phase raises and exits non-zero; without CUDA it exits 2 before printing
+any result.
 
 Usage: python3 chip_smoke.py [--batch 128] [--iters 10] [--seed 0]
                              [--report PATH]
@@ -39,8 +47,26 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak (2 ops/MAC)
+BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 DEVICE = 'cuda'
+
+# tiled_matmul shapes (M, K, N) held against the twin; the first is the
+# probes' and is also the one timed.
+MATMUL_SHAPES = ((4096, 4096, 4096), (512, 1024, 384))
+ADD_SHAPE = (1024, 256)        # pallas_add's
+# The probe path: (module, probe, keyword arguments), in order.
+PROBE_PHASE = (
+    ('probe_r2', 'pallas_add', {}),
+    ('probe_r2', 'pallas_matmul_bf16', {}),
+    ('probe_r3', 'pallas_matmul_bf16_v2', {}),
+    ('probe_r3', 'pallas_matmul_int8', {}),
+    ('probe_r3', 'matmul_chain_bf16', {}),
+    ('probe_r2', 'matmul_int8', {}),
+    ('probe_r3', 'stem_vs_s2d_v2', {}),
+    ('probe_r3', 'batch_sweep_model', {'batches': (128, 512)}),
+)
+PROBE_KERNELS = ('add_f32', 'tiled_matmul_bf16', 'tiled_matmul_int8')
 
 # fp32 chain, card vs CPU: the binary convs, producers and pool are exact
 # on both; the stem conv, BN, 1x1 shortcuts and head round differently
@@ -85,53 +111,6 @@ def valid_taps(size: int, out: int, stride: int, pad: int, k: int) -> int:
     """Sum over output positions of the kernel taps inside the input."""
     return sum(sum(0 <= o * stride - pad + i < size for i in range(k))
                for o in range(out))
-
-
-def resnet18(device: str, seed: int) -> torch.nn.Module:
-    """Packed, folded, stripped XNOR ResNet-18 from seeded weights."""
-    from quant_tpu_torch.nn import export
-    from quant_tpu_torch.nn.layers import BatchNorm, QuantConv2d
-    from quant_tpu_torch.nn.resnet import QResNet
-    from quant_tpu_torch.ops.quantize import quantizer_ls_1
-
-    gen = torch.Generator().manual_seed(seed)
-    layer = {'x_quant': 'ls-1', 'w_quant': 'ls-1',
-             'clamp': {'kind': 'symmetric', 'alpha': 2.0},
-             'double_shortcut': True}
-    model = QResNet(
-        block='xnor',
-        layer0={'n_in_channels': 64, 'kernel_size': 7, 'stride': 2,
-                'padding': 3, 'bias': False,
-                'maxpool': {'type': 'maxpool2d', 'kernel_size': 3,
-                            'stride': 2, 'padding': 1}},
-        layer1=dict(layer), layer2=dict(layer), layer3=dict(layer),
-        layer4=dict(layer), nonlins=['prelu', 'prelu'],
-        num_blocks=[2, 2, 2, 2], output_classes=1000,
-        moving_average_mode='eval_only', device='cpu', generator=gen)
-
-    def uniform(like: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-        return torch.empty_like(like).uniform_(lo, hi, generator=gen)
-
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            sign = torch.where(uniform(m.weight, 0, 1) < 0.3, -1.0, 1.0)
-            m.weight.copy_(uniform(m.weight, 0.3, 1.5) * sign)
-            m.bias.copy_(uniform(m.bias, -0.8, 0.8))
-            m.running_mean.copy_(uniform(m.running_mean, -0.5, 0.5))
-            m.running_var.copy_(uniform(m.running_var, 0.2, 2.0))
-        elif isinstance(m, QuantConv2d):
-            # Cached weight scales as training leaves them (per-out-channel
-            # mean |w|), and EMA activation scales as the JAX bench fills
-            # them (0.5, one tracked batch).
-            m.w_vs = quantizer_ls_1(torch.movedim(m.kernel, -1, 0))[0]
-            m.x_quantizer.ema.fill_(0.5)
-            m.x_quantizer.ema_count.fill_(1)
-    export.export_packed_variables(model)
-    model, folded = export.fold_for_serving(model)
-    if not folded:
-        raise RuntimeError('threshold fold did not apply')
-    export.strip_for_deployment(model)
-    return model.to(device)
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -226,6 +205,140 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
     errs['max_pool_3x3_s2_p1'] = pool_err
     torch.cuda.synchronize()
     return errs
+
+
+def probe_kernel_phases(gen: torch.Generator) -> dict[str, float]:
+    """The probe kernels against their plain twins; returns {kernel: max
+    abs error}. add and int8 must be equal. bf16 on random positive
+    values may differ by one ulp: both sum in float32 but in another
+    order (the tensor cores' f32 sums round differently from cuBLAS's
+    f32 GEMM), so a sum near a rounding boundary can round either way;
+    with no cancellation the f32 error stays below 2*K*2^-24 relative,
+    well under one bf16 ulp (2^-8). On integer values whose sums are
+    exact in float32 (|sum| < 2^24) bf16 must be equal too."""
+    from quant_tpu_torch.probes import kernels as PK
+
+    dev = DEVICE
+    errs = {}
+    add_err = 0.0
+    for shape in (ADD_SHAPE, (1000, 37)):
+        x = torch.randn(shape, generator=gen).to(dev)
+        y = torch.randn(shape, generator=gen).to(dev)
+        add_err = max(add_err, check_equal(
+            f'add {shape}', PK.add(x, y), PK.add_plain(x, y)))
+    # A view one element into its storage takes the scalar path.
+    xv, yv = x.view(-1)[1:], y.view(-1)[1:]
+    add_err = max(add_err, check_equal(
+        'add offset view', PK.add(xv, yv), PK.add_plain(xv, yv)))
+    errs['add_f32'] = add_err
+
+    bf_err = i8_err = 0.0
+    for m, k, n in MATMUL_SHAPES:
+        a = torch.rand(m, k, generator=gen).to(dev, torch.bfloat16)
+        b = torch.rand(k, n, generator=gen).to(dev, torch.bfloat16)
+        got, want = PK.tiled_matmul(a, b), PK.tiled_matmul_plain(a, b)
+        ulps = PK.bf16_ulps(got, want)
+        if got.shape != (m, n) or got.dtype != torch.bfloat16 or ulps > 1:
+            raise AssertionError(f'tiled_matmul bf16 {(m, k, n)}: '
+                                 f'{ulps} ulps from its plain twin')
+        bf_err = max(bf_err, (got.float() - want.float()).abs().max().item())
+        a = torch.randint(-8, 9, (m, k), generator=gen).to(
+            dev, torch.bfloat16)
+        b = torch.randint(-8, 9, (k, n), generator=gen).to(
+            dev, torch.bfloat16)
+        bf_err = max(bf_err, check_equal(
+            f'tiled_matmul bf16 integer-valued {(m, k, n)}',
+            PK.tiled_matmul(a, b), PK.tiled_matmul_plain(a, b)))
+        a = torch.randint(-128, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        b = torch.randint(-128, 128, (k, n), generator=gen,
+                          dtype=torch.int8).to(dev)
+        i8_err = max(i8_err, check_equal(
+            f'tiled_matmul int8 {(m, k, n)}', PK.tiled_matmul(a, b),
+            PK.tiled_matmul_plain(a, b)))
+    errs['tiled_matmul_bf16'] = bf_err
+    errs['tiled_matmul_int8'] = i8_err
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_probe_kernels(iters: int) -> list[dict]:
+    """The probe kernels at the probes' shapes: kernel, plain twin and
+    library ms, and the bound."""
+    from quant_tpu_torch.probes import kernels as PK
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(ADD_SHAPE, generator=gen).to(DEVICE)
+    y = torch.randn(ADD_SHAPE, generator=gen).to(DEVICE)
+    nb = 3 * x.numel() * 4
+    b, by = bound_ms(nb, x.numel(), FP32_OPS_PER_S)
+    rows = [dict(name='add_f32', ms=time_ms(lambda: PK.add(x, y), iters),
+                 plain_ms=time_ms(lambda: PK.add_plain(x, y), iters),
+                 library_ms=time_ms(lambda: torch.add(x, y), iters),
+                 bound_ms=b, bound_by=by, bytes=nb, ops=x.numel(),
+                 shape=list(ADD_SHAPE))]
+    m, k, n = MATMUL_SHAPES[0]
+    for dt, peak, lib in ((torch.bfloat16, BF16_OPS_PER_S, torch.matmul),
+                          (torch.int8, INT8_OPS_PER_S, torch._int_mm)):
+        if dt == torch.int8:
+            a = torch.randint(-128, 128, (m, k), generator=gen,
+                              dtype=dt).to(DEVICE)
+            bm = torch.randint(-128, 128, (k, n), generator=gen,
+                               dtype=dt).to(DEVICE)
+        else:
+            a = torch.randn(m, k, generator=gen).to(DEVICE, dt)
+            bm = torch.randn(k, n, generator=gen).to(DEVICE, dt)
+        nb = (m * k + k * n + m * n) * a.element_size()
+        b, by = bound_ms(nb, 2 * m * n * k, peak)
+        name = 'tiled_matmul_' + ('int8' if dt == torch.int8 else 'bf16')
+        rows.append(dict(
+            name=name,
+            ms=time_ms(lambda: PK.tiled_matmul(a, bm), iters),
+            plain_ms=time_ms(lambda: PK.tiled_matmul_plain(a, bm), iters),
+            library_ms=time_ms(lambda: lib(a, bm), iters),
+            bound_ms=b, bound_by=by, bytes=nb, ops=2 * m * n * k,
+            shape=[m, k, n]))
+    # cuBLASLt's int8 kernels take B column-major; the same values so
+    # stored, for the report only (the yardstick above takes the kernel's
+    # own row-major inputs).
+    bcol = bm.t().contiguous().t()
+    rows[-1]['library_b_col_major_ms'] = time_ms(
+        lambda: torch._int_mm(a, bcol), iters)
+    return rows
+
+
+def probe_phase() -> tuple[list[dict], dict[str, int]]:
+    """Runs PROBE_PHASE on the card with the launch counts zeroed just
+    before; returns the probes' records and the counts just after."""
+    import importlib
+
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.probes import common
+
+    probes = [(getattr(importlib.import_module(
+        f'quant_tpu_torch.probes.{mod}'), 'PROBES')[name], kw)
+        for mod, name, kw in PROBE_PHASE]
+    common.RECORDS.clear()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for fn, kw in probes:
+        fn(device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    records = list(common.RECORDS)
+    missing = [k for k in PROBE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f'probe path never launched {missing}')
+    for row in records:
+        if row.get('correct') is False:
+            raise AssertionError(f'probe result wrong: {row}')
+        for key in ('tflops', 'tops', 'ips', 'ms'):
+            if key in row and not (np.isfinite(row[key]) and row[key] > 0):
+                raise AssertionError(f'probe rate not positive: {row}')
+    if not any(r['probe'] == 'pallas_add' and r['correct']
+               for r in records):
+        raise AssertionError('pallas_add did not report a correct add')
+    return records, launches
 
 
 def capture_conv_inputs(model: torch.nn.Module) -> tuple[list, list]:
@@ -375,6 +488,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         return 2
 
     from quant_tpu_torch import _build
+    from quant_tpu_torch.probes.models import seeded_serving_resnet18
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -390,9 +504,11 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     gen = torch.Generator().manual_seed(args.seed)
     errs = kernel_phases(args.batch, gen)
+    errs.update(probe_kernel_phases(
+        torch.Generator().manual_seed(args.seed + 1)))
     print(f'kernels vs plain twins: {errs}', flush=True)
 
-    cpu_model = resnet18('cpu', args.seed)
+    cpu_model = seeded_serving_resnet18('cpu', args.seed)
     model = copy.deepcopy(cpu_model).to(DEVICE)
     model.eval_dtype = torch.bfloat16
     x = torch.randn(args.batch, 224, 224, 3, generator=gen).to(DEVICE)
@@ -406,7 +522,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     for h in hooks:
         h.remove()
     want = {'xnor_conv2d': 16, 'pack_threshold_signs': 16,
-            'max_pool_3x3_s2_p1': 1, 'xnor_gemm': 0}
+            'max_pool_3x3_s2_p1': 1, 'xnor_gemm': 0,
+            **{k: 0 for k in PROBE_KERNELS}}
     if launches != want:
         raise AssertionError(f'launches {launches}, expected {want}')
     if logits.shape != (args.batch, 1000) or not logits.isfinite().all():
@@ -438,14 +555,27 @@ def main(argv: Optional[list[str]] = None) -> int:
     print(f'main path bf16 batch {args.batch}: {ms_fwd} ms/forward, '
           f'{img_s} img/s; stem conv+BN+ReLU {stem_ms} ms', flush=True)
 
+    t0 = time.perf_counter()
+    records, probe_launches = probe_phase()
+    probe_s = time.perf_counter() - t0
+    print(f'probe path launches: {probe_launches} ({probe_s:.1f} s)',
+          flush=True)
+    rows += time_probe_kernels(args.iters)
+    for kname in PROBE_KERNELS:
+        launches[kname] = probe_launches[kname]
+
     sources = {'xnor_conv2d': 'quant_tpu_torch/csrc/xnor.cu',
                'pack_threshold_signs': 'quant_tpu_torch/csrc/xnor.cu',
                'xnor_gemm': 'quant_tpu_torch/csrc/xnor.cu',
-               'max_pool_3x3_s2_p1': 'quant_tpu_torch/csrc/pool.cu'}
+               'max_pool_3x3_s2_p1': 'quant_tpu_torch/csrc/pool.cu',
+               **{k: 'quant_tpu_torch/csrc/probe.cu' for k in PROBE_KERNELS}}
     replaces = {'xnor_conv2d': 'quant_tpu/ops/binary_gemm.py:41',
                 'xnor_gemm': 'quant_tpu/ops/binary_gemm.py:41',
                 'pack_threshold_signs': 'quant_tpu/ops/binary_infer.py:179',
-                'max_pool_3x3_s2_p1': 'quant_tpu/ops/pool.py:87'}
+                'max_pool_3x3_s2_p1': 'quant_tpu/ops/pool.py:87',
+                'add_f32': 'tools/probe_r2.py:408',
+                'tiled_matmul_bf16': 'tools/probe_r2.py:429',
+                'tiled_matmul_int8': 'tools/probe_r3.py:304'}
     kernels = [dict(name=r['name'], route='cuda', source=sources[r['name']],
                     replaces=replaces[r['name']],
                     launches=launches[r['name']],
@@ -461,9 +591,11 @@ def main(argv: Optional[list[str]] = None) -> int:
                            images_per_s=img_s, stem_ms=stem_ms,
                            fp32_max_abs_err=fp32_err, fp32_spread=spread,
                            serving=served, kernels=rows,
+                           probes=records, probe_s=probe_s,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f, indent=1)
     print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'probes': records}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -6,9 +6,10 @@ sign words as (kh, kw, ceil(I/32), O) int32) so that one exported
 variable tree serves from both. It imports torch and numpy only.
 
 Ported so far: the packed, threshold-folded, stripped XNOR ResNet serving
-forward (`nn.resnet.QResNet(block='xnor')`, `serving.engine`). Its four
-hand-written CUDA kernels live in `csrc/` and are built with nvcc at first
-use (`_build.py`); each wrapper runs its plain PyTorch twin only for CPU
+forward (`nn.resnet.QResNet(block='xnor')`, `serving.engine`) and the chip
+probes (`probes.probe_r2`, `probes.probe_r3`). Their hand-written CUDA
+kernels live in `csrc/` and are built with nvcc at first use
+(`_build.py`); each wrapper runs its plain PyTorch twin only for CPU
 tensors.
 """
 

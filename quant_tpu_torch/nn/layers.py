@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from quant_tpu_torch.ops import binary_infer as BI
-from quant_tpu_torch.ops.conv import _pair, conv2d
+from quant_tpu_torch.ops.conv import _pair, conv2d, stem_conv_s2d
 from quant_tpu_torch.ops.quantize import get_clamp_fn, quantizer_ls_1
 
 IntOr2 = Union[int, Sequence[int]]
@@ -65,16 +65,18 @@ class PReLU(nn.Module):
 
 class Conv(nn.Module):
     """Full-precision NHWC conv (HWIO kernel); `dtype` downcasts x, kernel
-    and bias for the computation."""
+    and bias for the computation. With `s2d` a 7x7/s2/p3 conv on even H
+    and W runs as its exact space-to-depth form (same parameters)."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, stride: IntOr2 = 1,
                  padding: IntOr2 = 0, use_bias: bool = True,
+                 s2d: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kh, kw = _pair(kernel_size)
         fan_in = in_channels * kh * kw
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.s2d = stride, padding, s2d
         self.kernel = _frozen(_uniform((kh, kw, in_channels, features),
                                        fan_in, generator))
         self.bias = (_frozen(_uniform((features,), fan_in, generator))
@@ -86,6 +88,11 @@ class Conv(nn.Module):
         if dtype is not None:
             x, kernel = x.to(dtype), kernel.to(dtype)
             bias = bias.to(dtype) if bias is not None else None
+        if (self.s2d and kernel.shape[:2] == (7, 7)
+                and _pair(self.stride) == (2, 2)
+                and _pair(self.padding) == (3, 3)
+                and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
+            return stem_conv_s2d(x, kernel, bias=bias)
         return conv2d(x, kernel, stride=self.stride, padding=self.padding,
                       bias=bias)
 

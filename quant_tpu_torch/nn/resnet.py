@@ -99,7 +99,9 @@ class QResNet(nn.Module):
     layer1..layer4 carry {x_quant, w_quant, clamp, double_shortcut}).
     `eval_dtype` (e.g. torch.bfloat16) is the feature-map chain's dtype
     and `bn_fold` serves threshold-folded convs; both are plain
-    attributes that may be changed between forwards. Parameters start
+    attributes that may be changed between forwards. `stem_s2d` runs the
+    stem conv in its exact space-to-depth form (`conv1.s2d`; JAX
+    resnet.py:386,409), with the same parameters. Parameters start
     from torch's default init drawn from `generator`, or come from a JAX
     tree via utils.jax_import.from_jax_variables.
 
@@ -113,8 +115,8 @@ class QResNet(nn.Module):
                  output_classes: int, moving_average_mode: str = 'off',
                  inference_mode: str = 'packed',
                  eval_dtype: DtypeLike = None, sign_compute: str = 'auto',
-                 bn_fold: bool = False, in_channels: int = 3,
-                 device: DeviceLike = 'cuda',
+                 bn_fold: bool = False, stem_s2d: bool = False,
+                 in_channels: int = 3, device: DeviceLike = 'cuda',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
@@ -137,7 +139,8 @@ class QResNet(nn.Module):
         width = layer0['n_in_channels']
         self.conv1 = Conv(in_channels, width, layer0['kernel_size'],
                           stride=layer0['stride'], padding=layer0['padding'],
-                          use_bias=layer0['bias'], generator=generator)
+                          use_bias=layer0['bias'], s2d=stem_s2d,
+                          generator=generator)
         self.bn1 = BatchNorm(width)
 
         stages = [(layer1, width, 1), (layer2, 2 * width, 2),

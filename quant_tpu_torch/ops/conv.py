@@ -1,6 +1,6 @@
 """Convolution primitives in the JAX package's layout (NHWC / HWIO).
 
-Port of quant_tpu/ops/conv.py:24-58, 106-122. The JAX package left these
+Port of quant_tpu/ops/conv.py:24-122. The JAX package left these
 to XLA; here they are PyTorch ops (F.conv2d / F.max_pool2d) over NCHW
 views of NHWC tensors, so the callers keep the reference's layouts.
 """
@@ -34,6 +34,37 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     if bias is not None:
         y = y + bias
     return y.contiguous()
+
+
+def stem_conv_s2d(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact space-to-depth form of a 7x7/stride-2/pad-3 stem conv (port
+    of quant_tpu/ops/conv.py:61-103): 2x2 pixel blocks become 4*C
+    channels and the conv becomes one 4x4/stride-1 conv over them.
+
+    out[i, j] reads padded rows 2i+1..2i+7 of pad((4, 2)). Row 2i+1+di
+    lies in block i + (1+di)//2 at parity (1+di)%2, so tap (di, dj) of
+    the 7x7 kernel lands on block tap ((1+di)//2, (1+dj)//2) and block
+    channel (r_i*2 + r_j)*C + c; the (r=0, a=0) slots are never read and
+    stay zero. Same NHWC / HWIO layouts and dtype rules as `conv2d`.
+    """
+    n, h, wdt, c = x.shape
+    kh, kw, _, cout = w.shape
+    if (kh, kw) != (7, 7) or h % 2 or wdt % 2:
+        raise ValueError('stem_conv_s2d needs a 7x7/s2/p3 stem on '
+                         'even spatial dims.')
+    xp = F.pad(x, (0, 0, 4, 2, 4, 2))
+    hb, wb = (h + 6) // 2, (wdt + 6) // 2
+    xs = xp.reshape(n, hb, 2, wb, 2, c).permute(0, 1, 3, 2, 4, 5)
+    xs = xs.reshape(n, hb, wb, 4 * c)
+
+    w4 = w.new_zeros((4, 4, 4 * c, cout))
+    for di in range(7):
+        a, r = (1 + di) // 2, (1 + di) % 2
+        for dj in range(7):
+            b, s = (1 + dj) // 2, (1 + dj) % 2
+            w4[a, b, (r * 2 + s) * c:(r * 2 + s + 1) * c] = w[di, dj]
+    return conv2d(xs, w4, bias=bias)
 
 
 def max_pool2d(x: torch.Tensor, *, kernel_size: IntOr2, stride: IntOr2,
