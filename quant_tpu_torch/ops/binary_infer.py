@@ -147,11 +147,14 @@ def xnor_conv2d_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
                       out_dtype: torch.dtype = torch.float32
                       ) -> torch.Tensor:
     """Plain twin of xnor_conv2d: F.conv2d over unpacked +-1 planes in
-    float32 (exact below 2^24 MACs), zero padding, cast to int32, then
-    the kernel's epilogue."""
+    float32, zero padding, rounded to the integer dot, then the kernel's
+    epilogue. cuDNN may pick a transform algorithm (Winograd) whose
+    float32 result lies a little off the integer (seen on an H100 at
+    28x28 with C = 128), so the dot is rounded, not truncated."""
     xs = unpack_signs(x_words, in_channels)
     ws = unpack_weights_int8(w_packed, in_channels, dtype=torch.float32)
-    dot = conv2d(xs, ws, stride=stride, padding=padding).to(torch.int32)
+    dot = conv2d(xs, ws, stride=stride, padding=padding).round().to(
+        torch.int32)
     return _epilogue(dot, vx, vw, bias, out_dtype)
 
 

@@ -76,6 +76,30 @@ def timed_loop(step: Callable[[Any], Any], carry: Any, dev: torch.device,
     return (time.perf_counter() - t0) / reps, carry
 
 
+def card_ms(fn: Callable[[], Any], iters: int,
+            head_start_ms: float = 20.0) -> float:
+    """Mean milliseconds per call of `fn` on the current CUDA stream.
+
+    After two warm-up calls the stream first sleeps for `head_start_ms`
+    (before the start event), so the host queues the calls meanwhile and
+    the events time the card's work alone, not the host's launch time,
+    as long as the queueing takes less than the sleep. head_start_ms=0
+    times the calls back to back, host included."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if head_start_ms > 0:
+        torch.cuda._sleep(int(head_start_ms * 2e6))  # cycles, <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 @contextlib.contextmanager
 def tf32(enabled: bool) -> Iterator[None]:
     """Set TF32 for float32 matmuls and cuDNN convs; restore on exit."""

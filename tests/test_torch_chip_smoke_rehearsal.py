@@ -1,0 +1,73 @@
+"""Rehearsal of chip_smoke.py on the CPU, at batch 2.
+
+chip_smoke.py runs only on a CUDA card. Here it runs end to end with the
+device set to the CPU, where every kernel wrapper takes its plain twin:
+nvcc, the card's name, CUDA events and the launch counters (which only
+a CUDA launch bumps) are stood in for, and the probe path is cut to
+toy sizes. That catches Python-level breakage of the script (arguments,
+shapes, the phases' control flow, the report's keys) before a run on
+the card.
+"""
+
+import json
+
+import pytest
+import torch
+
+import chip_smoke
+from quant_tpu_torch import _build
+
+KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
+               'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+               'library_ms'}
+
+
+@pytest.fixture
+def rehearsal(monkeypatch):
+    """chip_smoke on the CPU; yields the expected main-path counts."""
+    main = dict(xnor_conv2d=16, pack_threshold_signs=16,
+                max_pool_3x3_s2_p1=1, xnor_gemm=0,
+                **{k: 0 for k in chip_smoke.PROBE_KERNELS})
+    probe = dict(main, **{k: 1 for k in chip_smoke.PROBE_KERNELS})
+    counts = iter([main, probe])
+    monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'card_ms',
+                        lambda fn, *args, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, 'card_line', lambda: 'CPU, 0 W')
+    monkeypatch.setattr(chip_smoke, 'MATMUL_SHAPES', ((128, 128, 128),))
+    monkeypatch.setattr(chip_smoke, 'PROBE_PHASE', (
+        ('probe_r2', 'pallas_add', {}),
+        ('probe_r3', 'pallas_matmul_int8', {'n': 128, 'inner': 1}),
+        ('probe_r3', 'pallas_matmul_bf16_v2', {'n': 128, 'inner': 1}),
+        ('probe_r3', 'batch_sweep_model', {'batches': (2,), 'iters': 1}),
+    ))
+    monkeypatch.setattr(_build, 'build', lambda verbose=False: {})
+    monkeypatch.setattr(_build, 'launch_counts', lambda: next(counts))
+    for name, value in (('synchronize', lambda *a: None),
+                        ('is_available', lambda: True),
+                        ('get_device_name', lambda *a: 'cpu'),
+                        ('device_count', lambda: 1)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    yield main
+
+
+def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys):
+    assert chip_smoke.main(['--batch', '2', '--iters', '1']) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == 'CPU, 0 W'
+    assert json.loads(lines[-1]) == {'ok': True, 'device': {
+        'platform': 'gpu', 'kind': 'cpu', 'count': 1}}
+    kernels = json.loads(next(ln for ln in lines
+                              if ln.startswith('{"kernels"')))['kernels']
+    assert {k['name'] for k in kernels} == {
+        'xnor_conv2d', 'pack_threshold_signs', 'max_pool_3x3_s2_p1',
+        'xnor_gemm', *chip_smoke.PROBE_KERNELS}
+    for k in kernels:
+        assert KERNEL_KEYS <= set(k), k['name']
+        assert k['max_abs_err'] == 0.0, k['name']
+        on_main = k['name'] in ('xnor_conv2d', 'pack_threshold_signs',
+                                'max_pool_3x3_s2_p1')
+        assert k['launches'] == (rehearsal[k['name']] if on_main else
+                                 1 if k['name'] in chip_smoke.PROBE_KERNELS
+                                 else 0)
+    assert any(ln.startswith('16 captured convs') for ln in lines)

@@ -26,7 +26,8 @@ from quant_tpu.ops.conv import stem_conv_s2d as j_stem_s2d
 from quant_tpu_torch.nn import layers as tlayers
 from quant_tpu_torch.nn.resnet import QResNet
 from quant_tpu_torch.ops.conv import conv2d, stem_conv_s2d
-from quant_tpu_torch.probes import common, models, probe_r2, probe_r3
+from quant_tpu_torch.probes import (common, models, probe_r2, probe_r3,
+                                    xnor_variants)
 from quant_tpu_torch.probes import kernels as K
 from quant_tpu_torch.utils.jax_import import from_jax_variables
 
@@ -387,3 +388,19 @@ def test_im2col3x3_is_the_hwio_conv():
     got = common.im2col3x3(x) @ w.reshape(27, 6)
     want = conv2d(x, w, padding=1).reshape(-1, 6)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('name', sorted(xnor_variants.KNOCKOUTS))
+def test_xnor_knockouts_apply_only_where_their_text_is(name):
+    """A knock-out replaces each of its texts where the source holds it
+    once, and is stale (None) where it does not; 'kernel' changes
+    nothing. Checked on a stand-in source, so the probe's texts need not
+    follow every edit of csrc/xnor.cu."""
+    subs = xnor_variants.KNOCKOUTS[name]
+    src = 'head\n' + '\n'.join(old for old, _ in subs) + '\ntail\n'
+    want = 'head\n' + '\n'.join(new for _, new in subs) + '\ntail\n'
+    assert xnor_variants.variant_source(name, src) == want
+    assert xnor_variants.variant_source(name, 'other') == (
+        None if subs else 'other')
+    assert xnor_variants.variant_source(name, src + src) == (
+        None if subs else src + src)
