@@ -10,9 +10,10 @@ the chip-probe path:
 2. holds each kernel against its plain PyTorch twin on the card: the
    serving kernels at the serving path's shapes and, for xnor_conv2d and
    the producer, at the ragged CONV_CHECK_SHAPES and PACK_CHECK_SHAPES
-   (an offset view too); the probe kernels (add, tiled tensor-core
-   matmul in bf16 and int8) at the probes' 4096^3 and at a non-square
-   shape (TF32 off everywhere);
+   (an offset view too), xnor_gemm at the ragged XNOR_GEMM_CHECK_SHAPES
+   and at the layer4 GEMM; the probe kernels (add, tiled wgmma matmul in
+   bf16 and int8) at the probes' 4096^3, at a non-square shape and at K
+   of one slice (TF32 off everywhere);
 3. builds the packed XNOR ResNet-18 (224 px, 1000 classes, the bench
    configuration of the JAX package) from seeded weights, prepares it
    with the port's own export, fold and strip, runs the bf16 chain at
@@ -61,8 +62,17 @@ FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 DEVICE = 'cuda'
 
 # tiled_matmul shapes (M, K, N) held against the twin; the first is the
-# probes' and is also the one timed.
+# probes' and is also the one timed. Beside them, per type, K of one slice
+# (half of one 128-byte stage in bf16, which TMA fills with zeros).
 MATMUL_SHAPES = ((4096, 4096, 4096), (512, 1024, 384))
+ONE_SLICE_SHAPES = {torch.bfloat16: (256, 32, 384), torch.int8: (256, 64, 384)}
+# xnor_gemm shapes (M, K, N) held against the twin beside the layer4 GEMM
+# (M = batch * 49, K = 4,608, N = 512): W = 1, 5 and 145 words (not a
+# multiple of the 4 words a stage takes), K % 32 != 0 (pad bits), M and N
+# off the 128x128 tile, N odd (unpaired stores). The same shapes hold the
+# twin to JAX in tests/test_torch_port_ops.py.
+XNOR_GEMM_CHECK_SHAPES = ((200, 20, 22), (200, 150, 22), (200, 100, 22),
+                          (130, 160, 13), (256, 4640, 384))
 ADD_SHAPE = (1024, 256)        # pallas_add's
 # Ragged xnor_conv2d cases held against the twin, beside the serving
 # shapes: (N, H, W, C, O, k, stride, padding). Between them: C = 32, 33,
@@ -201,22 +211,23 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
                 B.xnor_conv2d_plain(x, w, vx, vw, bias, out_dtype=dt, **kw)))
     errs['xnor_conv2d'] = conv_err
 
-    m, k, n_out = batch * 49, 4608, 512
-    a, bt = words(m, k // 32), words(k // 32, n_out)
-    gemm_err = check_equal(
-        'xnor_gemm unit scales',
-        G.xnor_gemm(a, bt, torch.ones(m, device=dev),
-                    torch.ones(n_out, device=dev), k),
-        G.xnor_gemm_plain(a, bt, torch.ones(m, device=dev),
-                          torch.ones(n_out, device=dev), k))
-    vx, vw = rand(m).abs() + 0.1, rand(n_out).abs() + 0.1
-    got = G.xnor_gemm(a, bt, vx, vw, k)
-    want = G.xnor_gemm_plain(a, bt, vx, vw, k)
-    # Same float32 ops in the same order: expected equal; allclose at
-    # float32 epsilon in case a library matmul rounds the dot's
-    # conversion differently.
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-3)
-    errs['xnor_gemm'] = max(gemm_err, (got - want).abs().max().item())
+    # Random words, pad bits included. The kernel and the twin do the
+    # same float32 ops in the same order on an exact integer dot (the
+    # twin's float32 matmul with TF32 off is exact below 2^24), so any
+    # difference is a fault.
+    gemm_err = 0.0
+    for m, k, n_out in XNOR_GEMM_CHECK_SHAPES + ((batch * 49, 4608, 512),):
+        a, bt = words(m, -(-k // 32)), words(-(-k // 32), n_out)
+        ones_m, ones_n = torch.ones(m, device=dev), torch.ones(n_out,
+                                                                device=dev)
+        vx, vw = rand(m).abs() + 0.1, rand(n_out).abs() + 0.1
+        for sx, sw, what in ((ones_m, ones_n, 'unit scales'),
+                             (vx, vw, 'scaled')):
+            gemm_err = max(gemm_err, check_equal(
+                f'xnor_gemm {(m, k, n_out)} {what}',
+                G.xnor_gemm(a, bt, sx, sw, k),
+                G.xnor_gemm_plain(a, bt, sx, sw, k)))
+    errs['xnor_gemm'] = gemm_err
 
     pack_err = 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -283,7 +294,7 @@ def probe_kernel_phases(gen: torch.Generator) -> dict[str, float]:
     errs['add_f32'] = add_err
 
     bf_err = i8_err = 0.0
-    for m, k, n in MATMUL_SHAPES:
+    for m, k, n in MATMUL_SHAPES + (ONE_SLICE_SHAPES[torch.bfloat16],):
         a = torch.rand(m, k, generator=gen).to(dev, torch.bfloat16)
         b = torch.rand(k, n, generator=gen).to(dev, torch.bfloat16)
         got, want = PK.tiled_matmul(a, b), PK.tiled_matmul_plain(a, b)
@@ -299,6 +310,7 @@ def probe_kernel_phases(gen: torch.Generator) -> dict[str, float]:
         bf_err = max(bf_err, check_equal(
             f'tiled_matmul bf16 integer-valued {(m, k, n)}',
             PK.tiled_matmul(a, b), PK.tiled_matmul_plain(a, b)))
+    for m, k, n in MATMUL_SHAPES + (ONE_SLICE_SHAPES[torch.int8],):
         a = torch.randint(-128, 128, (m, k), generator=gen,
                           dtype=torch.int8).to(dev)
         b = torch.randint(-128, 128, (k, n), generator=gen,

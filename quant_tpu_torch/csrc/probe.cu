@@ -18,31 +18,42 @@
 // one: bytes. Each thread walks the array grid-stride with 16-byte loads
 // when all three pointers allow it (scalar otherwise). The matmul at
 // 4096^3 does 2*4096^3 operations on 100 MB (bf16): operations, on the
-// tensor cores, as the TPU kernels ran on the MXU.
+// tensor cores (989 TFLOP/s bf16, 1,979 TOP/s int8), as the TPU kernels
+// ran on the MXU.
 //
-// Matmul design (a simple one that is right; wgmma, TMA and a deeper
-// ring are later work). A block of 8 warps owns a 128x128 output tile;
-// each warp a 64x32 piece of it, as 4x2 WMMA 16x16x16 fragments (bf16 or
-// s8 in, f32 or s32 accumulators in registers). The TPU kernels' k grid
-// axis with its scratch accumulator becomes a loop over K inside the
-// block: 64-byte-deep slices of A and B (32 bf16 or 64 int8 values) move
-// to shared memory with cp.async, three slices in flight. Shared memory
-// holds each operand as 16-column chunks, so every fragment starts on a
-// 32-byte boundary (WMMA requires it; an int8 fragment 16 values into a
-// row would not), and the 16-byte rows of an int8 chunk, or the 48-byte
-// padded rows of a bf16 chunk, give conflict-free fragment loads. The
-// epilogue stages each fragment through 1 KB of shared memory per warp,
-// converts it to the output type and stores 8 values per lane.
-// M and N must be multiples of 128 and K of the slice depth; the wrapper
-// raises otherwise, as the TPU kernels' `n // tile` grids assumed.
+// Matmul design: the wgmma core of wgmma_core.cuh. A block of three
+// warpgroups owns a 128x128 output tile; the producer warpgroup fills a
+// ring of 128-byte-deep K slices (64 bf16 or 128 int8 values) and the two
+// consumer warpgroups each run wgmma on 64 rows of it, summing in
+// registers. The TPU kernels' k grid axis with its scratch accumulator is
+// the ring's walk over K inside the block.
+//   bf16: one producer thread issues TMA loads (tensor maps encoded on the
+//     host per call, 128-byte swizzle) of A's 128x64 box and B's two 64x64
+//     boxes, five stages in flight. B lands MN-major, as the row-major
+//     (K, N) input lies, and wgmma reads it so through the transpose bit.
+//     K = 32 (half a slice) works: TMA fills the box past K with zeros.
+//   int8: wgmma reads s8 operands K-major only, and the probes pass B
+//     row-major (K, N), N-major. Route (a): two producer warpgroups take
+//     every other stage; TMA lands each 128x128 B tile as it lies in one
+//     of the producer's two staging buffers, a tile ahead of the one
+//     being transposed, and the producer's 128 threads transpose it into
+//     the K-major swizzled tile of the stage, 4x4 byte blocks with eight
+//     byte permutes each, lanes placed so that neither the reads nor the
+//     writes meet a bank conflict; then fence.proxy.async and an arrive
+//     on the stage's barrier (129 arrivals: the TMA of A's tile and the
+//     128 transposing threads). Four stages. A is loaded as for bf16.
+// Epilogue: each consumer thread writes its accumulator pairs straight
+// from registers, bf16 rounded to nearest even or int8 wrapped.
+// M and N must be multiples of 128 and K of 32 (bf16) or 64 (int8); the
+// wrapper raises otherwise, as the TPU kernels' `n // tile` grids assumed.
 
-#include <mma.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "common.cuh"
+#include "wgmma_core.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 // ---------------------------------------------------------------- add
 
@@ -79,218 +90,211 @@ unsigned grid_for(long long n) {
 
 // -------------------------------------------------------------- matmul
 
-constexpr int kBM = 128;       // block tile rows
-constexpr int kBN = 128;       // block tile columns
-constexpr int kWarpsM = 2;     // warps along M (64 rows each)
-constexpr int kWarpsN = 4;     // warps along N (32 columns each)
-constexpr int kFragsM = 4;     // 16-row fragments per warp
-constexpr int kFragsN = 2;     // 16-column fragments per warp
-constexpr int kMmThreads = 32 * kWarpsM * kWarpsN;
-constexpr int kStages = 3;     // K slices in flight
-constexpr int kSliceBytes = 64;  // bytes of K per slice and row
+namespace wg = qtt::wg;
 
-template <typename T>
-struct MmTraits;
+constexpr int kBf16Stages = 5;
+constexpr int kS8Stages = 4;
+constexpr int kS8Producers = 2;        // transposing warpgroups
+constexpr int kS8Staging = 4;          // B tiles as they land, N-major:
+                                       // two per producer
+constexpr int kBf16Slice = 64;         // K values per stage
+constexpr int kS8Slice = 128;
 
-template <>
-struct MmTraits<__nv_bfloat16> {
-  using Acc = float;
-  static constexpr int kLd = 24;  // chunk row pitch: 48 bytes
-  // 8 accumulators -> 8 bf16 (round to nearest even), one 16-byte store.
-  __device__ static void store8(__nv_bfloat16* dst, const float* s) {
-    uint4 u;
-    __nv_bfloat162 h;
-    h = __floats2bfloat162_rn(s[0], s[1]);
-    u.x = *reinterpret_cast<unsigned*>(&h);
-    h = __floats2bfloat162_rn(s[2], s[3]);
-    u.y = *reinterpret_cast<unsigned*>(&h);
-    h = __floats2bfloat162_rn(s[4], s[5]);
-    u.z = *reinterpret_cast<unsigned*>(&h);
-    h = __floats2bfloat162_rn(s[6], s[7]);
-    u.w = *reinterpret_cast<unsigned*>(&h);
-    *reinterpret_cast<uint4*>(dst) = u;
-  }
-};
-
-template <>
-struct MmTraits<signed char> {
-  using Acc = int;
-  static constexpr int kLd = 16;  // chunk row pitch: 16 bytes
-  // 8 accumulators -> their low bytes (the int32 -> int8 wrap).
-  __device__ static void store8(signed char* dst, const int* s) {
-    unsigned lo = (s[0] & 0xff) | (s[1] & 0xff) << 8 | (s[2] & 0xff) << 16 |
-                  static_cast<unsigned>(s[3] & 0xff) << 24;
-    unsigned hi = (s[4] & 0xff) | (s[5] & 0xff) << 8 | (s[6] & 0xff) << 16 |
-                  static_cast<unsigned>(s[7] & 0xff) << 24;
-    *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
-  }
-};
-
-template <typename T>
-struct MmTile {
-  static constexpr int kBK = kSliceBytes / static_cast<int>(sizeof(T));
-  static constexpr int kLd = MmTraits<T>::kLd;
-  // Elements per 16-byte cp.async.
-  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  // A slice: kBK/16 chunks of (kBM rows x 16 columns of K), pitch kLd.
-  static constexpr int kAChunk = kBM * kLd;
-  static constexpr int kAElems = (kBK / 16) * kAChunk;
-  // B slice: kBN/16 chunks of (kBK rows of K x 16 columns of N).
-  static constexpr int kBChunk = kBK * kLd;
-  static constexpr int kBElems = (kBN / 16) * kBChunk;
-  static constexpr int kStageBytes =
-      (kAElems + kBElems) * static_cast<int>(sizeof(T));
-  static constexpr int kSmemBytes = kStages * kStageBytes;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T>
-__device__ __forceinline__ void load_slice(T* sa, T* sb,
-                                           const T* __restrict__ a,
-                                           const T* __restrict__ b, int n,
-                                           int k, int m0, int n0, int k0) {
-  using Tile = MmTile<T>;
-  constexpr int kAPerRow = Tile::kBK / Tile::kVec;  // 16-byte pieces
-  constexpr int kAPieces = kBM * kAPerRow;
-  constexpr int kBPerRow = kBN / Tile::kVec;
-  constexpr int kBPieces = Tile::kBK * kBPerRow;
-  for (int p = threadIdx.x; p < kAPieces; p += kMmThreads) {
-    int row = p / kAPerRow;
-    int kc = (p % kAPerRow) * Tile::kVec;
-    cp_async16(sa + (kc / 16) * Tile::kAChunk + row * Tile::kLd + kc % 16,
-               a + static_cast<long long>(m0 + row) * k + k0 + kc);
-  }
-  for (int p = threadIdx.x; p < kBPieces; p += kMmThreads) {
-    int krow = p / kBPerRow;
-    int nc = (p % kBPerRow) * Tile::kVec;
-    cp_async16(sb + (nc / 16) * Tile::kBChunk + krow * Tile::kLd + nc % 16,
-               b + static_cast<long long>(k0 + krow) * n + n0 + nc);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMmThreads)
-    tiled_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                        T* __restrict__ out, int n, int k) {
-  using Tile = MmTile<T>;
-  using Acc = typename MmTraits<T>::Acc;
-  extern __shared__ __align__(128) unsigned char smem[];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp / kWarpsN;  // 64-row band of the block tile
-  const int wn = warp % kWarpsN;  // 32-column band
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[kFragsM][kFragsN];
+// One 128x128 int8 B tile from `src` (as TMA landed it: row k holds 128
+// bytes of n, chunk c at c ^ (k % 8)) into `dst` (K-major: row n holds
+// 128 bytes of k, chunk c at c ^ (n % 8)), by the 128 producer threads.
+// The tile is 32x32 blocks of 4x4 bytes: n-quad q, k-quad kq. Thread t
+// takes 8 of them; its lane bits l0..l4 fix q's bits 0-3 and kq's bits
+// 0-3 (XORed with the block index) so that, for each of the four rows
+// one load or store instruction touches, the warp's 32 words fall on 32
+// distinct banks both in `src` and in `dst`.
+__device__ __forceinline__ void transpose_tile(uint32_t src, uint32_t dst,
+                                               int t) {
+  const int l = t % 32;
+  const int l0 = l & 1, l1 = (l >> 1) & 1, l2 = (l >> 2) & 1;
+  const int l3 = (l >> 3) & 1, l4 = l >> 4;
 #pragma unroll
-  for (int i = 0; i < kFragsM; ++i)
+  for (int it = 0; it < 8; ++it) {
+    const int s = (t / 32) * 8 + it;  // 0..31: which (q, kq) class
+    const int q = l0 | l1 << 1 | l3 << 2 | l4 << 3 | (s & 1) << 4;
+    const int kq = l2 | (l1 ^ ((s >> 1) & 1)) << 1 |
+                   (l3 ^ ((s >> 2) & 1)) << 2 | (l4 ^ ((s >> 3) & 1)) << 3 |
+                   ((s >> 4) & 1) << 4;
+    uint32_t r[4];
 #pragma unroll
-    for (int j = 0; j < kFragsN; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  auto stage_a = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * Tile::kStageBytes);
-  };
-  auto stage_b = [&](int s) { return stage_a(s) + Tile::kAElems; };
-
-  const int slices = k / Tile::kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < slices)
-      load_slice(stage_a(s), stage_b(s), a, b, n, k, m0, n0, s * Tile::kBK);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < slices; ++kt) {
-    // Slice kt has landed; every warp is done with slice kt - 1, whose
-    // buffer the next load reuses.
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    int next = kt + kStages - 1;
-    if (next < slices)
-      load_slice(stage_a(next % kStages), stage_b(next % kStages), a, b, n,
-                 k, m0, n0, next * Tile::kBK);
-    cp_async_commit();
-
-    const T* sa = stage_a(kt % kStages);
-    const T* sb = stage_b(kt % kStages);
-#pragma unroll
-    for (int kk = 0; kk < Tile::kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-          fa[kFragsM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>
-          fb[kFragsN];
-#pragma unroll
-      for (int i = 0; i < kFragsM; ++i)
-        wmma::load_matrix_sync(
-            fa[i], sa + kk * Tile::kAChunk + (wm * 64 + i * 16) * Tile::kLd,
-            Tile::kLd);
-#pragma unroll
-      for (int j = 0; j < kFragsN; ++j)
-        wmma::load_matrix_sync(
-            fb[j],
-            sb + (wn * kFragsN + j) * Tile::kBChunk + kk * 16 * Tile::kLd,
-            Tile::kLd);
-#pragma unroll
-      for (int i = 0; i < kFragsM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFragsN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * kq + i;
+      r[i] = wg::ld_shared(src + k * wg::kRowBytes +
+                       (((q >> 2) ^ (k & 7)) << 4) + (q & 3) * 4);
     }
-  }
-
-  // Epilogue: the pipeline buffers are free once every warp is past its
-  // last slice; each warp then owns 256 accumulators' worth of them.
-  cp_async_wait<0>();
-  __syncthreads();
-  Acc* scratch = reinterpret_cast<Acc*>(smem) + warp * 256;
-  const int r = lane / 2;
-  const int c0 = (lane % 2) * 8;
+    // r[i] byte j is B[k + i][4q + j]; o[j] byte i must be the same.
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+    const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+    const uint32_t o[4] = {__byte_perm(t0, t2, 0x5410),
+                           __byte_perm(t0, t2, 0x7632),
+                           __byte_perm(t1, t3, 0x5410),
+                           __byte_perm(t1, t3, 0x7632)};
 #pragma unroll
-  for (int i = 0; i < kFragsM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kFragsN; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      long long row = m0 + wm * 64 + i * 16 + r;
-      int col = n0 + wn * 32 + j * 16 + c0;
-      MmTraits<T>::store8(out + row * n + col, scratch + r * 16 + c0);
-      __syncwarp();
+    for (int j = 0; j < 4; ++j) {
+      const int nn = 4 * q + j;
+      wg::st_shared(dst + nn * wg::kRowBytes + (((kq >> 2) ^ (nn & 7)) << 4) +
+                    (kq & 3) * 4,
+                o[j]);
     }
   }
 }
 
-template <typename T>
-int launch_matmul(const void* a, const void* b, void* out, int m, int n,
-                  int k, void* stream) {
-  using Tile = MmTile<T>;
-  if (m % kBM || n % kBN || k % Tile::kBK || m <= 0 || n <= 0 || k <= 0)
+__global__ void __launch_bounds__(wg::threads(1), 1)
+    tiled_matmul_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                             const __grid_constant__ CUtensorMap map_b,
+                             __nv_bfloat16* __restrict__ out, int n, int k) {
+  extern __shared__ unsigned char smem[];
+  using Ring = wg::Ring<kBf16Stages>;
+  const Ring ring(smem, 0);
+  const int m0 = blockIdx.y * wg::kBM;
+  const int n0 = blockIdx.x * wg::kBN;
+  const int k_tiles = (k + kBf16Slice - 1) / kBf16Slice;
+  wg::gemm_block<float, kBf16Stages, 1, 40>(
+      ring, k_tiles, 1,
+      [&](const Ring& r, int) {
+        if (threadIdx.x != 0) return;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          const int s = kt % kBf16Stages;
+          const int k0 = kt * kBf16Slice;
+          wg::wait_empty(r, kt);
+          wg::mbar_arrive_tx(r.full(s), wg::kStageBytes);
+          wg::tma_load_2d(r.a(s), &map_a, r.full(s), k0, m0);
+          wg::tma_load_2d(r.b(s), &map_b, r.full(s), n0, k0);
+          wg::tma_load_2d(r.b(s) + wg::kTileBytes / 2, &map_b, r.full(s),
+                          n0 + 64, k0);
+        }
+      },
+      [&](const float* d, int ci) {
+        wg::for_each_pair(d, ci, [&](int row, int col, float v0, float v1) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<long long>(m0 + row) * n + n0 + col) =
+              __floats2bfloat162_rn(v0, v1);
+        });
+      });
+}
+
+__global__ void __launch_bounds__(wg::threads(kS8Producers), 1)
+    tiled_matmul_s8_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           signed char* __restrict__ out, int n, int k) {
+  extern __shared__ unsigned char smem[];
+  using Ring = wg::Ring<kS8Stages>;
+  const Ring ring(smem, kS8Staging * wg::kTileBytes);
+  const int m0 = blockIdx.y * wg::kBM;
+  const int n0 = blockIdx.x * wg::kBN;
+  const int k_tiles = (k + kS8Slice - 1) / kS8Slice;
+  wg::gemm_block<int, kS8Stages, kS8Producers, 112>(
+      ring, k_tiles, 1 + 128,
+      [&](const Ring& r, int p) {
+        const int t = threadIdx.x % 128;
+        // Producer p takes tiles kt = p + 2u. B tile u of its own lands
+        // in its staging buffer u % 2, on the spare barrier of that
+        // number, one own tile (two stages) ahead of its transpose.
+        auto buffer = [&](int u) { return 2 * p + u % 2; };
+        auto land = [&](int u) {
+          const int i = buffer(u);
+          wg::mbar_arrive_tx(r.spare(i), wg::kTileBytes);
+          wg::tma_load_2d(r.scratch + i * wg::kTileBytes, &map_b, r.spare(i),
+                          n0, (p + kS8Producers * u) * kS8Slice);
+        };
+        if (t == 0 && p < k_tiles) land(0);
+        for (int u = 0, kt = p; kt < k_tiles; ++u, kt += kS8Producers) {
+          const int s = kt % kS8Stages;
+          wg::wait_empty(r, kt);
+          if (t == 0) {
+            wg::mbar_arrive_tx(r.full(s), wg::kTileBytes);
+            wg::tma_load_2d(r.a(s), &map_a, r.full(s), kt * kS8Slice, m0);
+            // That buffer was last read in step u - 1, which every
+            // thread of this producer has left (the sync below).
+            if (kt + kS8Producers < k_tiles) land(u + 1);
+          }
+          const int i = buffer(u);
+          wg::mbar_wait(r.spare(i), (u / 2) & 1);
+          transpose_tile(r.scratch + i * wg::kTileBytes, r.b(s), t);
+          wg::fence_proxy_async();
+          wg::mbar_arrive(r.full(s));
+          wg::producer_sync(p);
+        }
+      },
+      [&](const int* d, int ci) {
+        wg::for_each_pair(d, ci, [&](int row, int col, int v0, int v1) {
+          *reinterpret_cast<uint16_t*>(
+              out + static_cast<long long>(m0 + row) * n + n0 + col) =
+              static_cast<uint16_t>((v0 & 0xff) | (v1 & 0xff) << 8);
+        });
+      });
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not the runtime; the runtime
+// hands out its entry point, so the library needs no -lcuda.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// A row-major (outer, inner) matrix of 1- or 2-byte values, read in boxes
+// of (box_outer, box_inner) with the 128-byte swizzle (box_inner * size
+// must be 128 bytes), zeros past its edges.
+int encode_map(CUtensorMap* map, const void* base, bool two_bytes,
+               int inner, int outer, int box_inner, int box_outer) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int size = two_bytes ? 2 : 1;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                        static_cast<cuuint64_t>(outer)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * size};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                       static_cast<cuuint32_t>(box_outer)};
+  cuuint32_t steps[2] = {1, 1};
+  CUresult r = encode(
+      map,
+      two_bytes ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, typename Kernel>
+int launch_matmul(Kernel kernel, int threads, int smem_bytes, int slice,
+                  int box_b_n,
+                  int box_b_k, int k_multiple, const void* a, const void* b,
+                  void* out, int m, int n, int k, void* stream) {
+  if (m % wg::kBM || n % wg::kBN || k % k_multiple || m <= 0 || n <= 0 ||
+      k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // Above 48 KB of dynamic shared memory needs the opt-in (bf16: 72 KB).
-  cudaError_t e = cudaFuncSetAttribute(
-      tiled_matmul_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(n / kBN, m / kBM);
-  tiled_matmul_kernel<T><<<grid, kMmThreads, Tile::kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(out), n, k);
+  const bool two = sizeof(T) == 2;
+  CUtensorMap map_a, map_b;
+  int e = encode_map(&map_a, a, two, k, m, slice, wg::kBM);
+  if (e) return e;
+  e = encode_map(&map_b, b, two, n, k, box_b_n, box_b_k);
+  if (e) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(n / wg::kBN, m / wg::kBM);
+  kernel<<<grid, threads, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(map_a, map_b,
+                                                static_cast<T*>(out), n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,10 +319,16 @@ extern "C" int qtt_add_f32(const void* x, const void* y, void* out,
 
 extern "C" int qtt_tiled_matmul_bf16(const void* a, const void* b, void* out,
                                      int m, int n, int k, void* stream) {
-  return launch_matmul<__nv_bfloat16>(a, b, out, m, n, k, stream);
+  return launch_matmul<__nv_bfloat16>(
+      tiled_matmul_bf16_kernel, wg::threads(1),
+      wg::Ring<kBf16Stages>::smem_bytes(0),
+      kBf16Slice, 64, kBf16Slice, 32, a, b, out, m, n, k, stream);
 }
 
 extern "C" int qtt_tiled_matmul_s8(const void* a, const void* b, void* out,
                                    int m, int n, int k, void* stream) {
-  return launch_matmul<signed char>(a, b, out, m, n, k, stream);
+  return launch_matmul<signed char>(
+      tiled_matmul_s8_kernel, wg::threads(kS8Producers),
+      wg::Ring<kS8Stages>::smem_bytes(kS8Staging * wg::kTileBytes),
+      kS8Slice, kS8Slice, kS8Slice, 64, a, b, out, m, n, k, stream);
 }

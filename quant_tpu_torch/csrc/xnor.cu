@@ -5,9 +5,30 @@
 //
 // qtt_xnor_gemm -- replaces quant_tpu/ops/binary_gemm.py `_xnor_kernel`
 //   (via `xnor_gemm`), same signature and result, pad correction included.
-//   Off every path; one thread per output element runs XOR + POPC + ADD
-//   per 32 MACs on the CUDA cores. Moving it onto the conv's mma core is
-//   queued.
+//   Off every path. Bound on an H100: operations (2*M*N*K int8 tensor-core
+//   ops against 1/8 of that many bytes of packed words).
+//   Design: the wgmma core of wgmma_core.cuh (128x128 block tile, two
+//   consumer warpgroups, s8 wgmma summing in int32), fed by a loader that
+//   expands bits into bytes instead of copying them. Two producer
+//   warpgroups take every other stage; each of a producer's 128 threads
+//   owns one row of A (M, W) and one column of Bt (W, N) in the tile,
+//   and brings their 4 words of a stage (128 channels) into the
+//   producer's ring of packed words in shared memory with 4-byte
+//   cp.async, three of its stages ahead (a ragged W leaves A's rows off
+//   16 bytes, so neither wider copies nor TMA, whose rows must be 16-byte
+//   multiples, take them). It writes them as +-16 bytes into K-major
+//   tiles with the 128-byte swizzle, the same channel order in A and in B
+//   (expand32), so Bt's word-major layout needs no transpose. A set bit
+//   is -16, a clear one +16, so every byte product is 256 times the +-1
+//   product and the dot is the accumulator >> 8, exactly (|dot| * 256 <
+//   2^31 for K < 2^23). The
+//   expanded tiles are generic-proxy writes that wgmma reads through the
+//   async proxy: fence.proxy.async, then an arrive (128 a stage).
+//   K tails: words past W, rows past M and columns past N expand to 0
+//   bytes, not to the +-1 of a zero word (an all-clear word is 32 x -1 and
+//   would add 32 to every dot). Pad bits are set in both operands, so
+//   over whole words the dot is K_pad - 2 * popc(a ^ b), the integer of
+//   the TPU kernel, and the epilogue corrects by K_pad - K in JAX's order.
 //
 // qtt_xnor_conv2d_* -- the same TPU kernel in the form the serving path
 //   runs it: the binary conv (any kh x kw, equal stride and padding) over
@@ -60,6 +81,7 @@
 //   path: one warp per word, __ballot_sync.
 
 #include "common.cuh"
+#include "wgmma_core.cuh"
 
 namespace {
 
@@ -67,32 +89,157 @@ using qtt::from_float;
 using qtt::round_to;
 using qtt::to_float;
 
-__global__ void xnor_gemm_kernel(const uint32_t* __restrict__ a,
-                                 const uint32_t* __restrict__ bt,
-                                 const float* __restrict__ vx,
-                                 const float* __restrict__ vw,
-                                 float* __restrict__ out, int m, int w_words,
-                                 int n, int k_total) {
-  long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                  threadIdx.x;
-  if (idx >= static_cast<long long>(m) * n) return;
-  int col = static_cast<int>(idx % n);
-  int row = static_cast<int>(idx / n);
-  const uint32_t* arow = a + static_cast<long long>(row) * w_words;
-  int acc = 0;
-  for (int w = 0; w < w_words; ++w) {
-    acc += __popc(arow[w] ^ bt[static_cast<long long>(w) * n + col]);
+namespace wg = qtt::wg;
+
+constexpr int kGemmStages = 4;
+constexpr int kGemmWords = wg::kRowBytes / 32;  // packed words per stage
+constexpr int kGemmProducers = 2;  // expanding warpgroups
+constexpr int kWordStages = 4;     // a producer's stages of words in flight
+// A producer's word ring: per slot, word j of its thread t at j * 128 + t.
+constexpr int kWordSmem = kWordStages * 2 * kGemmWords * 128 * 4;
+
+// One packed word as 32 bytes, +-16 (set bit -16), in two 16-byte
+// chunks: byte i of lo's register r is bit r + 8i, of hi's bit r + 4 + 8i
+// (the conv's expand_word, for the four lanes of a quad at once).
+__device__ __forceinline__ void expand32(uint32_t w, uint4& lo, uint4& hi) {
+  const uint32_t base = 0x10101010u;
+  lo = make_uint4((w & 0x01010101u) * 0xE0u + base,
+                  ((w >> 1) & 0x01010101u) * 0xE0u + base,
+                  ((w >> 2) & 0x01010101u) * 0xE0u + base,
+                  ((w >> 3) & 0x01010101u) * 0xE0u + base);
+  hi = make_uint4((w & 0x10101010u) * 0x0Eu + base,
+                  ((w >> 1) & 0x10101010u) * 0x0Eu + base,
+                  ((w >> 2) & 0x10101010u) * 0x0Eu + base,
+                  ((w >> 3) & 0x10101010u) * 0x0Eu + base);
+}
+
+// Row `row` of a K-major tile from a stage's words: word j fills chunks
+// 2j and 2j + 1, placed by the 128-byte swizzle; a word whose bit in
+// `live` is clear (past W, M or N) becomes 0 bytes.
+__device__ __forceinline__ void write_row(uint32_t tile, int row,
+                                          const uint32_t* words,
+                                          unsigned live) {
+  const uint32_t at = tile + row * wg::kRowBytes;
+#pragma unroll
+  for (int j = 0; j < kGemmWords; ++j) {
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    if ((live >> j) & 1u) expand32(words[j], lo, hi);
+    wg::st_shared(at + (((2 * j) ^ (row & 7)) << 4), lo);
+    wg::st_shared(at + (((2 * j + 1) ^ (row & 7)) << 4), hi);
   }
-  // Same arithmetic and order as binary_gemm.py:50-51 and :117-119; the
-  // _rn intrinsics keep nvcc from contracting into an FMA.
-  int k_padded = w_words * 32;
-  float r = __fmul_rn(__fmul_rn(static_cast<float>(k_padded - 2 * acc),
-                                vx[row]), vw[col]);
-  if (k_padded != k_total) {
-    r = __fsub_rn(r, __fmul_rn(static_cast<float>(k_padded - k_total),
-                               __fmul_rn(vx[row], vw[col])));
-  }
-  out[idx] = r;
+}
+
+__global__ void __launch_bounds__(wg::threads(kGemmProducers), 1)
+    xnor_gemm_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ bt,
+                     const float* __restrict__ vx,
+                     const float* __restrict__ vw, float* __restrict__ out,
+                     int m, int w_words, int n, int k_total) {
+  extern __shared__ unsigned char smem[];
+  using Ring = wg::Ring<kGemmStages>;
+  const Ring ring(smem, kGemmProducers * kWordSmem);
+  const int m0 = blockIdx.y * wg::kBM;
+  const int n0 = blockIdx.x * wg::kBN;
+  const int k_tiles = (w_words + kGemmWords - 1) / kGemmWords;
+  wg::gemm_block<int, kGemmStages, kGemmProducers, 56>(
+      ring, k_tiles, 128,
+      [&](const Ring& r, int p) {
+        const int t = threadIdx.x % 128;
+        const bool row_ok = m0 + t < m;
+        const bool col_ok = n0 + t < n;
+        const uint32_t* arow = a + static_cast<long long>(m0 + t) * w_words;
+        const uint32_t* bcol = bt + n0 + t;
+        // Producer p takes stages kt = p + 2u (u its own count). Bit j
+        // (A) and kGemmWords + j (B): word j of stage kt exists.
+        auto stage = [&](int u) { return p + kGemmProducers * u; };
+        auto live = [&](int kt) {
+          unsigned bits = 0;
+#pragma unroll
+          for (int j = 0; j < kGemmWords; ++j) {
+            const bool in_k = kt * kGemmWords + j < w_words;
+            bits |= (row_ok && in_k ? 1u : 0u) << j;
+            bits |= (col_ok && in_k ? 1u : 0u) << (kGemmWords + j);
+          }
+          return bits;
+        };
+        // Word j of this thread in slot `slot` of its producer's word
+        // ring (A: j < 4).
+        auto word_at = [&](int slot, int j) {
+          return r.scratch + p * kWordSmem +
+                 ((slot * 2 * kGemmWords + j) * 128 + t) * 4;
+        };
+        auto fetch = [&](int u) {
+          const int kt = stage(u);
+          const unsigned bits = live(kt);
+          const int slot = u % kWordStages;
+#pragma unroll
+          for (int j = 0; j < kGemmWords; ++j) {
+            const long long w = kt * kGemmWords + j;
+            if ((bits >> j) & 1u) wg::cp_async4(word_at(slot, j), arow + w);
+            if ((bits >> (kGemmWords + j)) & 1u)
+              wg::cp_async4(word_at(slot, kGemmWords + j), bcol + w * n);
+          }
+        };
+#pragma unroll
+        for (int u = 0; u < kWordStages - 1; ++u) {
+          if (stage(u) < k_tiles) fetch(u);
+          wg::cp_async_commit();
+        }
+        for (int u = 0, kt = p; kt < k_tiles; ++u, kt += kGemmProducers) {
+          // Slot (u - 1) % kWordStages was read by this thread in step
+          // u - 1; it takes the words of its stage u + kWordStages - 1.
+          const int ahead = u + kWordStages - 1;
+          if (stage(ahead) < k_tiles) fetch(ahead);
+          wg::cp_async_commit();
+          wg::cp_async_wait<kWordStages - 1>();  // stage kt's words landed
+          uint32_t ca[kGemmWords], cb[kGemmWords];
+#pragma unroll
+          for (int j = 0; j < kGemmWords; ++j) {
+            ca[j] = wg::ld_shared(word_at(u % kWordStages, j));
+            cb[j] = wg::ld_shared(word_at(u % kWordStages, kGemmWords + j));
+          }
+          const unsigned bits = live(kt);
+          const int s = kt % kGemmStages;
+          wg::wait_empty(r, kt);
+          write_row(r.a(s), t, ca, bits);
+          write_row(r.b(s), t, cb, bits >> kGemmWords);
+          wg::fence_proxy_async();
+          wg::mbar_arrive(r.full(s));
+        }
+      },
+      [&](const int* d, int ci) {
+        // Same arithmetic and order as binary_gemm.py:50-51 and :117-119;
+        // the _rn intrinsics keep nvcc from contracting into an FMA.
+        const int k_padded = w_words * 32;
+        auto value = [&](int acc, float sx, float sw) {
+          float v = __fmul_rn(__fmul_rn(static_cast<float>(acc >> 8), sx),
+                              sw);
+          if (k_padded != k_total) {
+            v = __fsub_rn(v, __fmul_rn(static_cast<float>(k_padded - k_total),
+                                       __fmul_rn(sx, sw)));
+          }
+          return v;
+        };
+        const bool pairs = n % 2 == 0;  // a pair then lies on 8 bytes
+        wg::for_each_pair(d, ci, [&](int row, int col, int v0, int v1) {
+          const int gr = m0 + row, gc = n0 + col;
+          if (gr >= m || gc >= n) return;
+          const float sx = vx[gr];
+          float* o = out + static_cast<long long>(gr) * n + gc;
+          const float r0 = value(v0, sx, vw[gc]);
+          if (gc + 1 >= n) {
+            o[0] = r0;
+            return;
+          }
+          const float r1 = value(v1, sx, vw[gc + 1]);
+          if (pairs) {
+            *reinterpret_cast<float2*>(o) = make_float2(r0, r1);
+          } else {
+            o[0] = r0;
+            o[1] = r1;
+          }
+        });
+      });
 }
 
 // ------------------------------------------------------------------ conv
@@ -594,14 +741,19 @@ int launch_pack(const void* x, const void* thresh, const void* flip,
 extern "C" int qtt_xnor_gemm(const void* a, const void* bt, const void* vx,
                              const void* vw, void* out, int m, int w_words,
                              int n, int k_total, void* stream) {
-  long long total = static_cast<long long>(m) * n;
-  if (total > 0) {
-    xnor_gemm_kernel<<<qtt::blocks_for(total), qtt::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(bt),
-        static_cast<const float*>(vx), static_cast<const float*>(vw),
-        static_cast<float*>(out), m, w_words, n, k_total);
-  }
+  if (m <= 0 || n <= 0 || w_words <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int smem =
+      wg::Ring<kGemmStages>::smem_bytes(kGemmProducers * kWordSmem);
+  cudaError_t e = cudaFuncSetAttribute(
+      xnor_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((n + wg::kBN - 1) / wg::kBN, (m + wg::kBM - 1) / wg::kBM);
+  xnor_gemm_kernel<<<grid, wg::threads(kGemmProducers), smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(bt),
+      static_cast<const float*>(vx), static_cast<const float*>(vw),
+      static_cast<float*>(out), m, w_words, n, k_total);
   return static_cast<int>(cudaGetLastError());
 }
 

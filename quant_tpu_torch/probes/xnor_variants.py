@@ -1,36 +1,42 @@
-"""Variants of csrc/xnor.cu timed on the card: knock-outs and a baseline.
+"""Variants of the CUDA sources timed on the card: knock-outs and baselines.
 
 Knock-outs. The card's machine has no profiler that reads a kernel's
-stalls, so this probe takes parts of xnor_conv2d out instead. Each
-knock-out is a copy of xnor.cu with one part of the conv removed by a
-text substitution, timed at the serving path's four layer shapes (batch
-128, bf16 out). The time a knock-out saves bounds what its part costs;
-only `kernel` (the source as it is) and `min_4_blocks` (registers capped
-at 128, so 4 blocks fit an SM) compute the right result. A knock-out
-whose text is no longer in the source is recorded as stale and not
-built. The probe also records the instruction mix of the conv's unrolled
-stage from its SASS.
+stalls, so this probe takes parts of a kernel out instead. Each
+knock-out is a copy of csrc/ with one part removed by a text
+substitution; the time it saves bounds what its part costs.
+`KNOCKOUTS` take parts of xnor_conv2d out of xnor.cu, timed at the
+serving path's four layer shapes (batch 128, bf16 out); only `kernel`
+(the source as it is) and `min_4_blocks` (registers capped at 128, so 4
+blocks fit an SM) compute the right result. `WG_KNOCKOUTS` take parts of
+the wgmma GEMM core and its loaders out (wgmma_core.cuh, xnor.cu,
+probe.cu), timed on xnor_gemm at the layer4 GEMM (M = 6,272, K = 4,608,
+N = 512) and on tiled_matmul at 4096^3. A knock-out whose text is no
+longer in the source is recorded as stale and not built. The probe also
+records the instruction mix of the conv's unrolled stage and the
+tensor-core opcode counts of every GEMM kernel built (`sass_mix`,
+`gemm_sass`).
 
-Baseline (--baseline PATH). Another xnor.cu with the same C interface,
-such as an earlier commit's
+Baselines (--baseline PATH, --baseline-probe PATH). Another xnor.cu or
+probe.cu with the same C interface, such as an earlier commit's
 (`git show REV:quant_tpu_torch/csrc/xnor.cu > build/xnor_base.cu`).
-Its xnor_conv2d and pack_threshold_signs are timed against this tree's
-on the inputs the 16 binary convs of the seeded serving ResNet-18 see in
-one bf16 forward at batch 128, in the order baseline, current, current,
-baseline, each on two timers: card time behind a head start
-(`common.card_ms`) and back to back, host launch time included. Times
-are summed over the 16 launches of a forward; both libraries' results
-must equal the plain twins'.
+The baseline xnor.cu's xnor_conv2d and pack_threshold_signs are timed
+against this tree's on the inputs the 16 binary convs of the seeded
+serving ResNet-18 see in one bf16 forward at batch 128 (times summed
+over the 16 launches), and its xnor_gemm at the layer4 GEMM; the
+baseline probe.cu's tiled_matmul, bf16 and int8, at 4096^3. Each in the
+order baseline, current, current, baseline, on two timers: card time
+behind a head start (`common.card_ms`) and back to back, host launch
+time included (bare launches, no Python wrapper). Both libraries'
+results must equal the plain twins'.
 
 Usage: python -m quant_tpu_torch.probes.xnor_variants [--baseline PATH]
-           [--out PATH]
+           [--baseline-probe PATH] [--out PATH]
 """
 
 import argparse
 import collections
 import ctypes
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -40,8 +46,10 @@ import torch
 
 from quant_tpu_torch import _build
 from quant_tpu_torch.nn.layers import QuantConv2d
+from quant_tpu_torch.ops import binary_gemm as G
 from quant_tpu_torch.ops import binary_infer as B
 from quant_tpu_torch.probes import common, models
+from quant_tpu_torch.probes import kernels as PK
 
 _MMA = 'for (int j = 0; j < kConvNT; ++j) mma_s8(acc[i][j], af, bf[j]);'
 _A = ('expand_word(A[row * kKS + (kk ^ swz)], t, keep, af[hh],\n'
@@ -62,74 +70,160 @@ KNOCKOUTS: dict[str, tuple[tuple[str, str], ...]] = {
     'no_store': (('if (m >= s.m || col0 + cc >= s.o) continue;',
                   'continue;'),),
 }
+# Knock-outs of the wgmma GEMM core and its loaders, name: ((text, its
+# stand-in), ...), applied to the file WG_TARGETS names, which also says
+# which GEMM kernels the variant is timed on.
+_S8_STEPS = 'for (int kk = 0; kk < 4; ++kk)\n    mma_s8('
+WG_KNOCKOUTS: dict[str, tuple[tuple[str, str], ...]] = {
+    # xnor_gemm's loader stores the words as they are, unexpanded.
+    'gemm_no_expand': ((
+        'if ((live >> j) & 1u) expand32(words[j], lo, hi);',
+        'lo = make_uint4(words[j], words[j], live, j); hi = lo;'),),
+    # xnor_gemm's loader brings in the first stages' words only.
+    'gemm_no_word_loads': ((
+        'if (stage(ahead) < k_tiles) fetch(ahead);', ''),),
+    # The loaders that write tiles (xnor_gemm, int8) skip the proxy fence.
+    'core_no_fence': (('asm volatile("fence.proxy.async.shared::cta;\\n" '
+                       '::: "memory");', ''),),
+    # The s8 consumers run two of the four wgmma a stage.
+    'core_half_mma': ((_S8_STEPS, _S8_STEPS.replace('kk < 4', 'kk < 2')),),
+    # The consumers run no wgmma: the loaders alone set the time.
+    'core_no_mma': (('      stage_mma(d, ring.a(s), ring.b(s), ci);\n',
+                     ''),),
+    # tiled_matmul int8 leaves B's landed tiles untransposed.
+    'mm_no_transpose': ((
+        'transpose_tile(r.scratch + i * wg::kTileBytes, r.b(s), t);',
+        ''),),
+}
+GEMMS = ('xnor_gemm', 'tiled_matmul_bf16', 'tiled_matmul_int8')
+WG_TARGETS: dict[str, tuple[str, tuple[str, ...]]] = {
+    'gemm_no_expand': ('xnor.cu', ('xnor_gemm',)),
+    'gemm_no_word_loads': ('xnor.cu', ('xnor_gemm',)),
+    'core_no_fence': ('wgmma_core.cuh', ('xnor_gemm', 'tiled_matmul_int8')),
+    'core_half_mma': ('wgmma_core.cuh', ('xnor_gemm', 'tiled_matmul_int8')),
+    'core_no_mma': ('wgmma_core.cuh', GEMMS),
+    'mm_no_transpose': ('probe.cu', ('tiled_matmul_int8',)),
+}
 # (N, H=W, C, O), 3x3, stride 1, padding 1: the layers' repeated convs.
 SHAPES = ((128, 56, 64, 64), (128, 28, 128, 128), (128, 14, 256, 256),
           (128, 7, 512, 512))
+GEMM_SHAPE = (6272, 4608, 512)      # xnor_gemm (M, K, N): layer4, batch 128
+MATMUL_SHAPE = (4096, 4096, 4096)   # tiled_matmul (M, K, N): the probes'
 OUT_DIR = _build.BUILD_ROOT / 'variants'
 ITERS = 20  # timed calls per reading
+SIGNATURES = {'xnor': {**B._SIGNATURES, **G._SIGNATURES},
+              'probe': PK._SIGNATURES}
 
 
-def variant_source(name: str, src: str) -> Optional[str]:
-    """`src` with knock-out `name` applied, or None when one of its texts
-    does not occur in `src` exactly once (a stale knock-out)."""
-    for old, new in KNOCKOUTS[name]:
+def variant_source(name: str, src: str,
+                   table: Optional[dict] = None) -> Optional[str]:
+    """`src` with knock-out `name` of `table` (KNOCKOUTS by default)
+    applied, or None when one of its texts does not occur in `src`
+    exactly once (a stale knock-out)."""
+    for old, new in (KNOCKOUTS if table is None else table)[name]:
         if src.count(old) != 1:
             return None
         src = src.replace(old, new)
     return src
 
 
-def build_all(baseline: Optional[str]) -> dict[str, ctypes.CDLL]:
-    """Compile every live knock-out (and the baseline) at once; returns
-    {name: library}."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    shutil.copy(_build.CSRC / 'common.cuh', OUT_DIR / 'common.cuh')
-    src = (_build.CSRC / 'xnor.cu').read_text()
-    sources = {name: variant_source(name, src) for name in KNOCKOUTS}
-    for name in [n for n, s in sources.items() if s is None]:
-        common.record('conv_knockout', torch.device('cuda'), variant=name,
-                      stale=True)
-        del sources[name]
-    if baseline:
-        sources['baseline'] = Path(baseline).read_text()
+def lib_file(variant: str, stem: str) -> Path:
+    """Where variant `variant` of csrc/<stem>.cu is built: a directory
+    of its own, holding its copy of every source."""
+    return OUT_DIR / variant / stem / f'lib{stem}.so'
+
+
+def build_all(baseline: Optional[str], baseline_probe: Optional[str]
+              ) -> dict[str, dict[str, ctypes.CDLL]]:
+    """Compile every live variant at once, each in its own copy of
+    csrc/; returns {variant: {'xnor' or 'probe': library}}. 'kernel' is
+    this tree's sources, 'baseline' the given ones."""
+    csrc = {f.name: f.read_text() for f in sorted(_build.CSRC.glob('*.cu*'))}
+    jobs: dict[tuple[str, str], dict[str, str]] = {
+        ('kernel', 'xnor'): csrc, ('kernel', 'probe'): csrc}
+    stale = []
+    for name in KNOCKOUTS:
+        text = variant_source(name, csrc['xnor.cu'])
+        if text is None:
+            stale.append(('conv_knockout', name))
+        elif name != 'kernel':
+            jobs[(name, 'xnor')] = {**csrc, 'xnor.cu': text}
+    for name, (fname, kernels) in WG_TARGETS.items():
+        text = variant_source(name, csrc[fname], WG_KNOCKOUTS)
+        if text is None:
+            stale.append(('wg_knockout', name))
+            continue
+        for stem in {'xnor' if k == 'xnor_gemm' else 'probe'
+                     for k in kernels}:
+            jobs[(name, stem)] = {**csrc, fname: text}
+    for stem, path in (('xnor', baseline), ('probe', baseline_probe)):
+        if path:
+            jobs[('baseline', stem)] = {**csrc,
+                                        f'{stem}.cu': Path(path).read_text()}
+    for probe, name in stale:
+        common.record(probe, torch.device('cuda'), variant=name, stale=True)
     procs = {}
-    for name, text in sources.items():
-        (OUT_DIR / f'{name}.cu').write_text(text)
+    for (name, stem), files in jobs.items():
+        d = lib_file(name, stem).parent
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, '-o',
-               str(OUT_DIR / f'{name}.so'), str(OUT_DIR / f'{name}.cu')]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
+               str(lib_file(name, stem)), str(d / f'{stem}.cu')]
+        procs[(name, stem)] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs: dict[str, dict[str, ctypes.CDLL]] = collections.defaultdict(dict)
+    for (name, stem), proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for variant {name}:\n{log}')
-        lib = ctypes.CDLL(str(OUT_DIR / f'{name}.so'))
-        for sym, argtypes in B._SIGNATURES.items():
+            raise RuntimeError(f'nvcc failed for variant {name} ({stem}.cu):'
+                               f'\n{log}')
+        lib = ctypes.CDLL(str(lib_file(name, stem)))
+        for sym, argtypes in SIGNATURES[stem].items():
             getattr(lib, sym).argtypes = argtypes
             getattr(lib, sym).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+        libs[name][stem] = lib
+    return dict(libs)
+
+
+def _functions(lib: str) -> dict[str, list[str]]:
+    """{SASS function name: its opcodes} of a built library."""
+    nvcc = Path(_build.nvcc_path())
+    sass = subprocess.run([str(nvcc.with_name('cuobjdump')), '-sass', lib],
+                          capture_output=True, text=True, check=True).stdout
+    return {f.split('\n')[0].strip(): re.findall(
+        r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)', f)
+        for f in sass.split('Function : ')[1:]}
 
 
 def sass_mix(lib: str) -> dict[str, Any]:
     """Opcode counts of the bf16 conv kernel's SASS from its first MMA to
     its last: one unrolled stage of kKS words."""
-    nvcc = Path(_build.nvcc_path())
-    sass = subprocess.run([str(nvcc.with_name('cuobjdump')), '-sass', lib],
-                          capture_output=True, text=True, check=True).stdout
-    body = next(f for f in sass.split('Function : ')
-                if 'xnor_conv2d_kernel' in f.split('\n')[0]
-                and 'bfloat16' in f.split('\n')[0])
-    ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)',
-                     body)
+    ops = next(ops for name, ops in _functions(lib).items()
+               if 'xnor_conv2d_kernel' in name and 'bfloat16' in name)
     mma = [i for i, op in enumerate(ops) if op == 'IMMA']
     window = collections.Counter(ops[mma[0]:mma[-1] + 1])
     return dict(instructions=sum(window.values()), imma=window['IMMA'],
                 top=dict(window.most_common(8)))
 
 
-def knockouts(libs: dict[str, ctypes.CDLL], dev: torch.device) -> None:
+def gemm_sass(lib: str) -> list[dict[str, Any]]:
+    """Per GEMM kernel of a library (xnor_gemm, tiled_matmul): its
+    instruction count and its tensor-core and TMA opcodes (HGMMA, IGMMA:
+    wgmma; HMMA, IMMA: mma.sync; UTMALDG: TMA loads)."""
+    rows = []
+    for name, ops in _functions(lib).items():
+        if 'xnor_gemm' not in name and 'tiled_matmul' not in name:
+            continue
+        count = collections.Counter(ops)
+        rows.append(dict(function=name, instructions=len(ops), **{
+            op.lower(): count[op]
+            for op in ('HGMMA', 'IGMMA', 'HMMA', 'IMMA', 'UTMALDG')}))
+    return rows
+
+
+def knockouts(libs: dict[str, dict[str, ctypes.CDLL]],
+              dev: torch.device) -> None:
     for n, hw, c, o in SHAPES:
         x = common.randint(-2 ** 31, 2 ** 31 - 1, (n, hw, hw, c // 32), dev,
                            torch.int32, seed=1)
@@ -141,18 +235,68 @@ def knockouts(libs: dict[str, ctypes.CDLL], dev: torch.device) -> None:
         kw = dict(in_channels=c, stride=1, padding=1, out_dtype=torch.bfloat16)
         want = B.xnor_conv2d_plain(x, w, vx, vw, bias, **kw)
         for name in KNOCKOUTS:
-            if name not in libs:
+            if 'xnor' not in libs.get(name, {}):
                 continue
             got = torch.empty_like(want)
             args = [_build.ptr(v) for v in (x, w, vx, vw, bias, got)] + [
                 n, hw, hw, c // 32, c, o, hw, hw, 3, 3, 1, 1,
                 _build.stream(x)]
-            lib = libs[name]
+            lib = libs[name]['xnor']
             ms = common.card_ms(lambda: lib.qtt_xnor_conv2d_bf16(*args),
                                 ITERS)
             common.record('conv_knockout', dev, variant=name,
                           shape=[n, hw, hw, c, o], ms=ms,
                           equal=bool(torch.equal(got, want)))
+
+
+def gemm_calls(dev: torch.device
+               ) -> dict[str, tuple[Callable, torch.Tensor, torch.Tensor]]:
+    """{GEMM kernel: (lib -> its bare launch, its output, the twin's)} at
+    GEMM_SHAPE and MATMUL_SHAPE, on inputs made from fixed seeds."""
+    m, k, n = GEMM_SHAPE
+    w = k // 32
+    a = common.randint(-2 ** 31, 2 ** 31 - 1, (m, w), dev, torch.int32, 3)
+    bt = common.randint(-2 ** 31, 2 ** 31 - 1, (w, n), dev, torch.int32, 4)
+    vx = torch.rand(m, device=dev) + 0.1
+    vw = torch.rand(n, device=dev) + 0.1
+    out = torch.empty(m, n, device=dev)
+    calls = {'xnor_gemm': (
+        lambda lib: launcher(lib['xnor'].qtt_xnor_gemm, (a, bt, vx, vw, out),
+                             (m, w, n, k, _build.stream(a))),
+        out, G.xnor_gemm_plain(a, bt, vx, vw, k))}
+    mm, kk, nn = MATMUL_SHAPE
+    for dt, entry in ((torch.bfloat16, 'qtt_tiled_matmul_bf16'),
+                      (torch.int8, 'qtt_tiled_matmul_s8')):
+        if dt == torch.int8:
+            x = common.randint(-128, 128, (mm, kk), dev, dt, 5)
+            y = common.randint(-128, 128, (kk, nn), dev, dt, 6)
+        else:
+            x = common.randint(-8, 9, (mm, kk), dev, dt, 5)
+            y = common.randint(-8, 9, (kk, nn), dev, dt, 6)
+        o = torch.empty(mm, nn, device=dev, dtype=dt)
+        name = 'tiled_matmul_' + ('int8' if dt == torch.int8 else 'bf16')
+        calls[name] = (
+            lambda lib, e=entry, x=x, y=y, o=o: launcher(
+                getattr(lib['probe'], e), (x, y, o),
+                (mm, nn, kk, _build.stream(x))),
+            o, PK.tiled_matmul_plain(x, y))
+    return calls
+
+
+def wg_knockouts(libs: dict[str, dict[str, ctypes.CDLL]],
+                 dev: torch.device) -> None:
+    calls = gemm_calls(dev)
+    for name, kernels in [('kernel', GEMMS)] + [
+            (n, t[1]) for n, t in WG_TARGETS.items()]:
+        if name not in libs:
+            continue
+        for kname in kernels:
+            make, got, want = calls[kname]
+            fn = make(libs[name])
+            ms = common.card_ms(fn, ITERS)
+            torch.cuda.synchronize()
+            common.record('wg_knockout', dev, variant=name, kernel=kname,
+                          ms=ms, equal=bool(torch.equal(got, want)))
 
 
 def captured_convs(dev: torch.device, batch: int = 128,
@@ -228,34 +372,59 @@ def lib_calls(lib: ctypes.CDLL, seen: list
     return packs, convs, unequal
 
 
-def baseline_vs_current(libs: dict[str, ctypes.CDLL],
+def _rounds(fns: dict[str, list[Callable[[], Any]]], dev: torch.device,
+            **kv: Any) -> None:
+    """Times fns['baseline'] and fns['current'] (each a list of launches,
+    summed) in the order baseline, current, current, baseline, on the
+    card timer and back to back."""
+    for rnd, name in enumerate(('baseline', 'current', 'current',
+                                'baseline')):
+        card = sum(common.card_ms(f, ITERS) for f in fns[name])
+        back = sum(common.card_ms(f, ITERS, head_start_ms=0)
+                   for f in fns[name])
+        common.record('xnor_baseline', dev, variant=name, round=rnd,
+                      launches=len(fns[name]), card_ms=card, call_ms=back,
+                      **kv)
+
+
+def baseline_vs_current(libs: dict[str, dict[str, ctypes.CDLL]],
                         dev: torch.device) -> None:
-    with torch.inference_mode():
-        seen = captured_convs(dev)
-        calls = {name: lib_calls(libs[name], seen)
-                 for name in ('baseline', 'kernel')}
-    for name, (_, _, unequal) in calls.items():
-        bad = unequal()
-        if bad:
-            raise AssertionError(f'{name} xnor.cu differs from the twins: '
-                                 f'{bad}')
-    for k, kname in enumerate(('pack_threshold_signs', 'xnor_conv2d')):
-        for rnd, name in enumerate(('baseline', 'kernel', 'kernel',
-                                    'baseline')):
-            fns = calls[name][k]
-            card = sum(common.card_ms(f, ITERS) for f in fns)
-            back = sum(common.card_ms(f, ITERS, head_start_ms=0)
-                       for f in fns)
-            common.record('xnor_baseline', dev, kernel=kname,
-                          variant='current' if name == 'kernel' else name,
-                          round=rnd, launches=len(fns), card_ms=card,
-                          call_ms=back)
+    base = libs['baseline']
+    if 'xnor' in base:
+        with torch.inference_mode():
+            seen = captured_convs(dev)
+            calls = {name: lib_calls(libs[lib]['xnor'], seen)
+                     for name, lib in (('baseline', 'baseline'),
+                                       ('current', 'kernel'))}
+        for name, (_, _, unequal) in calls.items():
+            bad = unequal()
+            if bad:
+                raise AssertionError(f'{name} xnor.cu differs from the '
+                                     f'twins: {bad}')
+        for k, kname in enumerate(('pack_threshold_signs', 'xnor_conv2d')):
+            _rounds({name: c[k] for name, c in calls.items()}, dev,
+                    kernel=kname)
+    gemms = gemm_calls(dev)
+    for kname, (make, got, want) in gemms.items():
+        stem = 'xnor' if kname == 'xnor_gemm' else 'probe'
+        if stem not in base:
+            continue
+        fns = {'baseline': [make(base)], 'current': [make(libs['kernel'])]}
+        for name, (fn,) in fns.items():
+            status = fn()
+            torch.cuda.synchronize()
+            if status or not torch.equal(got, want):
+                raise AssertionError(f'{name} {kname} differs from its twin '
+                                     f'(status {status})')
+        _rounds(fns, dev, kernel=kname)
 
 
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--baseline', default=None,
                     help='an xnor.cu to time against this tree\'s')
+    ap.add_argument('--baseline-probe', default=None,
+                    help='a probe.cu to time against this tree\'s')
     ap.add_argument('--out', default=None, help='also append the JSON '
                     'lines here')
     args = ap.parse_args(argv)
@@ -264,10 +433,16 @@ def main(argv: Optional[list[str]] = None) -> int:
         return 2
     common._out_path = args.out
     dev = torch.device('cuda')
-    libs = build_all(args.baseline)
-    common.record('conv_sass', dev, **sass_mix(str(OUT_DIR / 'kernel.so')))
+    libs = build_all(args.baseline, args.baseline_probe)
+    common.record('conv_sass', dev, **sass_mix(
+        str(lib_file('kernel', 'xnor'))))
+    for name in ('kernel', 'baseline'):
+        for stem in libs.get(name, {}):
+            for row in gemm_sass(str(lib_file(name, stem))):
+                common.record('gemm_sass', dev, variant=name, **row)
     knockouts(libs, dev)
-    if args.baseline:
+    wg_knockouts(libs, dev)
+    if 'baseline' in libs:
         baseline_vs_current(libs, dev)
     return 0
 

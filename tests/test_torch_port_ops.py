@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from quant_tpu.ops import binary_gemm as JG
 from quant_tpu.ops import binary_infer as JB
 from quant_tpu.ops.packing import pack_signs as j_pack_signs
@@ -99,8 +100,15 @@ def test_quantizer_ls_1_and_clamps(rng):
         get_clamp_fn('bogus')
 
 
+# The ragged shapes chip_smoke.py holds the CUDA kernel to its twin at:
+# W = 1, 5 and 145 words, K % 32 != 0, M and N off the 128x128 tile, N
+# odd. With these the chain kernel -> twin -> JAX is closed at each.
+XNOR_GEMM_RAGGED = list(chip_smoke.XNOR_GEMM_CHECK_SHAPES)
+
+
 @pytest.mark.parametrize('m,k,n', [
-    (8, 64, 16), (128, 128, 128), (130, 100, 140), (16, 512 + 17, 64)])
+    (8, 64, 16), (128, 128, 128), (130, 100, 140), (16, 512 + 17, 64),
+    *XNOR_GEMM_RAGGED])
 def test_xnor_gemm_matches_jax(rng, m, k, n):
     a = np.where(rng.standard_normal((m, k)) < 0, -1.0, 1.0)
     b = np.where(rng.standard_normal((k, n)) < 0, -1.0, 1.0)
@@ -128,7 +136,15 @@ def test_xnor_gemm_matches_jax(rng, m, k, n):
 
 @pytest.mark.parametrize('k', [32, 100])
 def test_xnor_gemm_unit_scales_integer_exact(rng, k):
-    m = n = 32
+    _unit_scales_integer_exact(rng, 32, k, 32)
+
+
+@pytest.mark.parametrize('m,k,n', XNOR_GEMM_RAGGED)
+def test_xnor_gemm_unit_scales_integer_exact_ragged(rng, m, k, n):
+    _unit_scales_integer_exact(rng, m, k, n)
+
+
+def _unit_scales_integer_exact(rng, m, k, n):
     a = np.where(rng.standard_normal((m, k)) < 0, -1.0, 1.0)
     b = np.where(rng.standard_normal((k, n)) < 0, -1.0, 1.0)
     ja, ta = _both(a)

@@ -23,6 +23,7 @@ import torch
 from quant_tpu.nn import QResNet as JQResNet
 from quant_tpu.nn import export as jexport
 from quant_tpu.ops.conv import stem_conv_s2d as j_stem_s2d
+from quant_tpu_torch import _build
 from quant_tpu_torch.nn import layers as tlayers
 from quant_tpu_torch.nn.resnet import QResNet
 from quant_tpu_torch.ops.conv import conv2d, stem_conv_s2d
@@ -404,3 +405,32 @@ def test_xnor_knockouts_apply_only_where_their_text_is(name):
         None if subs else 'other')
     assert xnor_variants.variant_source(name, src + src) == (
         None if subs else src + src)
+
+
+@pytest.mark.parametrize('name', sorted(xnor_variants.WG_KNOCKOUTS))
+def test_wgmma_knockouts_apply_to_their_file_only_where_their_text_is(name):
+    """Each knock-out of the wgmma core or its loaders names an existing
+    source and GEMM kernels to time, and substitutes as the conv's do
+    (checked on a stand-in source)."""
+    fname, kernels = xnor_variants.WG_TARGETS[name]
+    assert (_build.CSRC / fname).is_file()
+    assert kernels and set(kernels) <= set(xnor_variants.GEMMS)
+    subs = xnor_variants.WG_KNOCKOUTS[name]
+    src = 'head\n' + '\n'.join(old for old, _ in subs) + '\ntail\n'
+    want = 'head\n' + '\n'.join(new for _, new in subs) + '\ntail\n'
+    table = xnor_variants.WG_KNOCKOUTS
+    assert xnor_variants.variant_source(name, src, table) == want
+    assert xnor_variants.variant_source(name, 'other', table) is None
+    assert xnor_variants.variant_source(name, src + src, table) is None
+
+
+def test_variants_build_apart():
+    """Every (variant, source) pair is built in a directory of its own,
+    so a baseline xnor.cu and a baseline probe.cu cannot overwrite each
+    other's copy of the sources."""
+    assert set(xnor_variants.WG_TARGETS) == set(xnor_variants.WG_KNOCKOUTS)
+    pairs = {(v, s) for v in ('baseline', *xnor_variants.KNOCKOUTS,
+                              *xnor_variants.WG_KNOCKOUTS)
+             for s in ('xnor', 'probe')}
+    dirs = {xnor_variants.lib_file(v, s).parent for v, s in pairs}
+    assert len(dirs) == len(pairs)
