@@ -11,9 +11,12 @@ the chip-probe path:
    serving kernels at the serving path's shapes and, for xnor_conv2d and
    the producer, at the ragged CONV_CHECK_SHAPES and PACK_CHECK_SHAPES
    (an offset view too), xnor_gemm at the ragged XNOR_GEMM_CHECK_SHAPES
-   and at the layer4 GEMM; the probe kernels (add, tiled wgmma matmul in
-   bf16 and int8) at the probes' 4096^3, at a non-square shape and at K
-   of one slice (TF32 off everywhere);
+   and at the layer4 GEMM, the pool at POOL_CHECK_SHAPES (every load
+   width, offset views) with NaN and +-inf planted, by a NaN-aware
+   comparison; the probe kernels (add at the probe's shape, at the
+   bandwidth shape ADD_BW_SHAPE and ragged; tiled wgmma matmul in bf16
+   and int8) at the probes' 4096^3, at a non-square shape and at K of
+   one slice (TF32 off everywhere);
 3. builds the packed XNOR ResNet-18 (224 px, 1000 classes, the bench
    configuration of the JAX package) from seeded weights, prepares it
    with the port's own export, fold and strip, runs the bf16 chain at
@@ -26,8 +29,9 @@ the chip-probe path:
 5. times each kernel, its plain twin and a library yardstick with CUDA
    events behind a head start (the card's time, not the host's launch
    time; the report's `call_ms` times each kernel back to back, host
-   included), and the forward's images per second back to back (host
-   included) and behind a head start (the card alone);
+   included), the add also at ADD_BW_SHAPE beside an empty launch, and
+   the forward's images per second back to back (host included) and
+   behind a head start (the card alone);
 6. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
@@ -74,6 +78,8 @@ ONE_SLICE_SHAPES = {torch.bfloat16: (256, 32, 384), torch.int8: (256, 64, 384)}
 XNOR_GEMM_CHECK_SHAPES = ((200, 20, 22), (200, 150, 22), (200, 100, 22),
                           (130, 160, 13), (256, 4640, 384))
 ADD_SHAPE = (1024, 256)        # pallas_add's
+# 805 MB moved, far past the 50 MB L2: bytes set the add's time there.
+ADD_BW_SHAPE = (16384, 4096)
 # Ragged xnor_conv2d cases held against the twin, beside the serving
 # shapes: (N, H, W, C, O, k, stride, padding). Between them: C = 32, 33,
 # 40, 70 (words with 1 and with 31 pad bits, and Wc of 1, 2 and 3, so
@@ -98,6 +104,18 @@ CONV_CHECK_SHAPES = (
 # takes the 16-byte loads, with pad lanes when C % 32 != 0).
 PACK_CHECK_SHAPES = ((2, 9, 9, 32), (2, 9, 9, 33), (2, 8, 7, 40),
                      (3, 7, 7, 70), (3, 5, 5, 8), (1, 3, 3, 520))
+# Pool cases (N, H, W, C) held against the twin beside the serving map,
+# NaN, +inf and -inf planted (`plant_specials`), each also as a view one
+# element into its storage (the 2- or 4-byte route). C = 64, 8, 12, 3
+# and 70 take every route of csrc/pool.cu: 16, 16, 8, 2 and 4 bytes a
+# load in bf16, 16, 16, 16, 4 and 8 in f32. H or W of 2 is one output
+# row or column (the -inf pad on both sides), 112 several row tiles and
+# chunks of a row's items, 38 a ragged last row tile.
+POOL_CHECK_SHAPES = ((1, 2, 2, 64), (2, 6, 6, 8), (3, 6, 112, 12),
+                     (2, 112, 6, 3), (1, 6, 6, 70), (2, 2, 112, 70),
+                     (1, 38, 10, 64))
+# The load widths the pool checks must have taken, by dtype.
+POOL_ROUTES = {torch.bfloat16: {16, 8, 4, 2}, torch.float32: {16, 8, 4}}
 # The probe path: (module, probe, keyword arguments), in order.
 PROBE_PHASE = (
     ('probe_r2', 'pallas_add', {}),
@@ -141,15 +159,60 @@ def valid_taps(size: int, out: int, stride: int, pad: int, k: int) -> int:
                for o in range(out))
 
 
-def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor,
+                nan_ok: bool = False) -> float:
+    """Raises unless got equals want element for element; returns the
+    largest difference over the elements finite in both (0.0). With
+    nan_ok, NaN must stand where want has NaN and nowhere else, and the
+    other elements must be equal (torch.equal counts NaN unequal to
+    itself, and NaN payloads may differ, so bits are not compared)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f'{name}: {got.shape}/{got.dtype} vs '
                              f'{want.shape}/{want.dtype}')
-    err = (got.double() - want.double()).abs().max().item()
+    if nan_ok:
+        nan = want.isnan()
+        if not torch.equal(got.isnan(), nan):
+            raise AssertionError(f'{name}: NaN positions differ from the '
+                                 f'plain twin\'s')
+        got, want = got[~nan], want[~nan]
+    both = got.isfinite() & want.isfinite()
+    err = ((got[both].double() - want[both].double()).abs().max().item()
+           if both.any() else 0.0)
     if not torch.equal(got, want):
         raise AssertionError(f'{name}: kernel differs from its plain twin '
                              f'(max abs err {err})')
     return err
+
+
+def plant_specials(x: torch.Tensor, seed: int) -> torch.Tensor:
+    """x with NaN, +inf and -inf written in place at one element in 64
+    (at least three), chosen from `seed`, and -inf over rows and columns
+    0-1 of channel 0, a window of the pool that holds -inf alone."""
+    flat = x.view(-1)
+    k = max(3, flat.numel() // 64)
+    pos = np.random.default_rng(seed).choice(flat.numel(), k, replace=False)
+    vals = torch.tensor([float('nan'), float('inf'), float('-inf')])
+    flat[torch.from_numpy(pos).to(x.device)] = vals.repeat(k // 3 + 1)[
+        :k].to(x.device, x.dtype)
+    x[:, :2, :2, 0] = float('-inf')
+    return x
+
+
+def pool_route(x: torch.Tensor, out: torch.Tensor) -> int:
+    """The load width in bytes that csrc/pool.cu's launcher takes from x
+    to out, held equal to ops/pool.py's `vector_bytes`."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.ops import pool as P
+
+    lib = _build.load('pool', P._SIGNATURES)
+    got = lib.qtt_max_pool_vector_bytes(x.shape[-1] * x.element_size(),
+                                        _build.ptr(x), _build.ptr(out))
+    want = P.vector_bytes(x.shape[-1], x.element_size(), x.data_ptr(),
+                          out.data_ptr())
+    if got != want:
+        raise AssertionError(f'pool route {got} bytes, vector_bytes says '
+                             f'{want}')
+    return got
 
 
 def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
@@ -258,11 +321,31 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
     errs['pack_threshold_signs'] = pack_err
 
     pool_err = 0.0
+    routes: dict[torch.dtype, set[int]] = {}
     for dt in (torch.bfloat16, torch.float32):
         x = rand(batch, 112, 112, 64, dtype=dt)
         pool_err = max(pool_err, check_equal(
             f'max_pool_3x3_s2_p1 {dt}', max_pool_3x3_s2_p1(x),
             max_pool2d(x, kernel_size=3, stride=2, padding=1)))
+        cases = [((batch, 112, 112, 64), plant_specials(x, 0), '')]
+        for i, shape in enumerate(POOL_CHECK_SHAPES):
+            x = plant_specials(rand(*shape, dtype=dt), i + 1)
+            # The same values one element into a buffer: contiguous, but
+            # off 16 bytes, so the narrowest route of the dtype.
+            view = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
+            cases += [(shape, x, ''),
+                      (shape, view.view(shape).copy_(x), ' offset view')]
+        for shape, xin, where in cases:
+            got = max_pool_3x3_s2_p1(xin)
+            routes.setdefault(dt, set()).add(pool_route(xin, got))
+            pool_err = max(pool_err, check_equal(
+                f'max_pool_3x3_s2_p1 {dt} {shape}{where} NaN/inf', got,
+                max_pool2d(xin, kernel_size=3, stride=2, padding=1),
+                nan_ok=True))
+    if routes != POOL_ROUTES:
+        raise AssertionError(f'pool routes {routes}, expected {POOL_ROUTES}')
+    print(f'pool routes checked (bytes a load): '
+          f'{ {str(k): sorted(v) for k, v in routes.items()} }')
     errs['max_pool_3x3_s2_p1'] = pool_err
     torch.cuda.synchronize()
     return errs
@@ -282,12 +365,14 @@ def probe_kernel_phases(gen: torch.Generator) -> dict[str, float]:
     dev = DEVICE
     errs = {}
     add_err = 0.0
-    for shape in (ADD_SHAPE, (1000, 37)):
+    # (1001, 37): a float past the last whole float4, which the same
+    # launch adds.
+    for shape in (ADD_SHAPE, ADD_BW_SHAPE, (1000, 37), (1001, 37)):
         x = torch.randn(shape, generator=gen).to(dev)
         y = torch.randn(shape, generator=gen).to(dev)
         add_err = max(add_err, check_equal(
             f'add {shape}', PK.add(x, y), PK.add_plain(x, y)))
-    # A view one element into its storage takes the scalar path.
+    # A view one element into its storage takes the 4-byte loads.
     xv, yv = x.view(-1)[1:], y.view(-1)[1:]
     add_err = max(add_err, check_equal(
         'add offset view', PK.add(xv, yv), PK.add_plain(xv, yv)))
@@ -330,17 +415,25 @@ def time_probe_kernels(iters: int) -> list[dict]:
     from quant_tpu_torch.probes import kernels as PK
 
     gen = torch.Generator().manual_seed(2)
-    x = torch.randn(ADD_SHAPE, generator=gen).to(DEVICE)
-    y = torch.randn(ADD_SHAPE, generator=gen).to(DEVICE)
-    nb = 3 * x.numel() * 4
-    b, by = bound_ms(nb, x.numel(), FP32_OPS_PER_S)
-    rows = [dict(name='add_f32', ms=card_ms(lambda: PK.add(x, y), iters),
-                 call_ms=card_ms(lambda: PK.add(x, y), iters,
-                                 head_start_ms=0),
-                 plain_ms=card_ms(lambda: PK.add_plain(x, y), iters),
-                 library_ms=card_ms(lambda: torch.add(x, y), iters),
-                 bound_ms=b, bound_by=by, bytes=nb, ops=x.numel(),
-                 shape=list(ADD_SHAPE))]
+    adds = []
+    for shape in (ADD_SHAPE, ADD_BW_SHAPE):
+        x = torch.randn(shape, generator=gen).to(DEVICE)
+        y = torch.randn(shape, generator=gen).to(DEVICE)
+        nb = 3 * x.numel() * 4
+        b, by = bound_ms(nb, x.numel(), FP32_OPS_PER_S)
+        adds.append(dict(
+            ms=card_ms(lambda: PK.add(x, y), iters),
+            call_ms=card_ms(lambda: PK.add(x, y), iters, head_start_ms=0),
+            plain_ms=card_ms(lambda: PK.add_plain(x, y), iters),
+            library_ms=card_ms(lambda: torch.add(x, y), iters),
+            bound_ms=b, bound_by=by, bytes=nb, ops=x.numel(),
+            shape=list(shape)))
+        del x, y
+    # The card time of a launch of a kernel that does nothing: the floor
+    # under the add and torch.add at the probe's 3 MB.
+    rows = [dict(name='add_f32', **adds[0], bandwidth=adds[1],
+                 empty_launch_ms=card_ms(lambda: torch.cuda._sleep(0),
+                                         iters))]
     m, k, n = MATMUL_SHAPES[0]
     for dt, peak, lib in ((torch.bfloat16, BF16_OPS_PER_S, torch.matmul),
                           (torch.int8, INT8_OPS_PER_S, torch._int_mm)):
@@ -698,7 +791,9 @@ def main(argv: Optional[list[str]] = None) -> int:
                     on_main_path=want[r['name']] > 0,
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-                    bound_by=r['bound_by'], library_ms=r['library_ms'])
+                    bound_by=r['bound_by'], library_ms=r['library_ms'],
+                    **{k: r[k] for k in ('bandwidth', 'empty_launch_ms')
+                       if k in r})
                for r in rows]
     if args.report:
         with open(args.report, 'w') as f:

@@ -15,8 +15,17 @@
 //                            complement wrap of XLA's convert.
 //
 // What bounds them on an H100. The add reads two f32 arrays and writes
-// one: bytes. Each thread walks the array grid-stride with 16-byte loads
-// when all three pointers allow it (scalar otherwise). The matmul at
+// one: bytes (805 MB at (16384, 4096), 0.240 ms at 3.35 TB/s; at the
+// probe's (1024, 256), 3 MB, the time of a launch sets it). One launch:
+// a block for every tile of kAddVecs * kAddThreads vectors, each thread
+// issuing its kAddVecs 16-byte loads of x and of y before its first add
+// (4-byte loads unless all three pointers start on 16 bytes); the last n
+// % 4 elements go to the first threads of the same launch; streaming
+// cache hints (__ldcs/__stcs) below kHintBytes. Measured on the H100
+// (probes/xnor_variants.py): at (16384, 4096) one or four waves of
+// resident blocks walking the tiles grid-stride cost 3-6%, the hints
+// 2-4%; at (1024, 256) the hints save ~8%; 2 or 4 vectors a thread and
+// 128-thread blocks move either under 1-3%. The matmul at
 // 4096^3 does 2*4096^3 operations on 100 MB (bf16): operations, on the
 // tensor cores (989 TFLOP/s bf16, 1,979 TOP/s int8), as the TPU kernels
 // ran on the MXU.
@@ -57,35 +66,98 @@ namespace {
 
 // ---------------------------------------------------------------- add
 
-__global__ void add_f32_vec4_kernel(const float4* __restrict__ x,
-                                    const float4* __restrict__ y,
-                                    float4* __restrict__ out, long long n4) {
-  long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n4; i += stride) {
-    float4 a = x[i], b = y[i];
-    out[i] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+constexpr int kAddThreads = 256;
+constexpr int kAddVecs = 1;   // vectors of x and of y a thread loads at once
+// The grid: 0 gives a block to every tile; k > 0 at most k waves of the
+// blocks the SMs hold at once, each walking tiles grid-stride.
+constexpr int kAddWaves = 0;
+// Streaming cache hints (evict first) while x, y and out together fit
+// the 50 MB L2: measured faster at 3 MB, slower at 805 MB; the sizes
+// between were not measured.
+constexpr long long kHintBytes = 50LL << 20;
+
+template <bool kHint, typename V>
+__device__ __forceinline__ V load_once(const V* p) {
+  if constexpr (kHint) return __ldcs(p);
+  return *p;
+}
+template <bool kHint, typename V>
+__device__ __forceinline__ void store_once(V* p, V v) {
+  if constexpr (kHint) {
+    __stcs(p, v);
+  } else {
+    *p = v;
   }
 }
 
-__global__ void add_f32_kernel(const float* __restrict__ x,
-                               const float* __restrict__ y,
-                               float* __restrict__ out, long long begin,
-                               long long n) {
-  long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = begin + blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n; i += stride) {
-    out[i] = x[i] + y[i];
+__device__ __forceinline__ float4 plus(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float plus(float a, float b) { return a + b; }
+
+// out = x + y over n floats, as n / (sizeof(V) / 4) vectors V, then the
+// floats past the last whole vector. A block takes tiles of kAddVecs *
+// kAddThreads vectors, grid-stride; thread t loads vectors t, t +
+// kAddThreads, ... of a tile, so each of its loads is coalesced.
+template <typename V, bool kHint>
+__global__ void __launch_bounds__(kAddThreads)
+    add_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                   float* __restrict__ out, long long n) {
+  constexpr int kPer = sizeof(V) / sizeof(float);
+  constexpr long long kTile = static_cast<long long>(kAddVecs) * kAddThreads;
+  const long long nv = n / kPer;
+  const V* xv = reinterpret_cast<const V*>(x);
+  const V* yv = reinterpret_cast<const V*>(y);
+  V* ov = reinterpret_cast<V*>(out);
+  for (long long i = blockIdx.x * kTile + threadIdx.x; i < nv;
+       i += gridDim.x * kTile) {
+    V a[kAddVecs], b[kAddVecs];
+#pragma unroll
+    for (int j = 0; j < kAddVecs; ++j) {
+      if (i + j * kAddThreads < nv) {
+        a[j] = load_once<kHint>(xv + i + j * kAddThreads);
+        b[j] = load_once<kHint>(yv + i + j * kAddThreads);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kAddVecs; ++j) {
+      if (i + j * kAddThreads < nv)
+        store_once<kHint>(ov + i + j * kAddThreads, plus(a[j], b[j]));
+    }
   }
+  const long long tail =
+      nv * kPer + blockIdx.x * static_cast<long long>(blockDim.x) +
+      threadIdx.x;
+  if (tail < n) out[tail] = x[tail] + y[tail];
 }
 
-// Enough blocks to fill the card several times over; the loops stride.
-unsigned grid_for(long long n) {
-  long long blocks = (n + qtt::kThreads - 1) / qtt::kThreads;
-  return static_cast<unsigned>(blocks < 4096 ? (blocks > 0 ? blocks : 1)
-                                             : 4096);
+// A block for each tile of kAddVecs * kAddThreads vectors, or at most
+// kAddWaves waves of the blocks the SMs hold at once.
+template <typename V, bool kHint>
+unsigned add_grid(long long nv) {
+  const long long tiles =
+      (nv + kAddThreads * kAddVecs - 1) / (kAddThreads * kAddVecs);
+  if (kAddWaves == 0) return static_cast<unsigned>(tiles < 1 ? 1 : tiles);
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, add_f32_kernel<V, kHint>, kAddThreads, 0);
+    if (per_sm <= 0) per_sm = 1;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long cap =
+      static_cast<long long>(kAddWaves) * per_sm * (sms > 0 ? sms : 1);
+  return static_cast<unsigned>(tiles < 1 ? 1 : (tiles < cap ? tiles : cap));
+}
+
+template <typename V, bool kHint>
+void launch_add(const float* x, const float* y, float* out, long long n,
+                cudaStream_t s) {
+  add_f32_kernel<V, kHint>
+      <<<add_grid<V, kHint>(n / (sizeof(V) / sizeof(float))), kAddThreads, 0,
+         s>>>(x, y, out, n);
 }
 
 // -------------------------------------------------------------- matmul
@@ -302,17 +374,20 @@ int launch_matmul(Kernel kernel, int threads, int smem_bytes, int slice,
 
 extern "C" int qtt_add_f32(const void* x, const void* y, void* out,
                            long long n, int vec4, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
-  long long n4 = vec4 ? n / 4 : 0;
-  if (n4 > 0) {
-    add_f32_vec4_kernel<<<grid_for(n4), qtt::kThreads, 0, s>>>(
-        static_cast<const float4*>(x), static_cast<const float4*>(y),
-        static_cast<float4*>(out), n4);
-  }
-  if (4 * n4 < n) {
-    add_f32_kernel<<<grid_for(n - 4 * n4), qtt::kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<float*>(out), 4 * n4, n);
+  auto xs = static_cast<const float*>(x);
+  auto ys = static_cast<const float*>(y);
+  auto os = static_cast<float*>(out);
+  const bool hint = 12 * n <= kHintBytes;  // x, y and out, 4 bytes each
+  if (vec4 && hint) {
+    launch_add<float4, true>(xs, ys, os, n, s);
+  } else if (vec4) {
+    launch_add<float4, false>(xs, ys, os, n, s);
+  } else if (hint) {
+    launch_add<float, true>(xs, ys, os, n, s);
+  } else {
+    launch_add<float, false>(xs, ys, os, n, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,9 @@
 
 `max_pool_3x3_s2_p1` launches the CUDA kernel in csrc/pool.cu for a CUDA
 tensor and runs its plain twin, `ops.conv.max_pool2d`, for a CPU tensor.
-Both are a max over the same 9 values, so they agree bit for bit.
+Both take the max over the same 9 values, with NaN propagated as
+lax.max does, so they agree exactly: equal values, NaN where the other
+has NaN (its payload may differ).
 """
 
 import ctypes
@@ -15,7 +17,10 @@ from quant_tpu_torch.ops.conv import IntOr2, _pair, max_pool2d
 _SIG = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
 _SIGNATURES = {'qtt_max_pool_3x3_s2_p1_f32': _SIG,
-               'qtt_max_pool_3x3_s2_p1_bf16': _SIG}
+               'qtt_max_pool_3x3_s2_p1_bf16': _SIG,
+               'qtt_max_pool_vector_bytes': [ctypes.c_longlong,
+                                             ctypes.c_void_p,
+                                             ctypes.c_void_p]}
 _ENTRY = {torch.float32: 'qtt_max_pool_3x3_s2_p1_f32',
           torch.bfloat16: 'qtt_max_pool_3x3_s2_p1_bf16'}
 
@@ -28,6 +33,18 @@ def pool_fusable(x_shape: tuple[int, ...], kernel_size: IntOr2,
     _, h, w, _ = x_shape
     return (_pair(kernel_size) == (3, 3) and _pair(stride) == (2, 2)
             and _pair(padding) == (1, 1) and h % 2 == 0 and w % 2 == 0)
+
+
+def vector_bytes(c: int, itemsize: int, *ptrs: int) -> int:
+    """Bytes each load and store of the kernel moves for C channels of
+    `itemsize` bytes at these addresses: the widest of 16, 8, 4 and 2
+    that divides a pixel's C * itemsize bytes and every pointer, as the
+    launcher in csrc/pool.cu chooses (a float32 route is never narrower
+    than 4)."""
+    v = 16
+    while v > 2 and ((c * itemsize) % v or any(p % v for p in ptrs)):
+        v //= 2
+    return v
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

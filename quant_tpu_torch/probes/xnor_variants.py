@@ -16,21 +16,42 @@ records the instruction mix of the conv's unrolled stage and the
 tensor-core opcode counts of every GEMM kernel built (`sass_mix`,
 `gemm_sass`).
 
-Baselines (--baseline PATH, --baseline-probe PATH). Another xnor.cu or
-probe.cu with the same C interface, such as an earlier commit's
-(`git show REV:quant_tpu_torch/csrc/xnor.cu > build/xnor_base.cu`).
-The baseline xnor.cu's xnor_conv2d and pack_threshold_signs are timed
-against this tree's on the inputs the 16 binary convs of the seeded
-serving ResNet-18 see in one bf16 forward at batch 128 (times summed
-over the 16 launches), and its xnor_gemm at the layer4 GEMM; the
-baseline probe.cu's tiled_matmul, bf16 and int8, at 4096^3. Each in the
-order baseline, current, current, baseline, on two timers: card time
-behind a head start (`common.card_ms`) and back to back, host launch
-time included (bare launches, no Python wrapper). Both libraries'
-results must equal the plain twins'.
+The bandwidth kernels. `BW_VARIANTS` change one design choice of the
+stem pool (pool.cu: the neighbour's column by shuffle instead of from
+L1, 4 or 16 rows a thread, no vertical carry, registers capped for 6
+blocks an SM, 4-byte loads) or of the add (probe.cu: 2 or 4 vectors a
+thread, 128-thread blocks, streaming hints at no size or at every size,
+one or four waves of blocks walking the tiles grid-stride); each
+computes the right result and is timed against `kernel` on the card:
+the pool at the serving stem map (128, 112, 112, 64) in bf16 and f32,
+the add at the probe's (1024, 256) and at (16384, 4096), 805 MB moved.
+Beside them, in the same call: `F.max_pool2d` (channels-last),
+`torch.add` and the card time of an empty launch
+(`torch.cuda._sleep(0)`).
+
+Baselines (--baseline PATH, --baseline-probe PATH, --baseline-pool
+PATH). Another xnor.cu, probe.cu or pool.cu with the same C interface,
+such as an earlier commit's (`git show
+REV:quant_tpu_torch/csrc/xnor.cu > build/xnor_base.cu`). The baseline
+xnor.cu's xnor_conv2d and pack_threshold_signs are timed against this
+tree's on the inputs the 16 binary convs of the seeded serving
+ResNet-18 see in one bf16 forward at batch 128 (times summed over the
+16 launches), and its xnor_gemm at the layer4 GEMM; the baseline
+probe.cu's tiled_matmul, bf16 and int8, at 4096^3 and its add at both
+add shapes; the baseline pool.cu's pool at the stem map in bf16 and
+f32. Each in the order baseline, current, current, baseline (the pool
+and the add: baseline, current, library, library, current, baseline),
+on two timers: card time behind a head start (`common.card_ms`) and
+back to back, host launch time included (bare launches, no Python
+wrapper). Both libraries' results must equal the plain twins'.
+
+`--parts` picks what runs, of conv (conv knock-outs and SASS), gemm
+(wgmma knock-outs and SASS), pool and add (their variants); a baseline
+is timed for the parts that run.
 
 Usage: python -m quant_tpu_torch.probes.xnor_variants [--baseline PATH]
-           [--baseline-probe PATH] [--out PATH]
+           [--baseline-probe PATH] [--baseline-pool PATH]
+           [--parts conv,gemm,pool,add] [--out PATH]
 """
 
 import argparse
@@ -43,11 +64,14 @@ from pathlib import Path
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from quant_tpu_torch import _build
 from quant_tpu_torch.nn.layers import QuantConv2d
 from quant_tpu_torch.ops import binary_gemm as G
 from quant_tpu_torch.ops import binary_infer as B
+from quant_tpu_torch.ops import pool as P
+from quant_tpu_torch.ops.conv import max_pool2d
 from quant_tpu_torch.probes import common, models
 from quant_tpu_torch.probes import kernels as PK
 
@@ -104,6 +128,73 @@ WG_TARGETS: dict[str, tuple[str, tuple[str, ...]]] = {
     'core_no_mma': ('wgmma_core.cuh', GEMMS),
     'mm_no_transpose': ('probe.cu', ('tiled_matmul_int8',)),
 }
+# Variants of the bandwidth kernels, name: ((text, its stand-in), ...).
+# Each computes the same result as the source.
+_CARRY = '      const E a = hmax(p), b = hmax(p + row);\n'
+_SHFL = """template <typename E>
+__device__ __forceinline__ E shfl_up(E v, int d) {
+  if constexpr (sizeof(E) < 4) {
+    return static_cast<E>(__shfl_up_sync(~0u, unsigned{v}, d));
+  } else {
+    uint32_t w[sizeof(E) / 4];
+    memcpy(w, &v, sizeof(E));
+    for (auto& x : w) x = __shfl_up_sync(~0u, x, d);
+    memcpy(&v, w, sizeof(E));
+    return v;
+  }
+}
+
+"""
+BW_VARIANTS: dict[str, tuple[tuple[str, str], ...]] = {
+    # The left column from the neighbouring lane, cv lanes away, not a
+    # second read from L1; lanes below cv (every lane when cv >= 32, where
+    # the shuffle's offset wraps) load it.
+    'pool_shuffle': (
+        ('// Grid: x = image * chunks', _SHFL + '// Grid: x = image * chunks'),
+        ('    if (ox > 0 && live) left = __ldg(p - cv);\n',
+         '    left = shfl_up(right, cv);\n'
+         '    if (static_cast<int>(threadIdx.x % 32) < cv)\n'
+         '      left = ox > 0 && live ? __ldg(p - cv) : lo;\n')),
+    'pool_rows_4': (('constexpr int kPoolRows = 8;',
+                     'constexpr int kPoolRows = 4;'),),
+    'pool_rows_16': (('constexpr int kPoolRows = 8;',
+                      'constexpr int kPoolRows = 16;'),),
+    # Row 2oy-1 read again for every output row: three rows, not two.
+    'pool_no_carry': ((_CARRY, '      if (oy > oy0) carry = hmax(p - row);\n'
+                       + _CARRY),),
+    # Registers capped so that 6 blocks of 256 threads fit an SM.
+    'pool_6_blocks': (('__launch_bounds__(kPoolMaxThreads)',
+                       '__launch_bounds__(kPoolMaxThreads, 6)'),),
+    # At most 4 bytes a load and store (bf16 pairs, single floats).
+    'pool_4_byte_loads': (('  int v = 16;\n', '  int v = 4;\n'),),
+    'add_2_vectors': (('constexpr int kAddVecs = 1;',
+                       'constexpr int kAddVecs = 2;'),),
+    'add_4_vectors': (('constexpr int kAddVecs = 1;',
+                       'constexpr int kAddVecs = 4;'),),
+    'add_128_threads': (('constexpr int kAddThreads = 256;',
+                         'constexpr int kAddThreads = 128;'),),
+    # torch.add's geometry on sm_90: 128 threads, 8 floats a thread.
+    'add_2_vectors_128_threads': (
+        ('constexpr int kAddVecs = 1;', 'constexpr int kAddVecs = 2;'),
+        ('constexpr int kAddThreads = 256;',
+         'constexpr int kAddThreads = 128;')),
+    # Streaming cache hints at no size, or at every size.
+    'add_hints_never': (('constexpr long long kHintBytes = 50LL << 20;',
+                         'constexpr long long kHintBytes = 0;'),),
+    'add_hints_always': (('constexpr long long kHintBytes = 50LL << 20;',
+                          'constexpr long long kHintBytes = 1LL << 62;'),),
+    # One or four waves of resident blocks walking the tiles grid-stride.
+    'add_one_wave': (('constexpr int kAddWaves = 0;',
+                      'constexpr int kAddWaves = 1;'),),
+    'add_4_waves': (('constexpr int kAddWaves = 0;',
+                     'constexpr int kAddWaves = 4;'),),
+}
+# The source each part's variants edit: a variant's name starts with its
+# part.
+BW_FILES = {'pool': 'pool.cu', 'add': 'probe.cu'}
+PARTS = ('conv', 'gemm', 'pool', 'add')
+POOL_SHAPE = (128, 112, 112, 64)    # the serving stem map
+ADD_SHAPES = ((1024, 256), (16384, 4096))
 # (N, H=W, C, O), 3x3, stride 1, padding 1: the layers' repeated convs.
 SHAPES = ((128, 56, 64, 64), (128, 28, 128, 128), (128, 14, 256, 256),
           (128, 7, 512, 512))
@@ -112,7 +203,7 @@ MATMUL_SHAPE = (4096, 4096, 4096)   # tiled_matmul (M, K, N): the probes'
 OUT_DIR = _build.BUILD_ROOT / 'variants'
 ITERS = 20  # timed calls per reading
 SIGNATURES = {'xnor': {**B._SIGNATURES, **G._SIGNATURES},
-              'probe': PK._SIGNATURES}
+              'probe': PK._SIGNATURES, 'pool': P._SIGNATURES}
 
 
 def variant_source(name: str, src: str,
@@ -133,22 +224,26 @@ def lib_file(variant: str, stem: str) -> Path:
     return OUT_DIR / variant / stem / f'lib{stem}.so'
 
 
-def build_all(baseline: Optional[str], baseline_probe: Optional[str]
+def build_all(baselines: dict[str, Optional[str]], parts: tuple[str, ...]
               ) -> dict[str, dict[str, ctypes.CDLL]]:
-    """Compile every live variant at once, each in its own copy of
-    csrc/; returns {variant: {'xnor' or 'probe': library}}. 'kernel' is
-    this tree's sources, 'baseline' the given ones."""
+    """Compile every live variant of `parts` at once, each in its own
+    copy of csrc/; returns {variant: {'xnor', 'probe' or 'pool':
+    library}}. 'kernel' is this tree's sources, 'baseline' the ones
+    `baselines` names by stem."""
     csrc = {f.name: f.read_text() for f in sorted(_build.CSRC.glob('*.cu*'))}
+    stems = {'conv': ('xnor',), 'gemm': ('xnor', 'probe'), 'pool': ('pool',),
+             'add': ('probe',)}
     jobs: dict[tuple[str, str], dict[str, str]] = {
-        ('kernel', 'xnor'): csrc, ('kernel', 'probe'): csrc}
+        ('kernel', stem): csrc for part in parts for stem in stems[part]}
     stale = []
-    for name in KNOCKOUTS:
+    for name in KNOCKOUTS if 'conv' in parts else ():
         text = variant_source(name, csrc['xnor.cu'])
         if text is None:
             stale.append(('conv_knockout', name))
         elif name != 'kernel':
             jobs[(name, 'xnor')] = {**csrc, 'xnor.cu': text}
-    for name, (fname, kernels) in WG_TARGETS.items():
+    for name, (fname, kernels) in (WG_TARGETS.items() if 'gemm' in parts
+                                   else ()):
         text = variant_source(name, csrc[fname], WG_KNOCKOUTS)
         if text is None:
             stale.append(('wg_knockout', name))
@@ -156,8 +251,18 @@ def build_all(baseline: Optional[str], baseline_probe: Optional[str]
         for stem in {'xnor' if k == 'xnor_gemm' else 'probe'
                      for k in kernels}:
             jobs[(name, stem)] = {**csrc, fname: text}
-    for stem, path in (('xnor', baseline), ('probe', baseline_probe)):
-        if path:
+    for name in BW_VARIANTS:
+        part = name.split('_')[0]
+        if part not in parts:
+            continue
+        fname = BW_FILES[part]
+        text = variant_source(name, csrc[fname], BW_VARIANTS)
+        if text is None:
+            stale.append(('bw_variant', name))
+        else:
+            jobs[(name, fname[:-3])] = {**csrc, fname: text}
+    for stem, path in baselines.items():
+        if path and ('kernel', stem) in jobs:
             jobs[('baseline', stem)] = {**csrc,
                                         f'{stem}.cu': Path(path).read_text()}
     for probe, name in stale:
@@ -180,8 +285,9 @@ def build_all(baseline: Optional[str], baseline_probe: Optional[str]
                                f'\n{log}')
         lib = ctypes.CDLL(str(lib_file(name, stem)))
         for sym, argtypes in SIGNATURES[stem].items():
-            getattr(lib, sym).argtypes = argtypes
-            getattr(lib, sym).restype = ctypes.c_int
+            if hasattr(lib, sym):  # an older source may lack a query
+                getattr(lib, sym).argtypes = argtypes
+                getattr(lib, sym).restype = ctypes.c_int
         libs[name][stem] = lib
     return dict(libs)
 
@@ -373,12 +479,13 @@ def lib_calls(lib: ctypes.CDLL, seen: list
 
 
 def _rounds(fns: dict[str, list[Callable[[], Any]]], dev: torch.device,
+            order: tuple[str, ...] = ('baseline', 'current', 'current',
+                                      'baseline'),
             **kv: Any) -> None:
-    """Times fns['baseline'] and fns['current'] (each a list of launches,
-    summed) in the order baseline, current, current, baseline, on the
-    card timer and back to back."""
-    for rnd, name in enumerate(('baseline', 'current', 'current',
-                                'baseline')):
+    """Times each list of launches of `fns` (summed) in `order`, by
+    default baseline, current, current, baseline, on the card timer and
+    back to back."""
+    for rnd, name in enumerate(order):
         card = sum(common.card_ms(f, ITERS) for f in fns[name])
         back = sum(common.card_ms(f, ITERS, head_start_ms=0)
                    for f in fns[name])
@@ -388,9 +495,22 @@ def _rounds(fns: dict[str, list[Callable[[], Any]]], dev: torch.device,
 
 
 def baseline_vs_current(libs: dict[str, dict[str, ctypes.CDLL]],
-                        dev: torch.device) -> None:
+                        dev: torch.device, parts: tuple[str, ...]) -> None:
     base = libs['baseline']
-    if 'xnor' in base:
+    for part in ('pool', 'add'):
+        stem = BW_FILES[part][:-3]
+        if part not in parts or stem not in base:
+            continue
+        for case, (make, got, want, library) in bw_calls(part, dev).items():
+            fns = {'baseline': [make(base)], 'current': [make(libs['kernel'])]}
+            for name, (fn,) in fns.items():
+                got.zero_()
+                _equal_or_raise(f'{name} {case}', fn, got, want)
+            # The library call in the same alternation.
+            _rounds({**fns, 'library': [library]}, dev, kernel=case,
+                    order=('baseline', 'current', 'library', 'library',
+                           'current', 'baseline'))
+    if 'xnor' in base and 'conv' in parts:
         with torch.inference_mode():
             seen = captured_convs(dev)
             calls = {name: lib_calls(libs[lib]['xnor'], seen)
@@ -404,6 +524,8 @@ def baseline_vs_current(libs: dict[str, dict[str, ctypes.CDLL]],
         for k, kname in enumerate(('pack_threshold_signs', 'xnor_conv2d')):
             _rounds({name: c[k] for name, c in calls.items()}, dev,
                     kernel=kname)
+    if 'gemm' not in parts:
+        return
     gemms = gemm_calls(dev)
     for kname, (make, got, want) in gemms.items():
         stem = 'xnor' if kname == 'xnor_gemm' else 'probe'
@@ -419,31 +541,112 @@ def baseline_vs_current(libs: dict[str, dict[str, ctypes.CDLL]],
         _rounds(fns, dev, kernel=kname)
 
 
+def bw_calls(part: str, dev: torch.device
+             ) -> dict[str, tuple[Callable, torch.Tensor, torch.Tensor,
+                                  Callable[[], Any]]]:
+    """{case: (lib -> its bare launch, its output, the twin's, the
+    library call)} of the pool (the stem map, bf16 and f32) or the add
+    (ADD_SHAPES), on inputs made from fixed seeds."""
+    calls = {}
+    if part == 'pool':
+        for dt, entry in ((torch.bfloat16, 'qtt_max_pool_3x3_s2_p1_bf16'),
+                          (torch.float32, 'qtt_max_pool_3x3_s2_p1_f32')):
+            x = common.randn(POOL_SHAPE, dev, dt, seed=7)
+            n, h, w, c = POOL_SHAPE
+            out = torch.empty(n, h // 2, w // 2, c, device=dev, dtype=dt)
+            calls[f'pool {str(dt)[6:]}'] = (
+                lambda lib, e=entry, x=x, out=out: launcher(
+                    getattr(lib['pool'], e), (x, out),
+                    (*POOL_SHAPE, _build.stream(x))),
+                out, max_pool2d(x, kernel_size=3, stride=2, padding=1),
+                lambda x=x: F.max_pool2d(common.nchw(x), 3, 2, 1))
+        return calls
+    for i, shape in enumerate(ADD_SHAPES):
+        x = common.randn(shape, dev, seed=8 + i)
+        y = common.randn(shape, dev, seed=10 + i)
+        out = torch.empty_like(x)
+        calls[f'add {shape}'] = (
+            lambda lib, x=x, y=y, out=out: launcher(
+                lib['probe'].qtt_add_f32, (x, y, out),
+                (x.numel(), 1, _build.stream(x))),
+            out, PK.add_plain(x, y), lambda x=x, y=y: torch.add(x, y))
+    return calls
+
+
+def _equal_or_raise(what: str, fn: Callable[[], int], got: torch.Tensor,
+                    want: torch.Tensor) -> None:
+    status = fn()
+    torch.cuda.synchronize()
+    if status or not torch.equal(got, want):
+        raise AssertionError(f'{what} differs from its twin (status '
+                             f'{status})')
+
+
+def bw_variants(libs: dict[str, dict[str, ctypes.CDLL]], part: str,
+                dev: torch.device) -> None:
+    """Each variant of `part` and the source as it is, timed on the card
+    and checked equal to the twin, with the library call and (add) an
+    empty launch beside them."""
+    stem = BW_FILES[part][:-3]
+    names = ['kernel'] + [n for n in BW_VARIANTS
+                          if n.startswith(part) and n in libs]
+    for case, (make, got, want, library) in bw_calls(part, dev).items():
+        for name in names:
+            fn = make(libs[name])
+            got.zero_()
+            _equal_or_raise(f'{name} {case}', fn, got, want)
+            common.record('bw_variant', dev, variant=name, source=stem,
+                          case=case, card_ms=common.card_ms(fn, ITERS))
+        common.record('bw_library', dev, case=case,
+                      card_ms=common.card_ms(library, ITERS),
+                      call_ms=common.card_ms(library, ITERS,
+                                             head_start_ms=0))
+    if part == 'add':
+        def empty() -> None:
+            torch.cuda._sleep(0)
+        common.record('empty_launch', dev,
+                      card_ms=common.card_ms(empty, ITERS),
+                      call_ms=common.card_ms(empty, ITERS, head_start_ms=0))
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--baseline', default=None,
                     help='an xnor.cu to time against this tree\'s')
     ap.add_argument('--baseline-probe', default=None,
                     help='a probe.cu to time against this tree\'s')
+    ap.add_argument('--baseline-pool', default=None,
+                    help='a pool.cu to time against this tree\'s')
+    ap.add_argument('--parts', default=','.join(PARTS),
+                    help=f'comma-separated, of {PARTS} (default: all)')
     ap.add_argument('--out', default=None, help='also append the JSON '
                     'lines here')
     args = ap.parse_args(argv)
+    parts = tuple(p for p in PARTS if p in args.parts.split(','))
+    if set(args.parts.split(',')) - set(PARTS):
+        ap.error(f'--parts takes {PARTS}, got {args.parts}')
     if not torch.cuda.is_available():
         print('xnor_variants: no CUDA device', file=sys.stderr)
         return 2
     common._out_path = args.out
     dev = torch.device('cuda')
-    libs = build_all(args.baseline, args.baseline_probe)
-    common.record('conv_sass', dev, **sass_mix(
-        str(lib_file('kernel', 'xnor'))))
-    for name in ('kernel', 'baseline'):
-        for stem in libs.get(name, {}):
-            for row in gemm_sass(str(lib_file(name, stem))):
-                common.record('gemm_sass', dev, variant=name, **row)
-    knockouts(libs, dev)
-    wg_knockouts(libs, dev)
+    libs = build_all({'xnor': args.baseline, 'probe': args.baseline_probe,
+                      'pool': args.baseline_pool}, parts)
+    if 'conv' in parts:
+        common.record('conv_sass', dev, **sass_mix(
+            str(lib_file('kernel', 'xnor'))))
+        knockouts(libs, dev)
+    if 'gemm' in parts:
+        for name in ('kernel', 'baseline'):
+            for stem in sorted(set(libs.get(name, {})) & {'xnor', 'probe'}):
+                for row in gemm_sass(str(lib_file(name, stem))):
+                    common.record('gemm_sass', dev, variant=name, **row)
+        wg_knockouts(libs, dev)
+    for part in parts:
+        if part in BW_FILES:
+            bw_variants(libs, part, dev)
     if 'baseline' in libs:
-        baseline_vs_current(libs, dev)
+        baseline_vs_current(libs, dev, parts)
     return 0
 
 

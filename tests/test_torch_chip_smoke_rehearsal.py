@@ -16,6 +16,7 @@ import torch
 
 import chip_smoke
 from quant_tpu_torch import _build
+from quant_tpu_torch.ops import pool
 
 KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -35,6 +36,12 @@ def rehearsal(monkeypatch):
                         lambda fn, *args, **kw: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, 'card_line', lambda: 'CPU, 0 W')
     monkeypatch.setattr(chip_smoke, 'MATMUL_SHAPES', ((128, 128, 128),))
+    monkeypatch.setattr(chip_smoke, 'ADD_BW_SHAPE', (64, 36))
+    # The launcher's route query needs the built library: here the
+    # wrapper's own rule stands in, on the CPU tensors' addresses.
+    monkeypatch.setattr(chip_smoke, 'pool_route', lambda x, out: (
+        pool.vector_bytes(x.shape[-1], x.element_size(), x.data_ptr(),
+                          out.data_ptr())))
     monkeypatch.setattr(chip_smoke, 'PROBE_PHASE', (
         ('probe_r2', 'pallas_add', {}),
         ('probe_r3', 'pallas_matmul_int8', {'n': 128, 'inner': 1}),
@@ -46,7 +53,8 @@ def rehearsal(monkeypatch):
     for name, value in (('synchronize', lambda *a: None),
                         ('is_available', lambda: True),
                         ('get_device_name', lambda *a: 'cpu'),
-                        ('device_count', lambda: 1)):
+                        ('device_count', lambda: 1),
+                        ('_sleep', lambda cycles: None)):
         monkeypatch.setattr(torch.cuda, name, value)
     yield main
 
@@ -71,3 +79,9 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys):
                                  1 if k['name'] in chip_smoke.PROBE_KERNELS
                                  else 0)
     assert any(ln.startswith('16 captured convs') for ln in lines)
+    assert "'torch.bfloat16': [2, 4, 8, 16], 'torch.float32': [4, 8, 16]" \
+        in next(ln for ln in lines if ln.startswith('pool routes checked'))
+    add = next(k for k in kernels if k['name'] == 'add_f32')
+    assert add['bandwidth']['shape'] == [64, 36]
+    assert {'ms', 'library_ms', 'bound_ms'} <= set(add['bandwidth'])
+    assert add['empty_launch_ms'] == 1.0

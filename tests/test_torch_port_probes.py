@@ -426,11 +426,30 @@ def test_wgmma_knockouts_apply_to_their_file_only_where_their_text_is(name):
 
 def test_variants_build_apart():
     """Every (variant, source) pair is built in a directory of its own,
-    so a baseline xnor.cu and a baseline probe.cu cannot overwrite each
+    so a baseline xnor.cu, probe.cu and pool.cu cannot overwrite each
     other's copy of the sources."""
     assert set(xnor_variants.WG_TARGETS) == set(xnor_variants.WG_KNOCKOUTS)
     pairs = {(v, s) for v in ('baseline', *xnor_variants.KNOCKOUTS,
-                              *xnor_variants.WG_KNOCKOUTS)
-             for s in ('xnor', 'probe')}
+                              *xnor_variants.WG_KNOCKOUTS,
+                              *xnor_variants.BW_VARIANTS)
+             for s in ('xnor', 'probe', 'pool')}
     dirs = {xnor_variants.lib_file(v, s).parent for v, s in pairs}
     assert len(dirs) == len(pairs)
+
+
+@pytest.mark.parametrize('name', sorted(xnor_variants.BW_VARIANTS))
+def test_bandwidth_variants_apply_to_the_sources_as_they_are(name):
+    """Each variant of the pool or the add names its part and changes the
+    source of that part as it stands: none is stale, so each is built
+    and timed."""
+    part = name.split('_')[0]
+    assert part in xnor_variants.BW_FILES and part in xnor_variants.PARTS
+    src = (_build.CSRC / xnor_variants.BW_FILES[part]).read_text()
+    got = xnor_variants.variant_source(name, src, xnor_variants.BW_VARIANTS)
+    assert got is not None and got != src
+
+
+def test_variants_parts_are_checked_before_the_device():
+    with pytest.raises(SystemExit):
+        xnor_variants.main(['--parts', 'pool,bogus'])
+    assert xnor_variants.main(['--parts', 'pool,add']) == 2  # no CUDA here
