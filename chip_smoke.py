@@ -1,38 +1,56 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (quant_tpu_torch) on one GPU.
 
-Drives the port's two paths end to end on the card, the serving path and
+Drives the port's paths end to end on the card, the serving paths and
 the chip-probe path:
 
 1. prints the card's name and power limit (nvidia-smi) and builds the
    CUDA sources of quant_tpu_torch/csrc (xnor.cu, pool.cu, probe.cu)
    with nvcc (sm_90a), all at once;
 2. holds each kernel against its plain PyTorch twin on the card: the
-   serving kernels at the serving path's shapes and, for xnor_conv2d and
-   the producer, at the ragged CONV_CHECK_SHAPES and PACK_CHECK_SHAPES
-   (an offset view too), xnor_gemm at the ragged XNOR_GEMM_CHECK_SHAPES
-   and at the layer4 GEMM, the pool at POOL_CHECK_SHAPES (every load
-   width, offset views) with NaN and +-inf planted, by a NaN-aware
-   comparison; the probe kernels (add at the probe's shape, at the
-   bandwidth shape ADD_BW_SHAPE and ragged; tiled wgmma matmul in bf16
-   and int8) at the probes' 4096^3, at a non-square shape and at K of
-   one slice (TF32 off everywhere);
-3. builds the packed XNOR ResNet-18 (224 px, 1000 classes, the bench
-   configuration of the JAX package) from seeded weights, prepares it
-   with the port's own export, fold and strip, runs the bf16 chain at
-   batch 128 and checks the launch counts (16 xnor_conv2d, 16 producer,
-   1 pool per forward, no probe kernel), then holds the fp32 chain on
-   the card against the same model on the CPU, and holds xnor_conv2d
-   (bf16 and f32 out) and the producer against their twins on every
-   conv input the forward captured;
+   serving kernels at the serving path's shapes and xnor_conv2d at the
+   ragged CONV_CHECK_SHAPES; its multi-plane form (xnor_conv2d_planes)
+   for every scheme pair of PLANE_X_SCHEMES x PLANE_W_SCHEMES at
+   PLANES_CHECK_SHAPES (LeNet-5's conv2 added), in bf16 and f32 out; the
+   producer (pack_sign_planes) folded and unfolded, k = 1 to 4, at
+   PLANES_PACK_SHAPES (PACK_CHECK_SHAPES and LeNet-5's conv2 input) with
+   NaN and +-inf planted, offset views too;
+   xnor_gemm at the ragged XNOR_GEMM_CHECK_SHAPES and at the layer4
+   GEMM, the pool at POOL_CHECK_SHAPES (every load width, offset views)
+   with NaN and +-inf planted, by a NaN-aware comparison; the probe
+   kernels (add at the probe's shape, at the bandwidth shape
+   ADD_BW_SHAPE and ragged; tiled wgmma matmul in bf16 and int8) at the
+   probes' 4096^3, at a non-square shape and at K of one slice (TF32
+   off everywhere);
+3. the main path: builds the packed ls-1 XNOR ResNet-18 (224 px, 1000
+   classes, the bench configuration of the JAX package) from seeded
+   weights, prepares it with the port's own export, fold and strip,
+   runs the bf16 chain at batch 128 and checks the launch counts (16
+   xnor_conv2d, 16 producer, 1 pool per forward, no other kernel), then
+   holds the fp32 chain on the card against the same model on the CPU,
+   and holds xnor_conv2d (bf16 and f32 out) and the producer against
+   their twins on every conv input the forward captured;
 4. serves 16 requests through InferenceEngine on the card;
 5. times each kernel, its plain twin and a library yardstick with CUDA
    events behind a head start (the card's time, not the host's launch
    time; the report's `call_ms` times each kernel back to back, host
    included), the add also at ADD_BW_SHAPE beside an empty launch, and
    the forward's images per second back to back (host included) and
-   behind a head start (the card alone);
-6. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+   behind a head start sized from the back-to-back time (the card
+   alone; not measured where the host still fell behind);
+6. runs the model phases (MODEL_PHASES), each with the launch counts
+   zeroed just before its forward and checked just after, its fp32
+   chain held against the CPU's and its forwards timed: ResNet-18 XNOR
+   with ls-T x ls-1 (the int8 route through the multi-plane kernels,
+   whose twins are held on its captured inputs and which are timed
+   there; it also serves 16 requests), ls-2 x ls-1 under 'auto' (the
+   bf16 bake) and under sign_compute='int8', gf-2 x ls-1; the regular
+   ls-1 ResNet-18 with the BN folded into the epilogue; the dense fp32
+   twins of both (TF32 off); the regular_bottleneck ResNet-50 of
+   cifar100_resnet50_ls2_tpu.yaml (ls-2 x ls-1, 32 px, 100 classes);
+   LeNet-5 ls-2 x ls-1 at 28 px (these two serve EMA scales where their
+   recipes solve per batch: RECIPE_CHANGES, in their records);
+7. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
@@ -47,6 +65,7 @@ Usage: python3 chip_smoke.py [--batch 128] [--iters 10] [--seed 0]
 
 import argparse
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -57,7 +76,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from quant_tpu_torch.probes.common import card_ms
+from quant_tpu_torch.probes import models
+from quant_tpu_torch.probes.common import card_alone_ms, card_ms, tf32
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak (2 ops/MAC)
@@ -104,6 +124,15 @@ CONV_CHECK_SHAPES = (
 # takes the 16-byte loads, with pad lanes when C % 32 != 0).
 PACK_CHECK_SHAPES = ((2, 9, 9, 32), (2, 9, 9, 33), (2, 8, 7, 40),
                      (3, 7, 7, 70), (3, 5, 5, 8), (1, 3, 3, 520))
+# The multi-plane forms at every CONV_CHECK_SHAPES case and LeNet-5's
+# conv2 (12x12x20 -> 50, 5x5, no padding), for each activation scheme
+# against each weight scheme but ls-1 x ls-1 (the single-plane kernel):
+# two planes with one scale (ls-T), two or three with their own.
+PLANES_CHECK_SHAPES = CONV_CHECK_SHAPES + ((3, 12, 12, 20, 50, 5, 1, 0),)
+PLANE_X_SCHEMES = ('ls-1', 'ls-2', 'ls-T', 'gf-2', 'gf-3')
+PLANE_W_SCHEMES = ('ls-1', 'ls-2', 'ls-T')
+# Producer cases beside PACK_CHECK_SHAPES: LeNet-5's conv2 input.
+PLANES_PACK_SHAPES = PACK_CHECK_SHAPES + ((3, 12, 12, 20),)
 # Pool cases (N, H, W, C) held against the twin beside the serving map,
 # NaN, +inf and -inf planted (`plant_specials`), each also as a view one
 # element into its storage (the 2- or 4-byte route). C = 64, 8, 12, 3
@@ -128,6 +157,59 @@ PROBE_PHASE = (
     ('probe_r3', 'batch_sweep_model', {'batches': (128, 512)}),
 )
 PROBE_KERNELS = ('add_f32', 'tiled_matmul_bf16', 'tiled_matmul_int8')
+# The kernels of the serving paths, launched by the model phases.
+SERVING_KERNELS = ('xnor_conv2d', 'xnor_conv2d_planes', 'pack_sign_planes',
+                   'max_pool_3x3_s2_p1', 'xnor_gemm')
+# Models of the model phases: key: (build(x_quant, w_quant, **kwargs),
+# input (H, W, C), its QuantConv2d count, stem pool launches a forward).
+PHASE_MODELS = {
+    'resnet18': (models.bench_resnet18, (224, 224, 3), 16, 1),
+    'resnet18_regular': (functools.partial(models.bench_resnet18,
+                                           block='regular'),
+                         (224, 224, 3), 16, 1),
+    'resnet50': (models.resnet50_cifar, (32, 32, 3), 48, 0),
+    'lenet': (models.lenet5, (28, 28, 1), 1, 0),
+}
+# The model phases, after the main path: (name, model, x_quant, w_quant,
+# options, kernel launches per QuantConv2d). Each is seeded, prepared
+# with the port's own export, fold and strip, and driven at the full
+# batch in bf16 (the fp32 twins, inference_mode 'dense', in float32 with
+# TF32 off, as bench.py's default_matmul_precision('highest')). Under
+# 'auto', ls-T x ls-1 takes the int8 route through the multi-plane
+# kernels (this slice's headline: the first phase); ls-2 and gf-2
+# activations take the bf16 bake, no kernel of the port; regular ls-1
+# the single-plane kernels.
+MODEL_PHASES = (
+    ('resnet18_xnor_lsT_ls1', 'resnet18', 'ls-T', 'ls-1', {},
+     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1}),
+    ('resnet18_xnor_ls2_ls1', 'resnet18', 'ls-2', 'ls-1', {}, {}),
+    ('resnet18_xnor_ls2_ls1_int8', 'resnet18', 'ls-2', 'ls-1',
+     {'sign_compute': 'int8'},
+     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1}),
+    ('resnet18_xnor_gf2_ls1', 'resnet18', 'gf-2', 'ls-1', {}, {}),
+    ('resnet18_regular_ls1', 'resnet18_regular', 'ls-1', 'ls-1', {},
+     {'xnor_conv2d': 1, 'pack_sign_planes': 1}),
+    ('resnet18_xnor_fp32', 'resnet18', 'fp', 'fp',
+     {'inference_mode': 'dense'}, {}),
+    ('resnet18_regular_fp32', 'resnet18_regular', 'fp', 'fp',
+     {'inference_mode': 'dense'}, {}),
+    ('resnet50_regular_bottleneck_ls2_ls1', 'resnet50', 'ls-2', 'ls-1', {},
+     {}),
+    ('lenet5_ls2_ls1', 'lenet', 'ls-2', 'ls-1', {}, {}),
+)
+# What a phase changes of the published recipe it takes its shapes from,
+# by PHASE_MODELS key. Both recipes solve ls-2's activation scales per
+# batch (moving_average_mode 'off'), which needs opt_v1 (Slice C); their
+# phases serve EMA scales instead.
+_EMA_FOR_OFF = {'moving_average_mode': {
+    'recipe': 'off', 'served': 'eval_only',
+    'why': 'the per-batch ls-2 solve needs opt_v1 (Slice C)'}}
+RECIPE_CHANGES = {
+    'resnet50': {'recipe': 'examples/cifar100/cifar100_resnet50_ls2_tpu.yaml',
+                 **_EMA_FOR_OFF},
+    'lenet': {'recipe': 'examples/mnist/mnist_ls1_weight_ls2_activation.yaml',
+              **_EMA_FOR_OFF},
+}
 
 # fp32 chain, card vs CPU: the binary convs, producers and pool are exact
 # on both; the stem conv, BN, 1x1 shortcuts and head round differently
@@ -292,6 +374,8 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
                 G.xnor_gemm_plain(a, bt, sx, sw, k)))
     errs['xnor_gemm'] = gemm_err
 
+    # The producer at k = 1 (ls-1) at the serving path's shapes; its
+    # ragged shapes and k > 1 are planes_kernel_phases'.
     pack_err = 0.0
     for dt in (torch.bfloat16, torch.float32):
         for hw, c in ((56, 64), (28, 128), (7, 512)):
@@ -300,25 +384,10 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
             flip = torch.where(rand(c) < -0.5, -1.0, 1.0)
             x[:, 0, 0] = t.to(dt)  # values on the rounded threshold
             pack_err = max(pack_err, check_equal(
-                f'pack_threshold_signs {dt} {hw}x{c}',
-                B.pack_threshold_signs(x, t, flip),
-                B.pack_threshold_signs_plain(x, t, flip)))
-        for shape in PACK_CHECK_SHAPES:
-            c = shape[-1]
-            t = rand(c) * 0.5
-            flip = torch.where(rand(c) < -0.5, -1.0, 1.0)
-            x = rand(*shape, dtype=dt)
-            x[0, 0, 0] = t.to(dt)
-            # The same values one element into a buffer: contiguous, but
-            # off the 16-byte boundary, so the scalar path.
-            view = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
-            view = view.view(shape).copy_(x)
-            for xin, where in ((x, ''), (view, ' offset view')):
-                pack_err = max(pack_err, check_equal(
-                    f'pack_threshold_signs {dt} {shape}{where}',
-                    B.pack_threshold_signs(xin, t, flip),
-                    B.pack_threshold_signs_plain(xin, t, flip)))
-    errs['pack_threshold_signs'] = pack_err
+                f'pack_sign_planes {dt} {hw}x{c} k=1',
+                B.pack_sign_planes(x, 1, None, t, flip),
+                B.pack_sign_planes_plain(x, 1, None, t, flip)))
+    errs['pack_sign_planes'] = pack_err
 
     pool_err = 0.0
     routes: dict[torch.dtype, set[int]] = {}
@@ -349,6 +418,74 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
     errs['max_pool_3x3_s2_p1'] = pool_err
     torch.cuda.synchronize()
     return errs
+
+
+def planes_kernel_phases(gen: torch.Generator) -> dict[str, float]:
+    """The multi-plane producer and conv against their plain twins:
+    every scheme pair of PLANE_X_SCHEMES x PLANE_W_SCHEMES at
+    PLANES_CHECK_SHAPES, in bf16 and f32 out, with a scale of its own
+    for every plane group (a swapped plane or scale shows); the producer
+    folded and unfolded, k = 1 to 4 (each plane count of the wide
+    kernel's instances), bf16 and f32 input, NaN and +-inf planted, as
+    given and as an offset view (off 16 bytes, so the scalar path).
+    Returns {kernel: max abs error}."""
+    from quant_tpu_torch.ops import binary_infer as B
+
+    dev = DEVICE
+
+    def rand(*shape: int, dtype: torch.dtype = torch.float32
+             ) -> torch.Tensor:
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def words(*shape: int) -> torch.Tensor:
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    conv_err = 0.0
+    for xs in PLANE_X_SCHEMES:
+        for ws in PLANE_W_SCHEMES:
+            if xs == ws == 'ls-1':
+                continue
+            k_a, k_w = B.sign_planes(xs), B.sign_planes(ws)
+            xg, wg = (2 if xs == 'ls-T' else 1), (2 if ws == 'ls-T' else 1)
+            for n, h, w_, c, o, k, s, p in PLANES_CHECK_SHAPES:
+                wc = -(-c // 32)
+                x, w = words(k_a, n, h, w_, wc), words(k_w, k, k, wc, o)
+                vx = rand(k_a // xg, n).abs() + 0.1
+                vw = rand(k_w // wg, o).abs() * 0.05 + 0.01
+                bias = rand(o)
+                kw = dict(in_channels=c, x_group=xg, w_group=wg, stride=s,
+                          padding=p)
+                for dt in (torch.bfloat16, torch.float32):
+                    conv_err = max(conv_err, check_equal(
+                        f'xnor_conv2d_planes {xs} x {ws} '
+                        f'{(n, h, w_, c, o, k, s, p)} {dt}',
+                        B.xnor_conv2d_planes(x, w, vx, vw, bias,
+                                             out_dtype=dt, **kw),
+                        B.xnor_conv2d_planes_plain(x, w, vx, vw, bias,
+                                                   out_dtype=dt, **kw)))
+    pack_err = 0.0
+    for i, shape in enumerate(PLANES_PACK_SHAPES):
+        n, c = shape[0], shape[-1]
+        for dt in (torch.bfloat16, torch.float32):
+            x = plant_specials(rand(*shape, dtype=dt), i)
+            t = rand(c) * 0.5
+            flip = torch.where(rand(c) < -0.5, -1.0, 1.0)
+            x[0, 0, 0] = t.to(dt)  # values on the rounded threshold
+            view = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
+            view = view.view(shape).copy_(x)
+            for k in (1, 2, 3, 4):
+                va = rand(k, c).abs() * 0.3 + 0.2
+                vs = rand(k, n).abs() * 0.3 + 0.2
+                for xin, where in ((x, ''), (view, ' offset view')):
+                    for mode, args in (('folded', (va, t, flip)),
+                                       ('unfolded', (vs,))):
+                        pack_err = max(pack_err, check_equal(
+                            f'pack_sign_planes {dt} {shape} k={k} {mode}'
+                            f'{where}', B.pack_sign_planes(xin, k, *args),
+                            B.pack_sign_planes_plain(xin, k, *args)))
+    torch.cuda.synchronize()
+    return {'xnor_conv2d_planes': conv_err, 'pack_sign_planes': pack_err}
 
 
 def probe_kernel_phases(gen: torch.Generator) -> dict[str, float]:
@@ -519,13 +656,13 @@ def captured_phases(conv_inputs: list) -> dict[str, float]:
 
     pack_err = conv_err = 0.0
     for i, (conv, xin) in enumerate(conv_inputs):
-        thresh, flip = conv.x_thresh, conv.x_flip
+        fold = (None, conv.x_thresh, conv.x_flip)
         for x in (xin, xin.float()):
             pack_err = max(pack_err, check_equal(
-                f'pack_threshold_signs captured {i} {x.dtype}',
-                B.pack_threshold_signs(x, thresh, flip),
-                B.pack_threshold_signs_plain(x, thresh, flip)))
-        words = B.pack_threshold_signs_plain(xin, thresh, flip)
+                f'pack_sign_planes captured {i} {x.dtype}',
+                B.pack_sign_planes(x, 1, *fold),
+                B.pack_sign_planes_plain(x, 1, *fold)))
+        words = B.pack_sign_planes_plain(xin, 1, *fold)[0]
         args = (words, conv.w_packed[0].contiguous(), conv.x_quantizer(xin)[0],
                 conv.w_scales[0], conv.bias)
         kw = dict(in_channels=xin.shape[-1], stride=conv.stride,
@@ -536,7 +673,7 @@ def captured_phases(conv_inputs: list) -> dict[str, float]:
                 B.xnor_conv2d(*args, out_dtype=dt, **kw),
                 B.xnor_conv2d_plain(*args, out_dtype=dt, **kw)))
     torch.cuda.synchronize()
-    return {'pack_threshold_signs': pack_err, 'xnor_conv2d': conv_err}
+    return {'pack_sign_planes': pack_err, 'xnor_conv2d': conv_err}
 
 
 def time_kernels(model: torch.nn.Module, x: torch.Tensor,
@@ -552,7 +689,7 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
     dt = model.eval_dtype
     rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                        bytes=0.0, ops=0.0, call_ms=0.0, shape_ms=[])
-            for name in ('xnor_conv2d', 'pack_threshold_signs')}
+            for name in ('xnor_conv2d', 'pack_sign_planes')}
 
     def kernel(row: dict, fn: Callable[[], Any]) -> None:
         # Card time per call, and (call_ms) back to back, host included.
@@ -565,16 +702,16 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
     for conv, xin in conv_inputs:
         n, h, w, c = xin.shape
         wc = packed_width(c)
-        thresh, flip = conv.x_thresh, conv.x_flip
+        fold = (None, conv.x_thresh, conv.x_flip)
         vx = conv.x_quantizer(xin)[0]
         wp = conv.w_packed[0].contiguous()
         vw = conv.w_scales[0]
         s = conv.stride
-        words = B.pack_threshold_signs(xin, thresh, flip)
-        r = rows['pack_threshold_signs']
-        kernel(r, lambda: B.pack_threshold_signs(xin, thresh, flip))
+        words = B.pack_sign_planes(xin, 1, *fold)[0]
+        r = rows['pack_sign_planes']
+        kernel(r, lambda: B.pack_sign_planes(xin, 1, *fold))
         r['plain_ms'] += card_ms(
-            lambda: B.pack_threshold_signs_plain(xin, thresh, flip), iters)
+            lambda: B.pack_sign_planes_plain(xin, 1, *fold), iters)
         nb = xin.numel() * xin.element_size() + 8 * c + words.numel() * 4
         r['bytes'] += nb
         r['bound_ms'] += bound_ms(nb, 2 * xin.numel(), FP32_OPS_PER_S)[0]
@@ -604,7 +741,7 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
     for r in rows.values():
         r['bound_by'] = ('bytes' if r['bytes'] / HBM_BYTES_PER_S
                          >= r['ops'] / INT8_OPS_PER_S else 'operations')
-    rows['pack_threshold_signs']['library_ms'] = None
+    rows['pack_sign_planes']['library_ms'] = None
 
     with torch.inference_mode():
         stem = torch.relu(model.bn1(model.conv1(x.to(dt), dt), dt))
@@ -644,13 +781,15 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
     return [dict(name=name, **row) for name, row in rows.items()]
 
 
-def serve(model: torch.nn.Module, seed: int) -> dict:
+def serve(model: torch.nn.Module, seed: int,
+          input_shape: tuple[int, ...] = (224, 224, 3),
+          classes: int = 1000) -> dict:
     """16 requests through InferenceEngine on the card, against predict."""
     from quant_tpu_torch.serving.engine import InferenceEngine
 
     images = np.random.default_rng(seed).standard_normal(
-        (16, 224, 224, 3)).astype(np.float32)
-    engine = InferenceEngine(model, (224, 224, 3), max_batch=16,
+        (16,) + tuple(input_shape)).astype(np.float32)
+    engine = InferenceEngine(model, input_shape, max_batch=16,
                              max_wait_ms=5.0, device=DEVICE)
     engine.warmup([16])
     # All 16 are queued before the scheduler starts, so it serves them as
@@ -662,7 +801,7 @@ def serve(model: torch.nn.Module, seed: int) -> dict:
     finally:
         engine.stop()
     want = engine.predict(images)
-    if not np.isfinite(got).all() or got.shape != (16, 1000):
+    if not np.isfinite(got).all() or got.shape != (16, classes):
         raise AssertionError(f'served logits bad: {got.shape}')
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     stats = engine.stats
@@ -671,6 +810,217 @@ def serve(model: torch.nn.Module, seed: int) -> dict:
     return dict(requests=16, batches=stats['batches'],
                 latency_ms=stats['latency_ms'],
                 max_abs_err=float(np.abs(got - want).max()))
+
+
+def fp32_against_cpu(model: torch.nn.Module, cpu_model: torch.nn.Module,
+                     x: torch.Tensor) -> tuple[float, float]:
+    """The model's float32 chain on the card (TF32 off) against the same
+    model on the CPU, on x: (max abs error, logit spread); raises beyond
+    FP32_REL_TOL of the spread."""
+    dt, model.eval_dtype = model.eval_dtype, None
+    with torch.inference_mode(), tf32(False):
+        got = model(x).cpu()
+        want = cpu_model(x.cpu())
+    model.eval_dtype = dt
+    spread = (want.max() - want.min()).item()
+    err = (got - want).abs().max().item()
+    if not err <= FP32_REL_TOL * spread:
+        raise AssertionError(f'fp32 chain disagrees with the CPU model: '
+                             f'max abs err {err}, spread {spread}')
+    return err, spread
+
+
+def _ms_or_not(ms: Optional[float], calls: int) -> str:
+    if ms is None:
+        return 'not measured: the host fell behind'
+    return f'{ms} ms over {calls} calls'
+
+
+def model_phase(name: str, build: str, x_quant: str, w_quant: str,
+                options: dict, per_conv: dict[str, int], batch: int,
+                iters: int, seed: int) -> tuple[dict, torch.nn.Module, list]:
+    """One model phase: seed and prepare the model on the CPU, copy it to
+    the card, drive one forward at `batch` with the launch counts zeroed
+    just before and read just after (each kernel `per_conv` times a
+    QuantConv2d, the stem pool where the model has one, nothing else),
+    hold its fp32 chain against the CPU's at batch 4, and time its
+    forwards back to back and on the card alone. Returns (record, the
+    card model, the (conv, input) pairs the forward captured)."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.nn.layers import QuantConv2d
+
+    make, hwc, n_convs, pools = PHASE_MODELS[build]
+    dense = options.get('inference_mode') == 'dense'
+    cpu_model = models.seeded_model(
+        make, x_quant, w_quant, 'cpu', seed,
+        moving_average_mode='off' if dense else 'eval_only', **options)
+    convs = sum(isinstance(m, QuantConv2d) for m in cpu_model.modules())
+    if convs != n_convs:
+        raise AssertionError(f'{name}: {convs} QuantConv2d, not {n_convs}')
+    model = copy.deepcopy(cpu_model).to(DEVICE)
+    model.eval_dtype = None if dense else torch.bfloat16
+    x = torch.randn((batch,) + hwc, generator=torch.Generator().manual_seed(
+        seed)).to(DEVICE)
+    want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
+    want.update({k: v * n_convs for k, v in per_conv.items()})
+    want['max_pool_3x3_s2_p1'] = pools
+    seen, hooks = capture_conv_inputs(model)
+    # The bf16 chains' only float32 convs are the bake's and fp
+    # activations', whose bf16 operands TF32 takes exactly; the fp32
+    # twins run with TF32 off.
+    with tf32(not dense):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with torch.inference_mode():
+            logits = model(x)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    for h in hooks:
+        h.remove()
+    if launches != want:
+        raise AssertionError(f'{name}: launches {launches}, expected {want}')
+    classes = logits.shape[-1]
+    if logits.shape[0] != batch or not logits.isfinite().all():
+        raise AssertionError(f'{name}: bad logits {tuple(logits.shape)}')
+    err, spread = fp32_against_cpu(model, cpu_model, x[:4])
+    with tf32(not dense), torch.inference_mode():
+        ms = card_ms(lambda: model(x), iters, head_start_ms=0)
+        ms_card, card_calls = card_alone_ms(lambda: model(x), iters, ms)
+    record = dict(name=name, x_quant=x_quant, w_quant=w_quant,
+                  dtype='float32' if dense else 'bfloat16', batch=batch,
+                  input=list(hwc), classes=classes, launches={
+                      k: v for k, v in launches.items() if v},
+                  ms_per_forward=ms, images_per_s=batch / ms * 1e3,
+                  ms_per_forward_card=ms_card, card_alone_calls=card_calls,
+                  fp32_max_abs_err=err,
+                  fp32_spread=spread, **options)
+    if build in RECIPE_CHANGES:
+        record['recipe_changes'] = RECIPE_CHANGES[build]
+    print(f'{name}: {ms} ms/forward, {batch / ms * 1e3} img/s (card alone '
+          f'{_ms_or_not(ms_card, card_calls)}); launches '
+          f'{record["launches"]}; fp32 vs CPU {err} (spread {spread})',
+          flush=True)
+    return record, model, seen
+
+
+def planes_captured(seen: list) -> dict[str, float]:
+    """The multi-plane producer and conv against their twins on every
+    conv input a folded multi-plane forward captured, the conv in bf16
+    and f32 out; returns {kernel: max abs error}."""
+    from quant_tpu_torch.ops import binary_infer as B
+
+    pack_err = conv_err = 0.0
+    for i, (conv, xin) in enumerate(seen):
+        k = B.sign_planes(conv.x_quant)
+        args = (conv.x_va, conv.x_thresh, conv.x_flip)
+        for x in (xin, xin.float()):
+            pack_err = max(pack_err, check_equal(
+                f'pack_sign_planes captured {i} {x.dtype}',
+                B.pack_sign_planes(x, k, *args),
+                B.pack_sign_planes_plain(x, k, *args)))
+        conv_args, kw = _planes_conv_args(conv, xin)
+        for dt in (torch.bfloat16, torch.float32):
+            conv_err = max(conv_err, check_equal(
+                f'xnor_conv2d_planes captured {i} {dt}',
+                B.xnor_conv2d_planes(*conv_args, out_dtype=dt, **kw),
+                B.xnor_conv2d_planes_plain(*conv_args, out_dtype=dt, **kw)))
+    torch.cuda.synchronize()
+    return {'pack_sign_planes': pack_err, 'xnor_conv2d_planes': conv_err}
+
+
+def _planes_conv_args(conv: torch.nn.Module, xin: torch.Tensor
+                      ) -> tuple[tuple, dict]:
+    """The multi-plane conv's arguments for a folded conv's input, as the
+    int8 route builds them (the words from the plain producer)."""
+    from quant_tpu_torch.ops import binary_infer as B
+
+    k = B.sign_planes(conv.x_quant)
+    xg = 2 if conv.x_quant == 'ls-T' else 1
+    wp = conv.w_packed.contiguous()
+    wg = 2 if conv.w_quant == 'ls-T' and wp.shape[0] == 2 else 1
+    words = B.pack_sign_planes_plain(xin, k, conv.x_va, conv.x_thresh,
+                                     conv.x_flip)
+    vx = conv.x_quantizer(xin)[:k // xg]
+    vw = conv.w_scales[:wp.shape[0] // wg]
+    return ((words, wp, vx, vw, conv.bias),
+            dict(in_channels=xin.shape[-1], x_group=xg, w_group=wg,
+                 stride=conv.stride, padding=conv.padding))
+
+
+def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
+    """The multi-plane conv and the producer (k planes) summed over the
+    launches of one forward at the captured inputs (bf16 out): card ms,
+    plain twin ms, a library yardstick for the conv (F.conv2d bf16 on
+    the merged {-2, 0, 2} / {-1, 1} operands, channels-last) and the
+    bound, max of bytes / HBM rate and 2*MACs*scale-group pairs / the
+    int8 peak. Returns (the conv's kernel row, the producer's timings)."""
+    from quant_tpu_torch.ops import binary_infer as B
+    from quant_tpu_torch.ops.packing import unpack_signs
+
+    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                       bytes=0.0, ops=0.0, call_ms=0.0, shape_ms=[])
+            for name in ('xnor_conv2d_planes', 'pack_sign_planes')}
+
+    def kernel(row: dict, fn: Callable[[], Any]) -> None:
+        t = card_ms(fn, iters)
+        row['ms'] += t
+        row['shape_ms'].append(t)
+        row['call_ms'] += card_ms(fn, iters, head_start_ms=0)
+
+    for conv, xin in seen:
+        n, h, w, c = xin.shape
+        k = B.sign_planes(conv.x_quant)
+        fold = (conv.x_va, conv.x_thresh, conv.x_flip)
+        r = rows['pack_sign_planes']
+        kernel(r, lambda: B.pack_sign_planes(xin, k, *fold))
+        r['plain_ms'] += card_ms(
+            lambda: B.pack_sign_planes_plain(xin, k, *fold), iters)
+        words = B.pack_sign_planes(xin, k, *fold)
+        nb = (xin.numel() * xin.element_size() + 4 * c * (2 + k)
+              + words.numel() * 4)
+        r['bytes'] += nb
+        r['bound_ms'] += bound_ms(nb, 2 * k * xin.numel(),
+                                  FP32_OPS_PER_S)[0]
+
+        (_, wp, vx, vw, bias), kw = _planes_conv_args(conv, xin)
+        args = (words, wp, vx, vw, bias)
+        out = B.xnor_conv2d_planes(*args, out_dtype=torch.bfloat16, **kw)
+        r = rows['xnor_conv2d_planes']
+        kernel(r, lambda: B.xnor_conv2d_planes(
+            *args, out_dtype=torch.bfloat16, **kw))
+        r['plain_ms'] += card_ms(lambda: B.xnor_conv2d_planes_plain(
+            *args, out_dtype=torch.bfloat16, **kw), iters)
+        # The library conv on JAX's merged operands (one scale a group).
+        xs = sum(unpack_signs(p, c, dtype=torch.bfloat16) for p in words)
+        ws = sum(B.unpack_weights_int8(p, c) for p in wp)
+        xs = xs.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        ws = ws.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        s, p = conv.stride, conv.padding
+        r['library_ms'] += card_ms(
+            lambda: F.conv2d(xs, ws, stride=s, padding=p), iters)
+        oh, ow, o = out.shape[1:]
+        kk = wp.shape[1]
+        macs = n * o * c * valid_taps(h, oh, s, p, kk) * valid_taps(
+            w, ow, s, p, kk)
+        # The function needs one int8 pass a pair of scale groups: planes
+        # that share a scale merge into one {-2, 0, 2} operand, as JAX's
+        # int8 route and the library yardstick above convolve them. The
+        # kernel runs a group's planes as more K instead, twice the MACs
+        # for ls-T; the bound does not count that choice.
+        pairs = (k // kw['x_group']) * (wp.shape[0] // kw['w_group'])
+        nb = (words.numel() + wp.numel()) * 4 + 4 * (n + 2 * o) \
+            + out.numel() * out.element_size()
+        r['bytes'] += nb
+        r['ops'] += 2 * macs * pairs
+        r['bound_ms'] += bound_ms(nb, 2 * macs * pairs, INT8_OPS_PER_S)[0]
+    for r in rows.values():
+        r['bound_by'] = ('bytes' if r['bytes'] / HBM_BYTES_PER_S
+                         >= r['ops'] / INT8_OPS_PER_S else 'operations')
+    rows['pack_sign_planes']['library_ms'] = None
+    return (dict(name='xnor_conv2d_planes', **rows['xnor_conv2d_planes']),
+            rows['pack_sign_planes'])
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -702,6 +1052,9 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     gen = torch.Generator().manual_seed(args.seed)
     errs = kernel_phases(args.batch, gen)
+    for kname, err in planes_kernel_phases(
+            torch.Generator().manual_seed(args.seed + 2)).items():
+        errs[kname] = max(errs.get(kname, 0.0), err)
     errs.update(probe_kernel_phases(
         torch.Generator().manual_seed(args.seed + 1)))
     print(f'kernels vs plain twins: {errs}', flush=True)
@@ -719,9 +1072,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     launches = _build.launch_counts()
     for h in hooks:
         h.remove()
-    want = {'xnor_conv2d': 16, 'pack_threshold_signs': 16,
-            'max_pool_3x3_s2_p1': 1, 'xnor_gemm': 0,
-            **{k: 0 for k in PROBE_KERNELS}}
+    want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
+    want.update(xnor_conv2d=16, pack_sign_planes=16, max_pool_3x3_s2_p1=1)
     if launches != want:
         raise AssertionError(f'launches {launches}, expected {want}')
     if logits.shape != (args.batch, 1000) or not logits.isfinite().all():
@@ -753,16 +1105,54 @@ def main(argv: Optional[list[str]] = None) -> int:
     # share: the same forwards queued behind a head start.
     ms_fwd = card_ms(lambda: model(x), args.iters, head_start_ms=0)
     img_s = args.batch / ms_fwd * 1e3
-    ms_fwd_card = card_ms(lambda: model(x), args.iters,
-                          head_start_ms=30.0 * args.iters)
+    ms_fwd_card, card_calls = card_alone_ms(lambda: model(x), args.iters,
+                                            ms_fwd)
     with torch.inference_mode():
         stem_ms = card_ms(lambda: torch.relu(model.bn1(
             model.conv1(x.to(torch.bfloat16), torch.bfloat16),
             torch.bfloat16)), args.iters)
     rows = time_kernels(model, x, seen, args.iters)
     print(f'main path bf16 batch {args.batch}: {ms_fwd} ms/forward, '
-          f'{img_s} img/s (card alone {ms_fwd_card} ms); stem conv+BN+ReLU '
-          f'{stem_ms} ms', flush=True)
+          f'{img_s} img/s (card alone {_ms_or_not(ms_fwd_card, card_calls)}'
+          f'); stem conv+BN+ReLU {stem_ms} ms', flush=True)
+
+    # The model phases; the first, ls-T x ls-1, is this path's headline:
+    # the multi-plane kernels are held against their twins on its
+    # captured inputs, timed there, and it serves 16 requests.
+    t0 = time.perf_counter()
+    phases, planes_launches = [], {}
+    for i, (name, build, xq, wq, options, per_conv) in enumerate(
+            MODEL_PHASES):
+        record, phase_model, phase_seen = model_phase(
+            name, build, xq, wq, options, per_conv, args.batch, args.iters,
+            args.seed + i)
+        if i == 0:
+            planes_launches = record['launches']
+            with torch.inference_mode():
+                captured = planes_captured(phase_seen)
+                conv_row, pack_row = time_planes_kernels(phase_seen,
+                                                         args.iters)
+            # The producer's row is the main path's (k = 1); its k = 2
+            # run in this phase goes beside it.
+            rows.append(conv_row)
+            next(r for r in rows if r['name'] == 'pack_sign_planes')[
+                'model_phase'] = dict(phase=name, launches=record[
+                    'launches'].get('pack_sign_planes', 0), **pack_row)
+            for kname, err in captured.items():
+                errs[kname] = max(errs[kname], err)
+            print(f'{len(phase_seen)} captured {name} convs vs plain twins: '
+                  f'{captured}', flush=True)
+            record['serving'] = serve(phase_model, args.seed,
+                                      tuple(record['input']),
+                                      record['classes'])
+            print(f'serving {name}: {record["serving"]}', flush=True)
+        phases.append(record)
+        del phase_model, phase_seen
+    phases_s = time.perf_counter() - t0
+    launches['xnor_conv2d_planes'] = planes_launches.get(
+        'xnor_conv2d_planes', 0)
+    want['xnor_conv2d_planes'] = launches['xnor_conv2d_planes']
+    print(f'model phases: {phases_s:.1f} s', flush=True)
 
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
@@ -773,14 +1163,15 @@ def main(argv: Optional[list[str]] = None) -> int:
     for kname in PROBE_KERNELS:
         launches[kname] = probe_launches[kname]
 
-    sources = {'xnor_conv2d': 'quant_tpu_torch/csrc/xnor.cu',
-               'pack_threshold_signs': 'quant_tpu_torch/csrc/xnor.cu',
-               'xnor_gemm': 'quant_tpu_torch/csrc/xnor.cu',
+    sources = {**{k: 'quant_tpu_torch/csrc/xnor.cu'
+                  for k in ('xnor_conv2d', 'xnor_conv2d_planes',
+                            'pack_sign_planes', 'xnor_gemm')},
                'max_pool_3x3_s2_p1': 'quant_tpu_torch/csrc/pool.cu',
                **{k: 'quant_tpu_torch/csrc/probe.cu' for k in PROBE_KERNELS}}
     replaces = {'xnor_conv2d': 'quant_tpu/ops/binary_gemm.py:41',
                 'xnor_gemm': 'quant_tpu/ops/binary_gemm.py:41',
-                'pack_threshold_signs': 'quant_tpu/ops/binary_infer.py:179',
+                'xnor_conv2d_planes': 'quant_tpu/ops/binary_infer.py:280',
+                'pack_sign_planes': 'quant_tpu/ops/binary_infer.py:149',
                 'max_pool_3x3_s2_p1': 'quant_tpu/ops/pool.py:87',
                 'add_f32': 'tools/probe_r2.py:408',
                 'tiled_matmul_bf16': 'tools/probe_r2.py:429',
@@ -792,8 +1183,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
-                    **{k: r[k] for k in ('bandwidth', 'empty_launch_ms')
-                       if k in r})
+                    **{k: r[k] for k in ('bandwidth', 'empty_launch_ms',
+                                         'model_phase') if k in r})
                for r in rows]
     if args.report:
         with open(args.report, 'w') as f:
@@ -801,8 +1192,10 @@ def main(argv: Optional[list[str]] = None) -> int:
                            batch=args.batch, ms_per_forward=ms_fwd,
                            images_per_s=img_s, stem_ms=stem_ms,
                            ms_per_forward_card=ms_fwd_card,
+                           card_alone_calls=card_calls,
                            fp32_max_abs_err=fp32_err, fp32_spread=spread,
                            serving=served, kernels=rows,
+                           model_phases=phases, model_phases_s=phases_s,
                            probes=records, probe_s=probe_s,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f, indent=1)

@@ -30,6 +30,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_declared: dict[str, set[str]] = {}
 
 
 class LaunchCounter:
@@ -138,13 +139,17 @@ def load(name: str, signatures: dict[str, Sequence]) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
-            for sym, argtypes in signatures.items():
-                fn = getattr(lib, sym)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
             lib.qtt_error_string.argtypes = [ctypes.c_int]
             lib.qtt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            _declared[name] = set()
+        # Several wrapper modules load one library, each with its own
+        # symbols: declare every symbol on its first load.
+        for sym in signatures.keys() - _declared[name]:
+            fn = getattr(lib, sym)
+            fn.argtypes = list(signatures[sym])
+            fn.restype = ctypes.c_int
+            _declared[name].add(sym)
         return lib
 
 

@@ -68,17 +68,40 @@
 //   piece of outputs in the then idle ring and stores it in 16-byte
 //   chunks, a row's 64 (bf16) or 128 (f32) bytes at a time.
 //
-// qtt_pack_threshold_signs_* -- the producer, no TPU kernel (XLA fused
-//   binary_infer.py:179-184 with packing.py:27-43): raw block input ->
-//   packed words, bit = (x - round_to_T(t) >= 0) XOR (flip < 0), pad bits
-//   set. Bound by bytes: it reads x once and writes 1/16 (bf16) of it.
-//   Design: when C % 8 == 0 and x sits on 16 bytes, each lane owns 8
-//   fixed channels (thresholds and flips loaded once) and walks pixels
-//   grid-stride with one 16-byte load (bf16; two for f32), neighbouring
-//   lanes on neighbouring addresses; it builds 8 bits and the 4 lanes of
-//   a word OR theirs with two shuffles. Pad groups of the last word are
-//   all-set lanes that load nothing. Any other C or base takes the scalar
-//   path: one warp per word, __ballot_sync.
+// qtt_xnor_conv2d_planes_* -- the conv's multi-plane form: JAX's int8
+//   pass loop (binary_infer.py:280-324, fused=False) over k_a activation
+//   and k_w weight planes (ls-2, ls-T, gf-k), bit for bit. Planes that
+//   share a scale form a group (ls-T's two, whose JAX operand is b1 + b2;
+//   ls-T weights with w_planes_share_scale). Bound by operations, as the
+//   ls-1 conv, times the plane pairs. Design: the ls-1 kernel's template
+//   with Multi = true. One CTA loops over the group pairs (weight groups
+//   outer); a group pair's plane pairs run through the same pipeline as
+//   more K, each padded to whole stages and its cursor rewound, so their
+//   integer dots add in the accumulators (the registers of the ls-1
+//   tile). Each group pair's term is rounded to the out dtype, added to
+//   the running sum that the same thread stored in `out` for the group
+//   before (rounded again), and the bias follows the last. One launch,
+//   not k_a * k_w launches and an add: the host's launch time already
+//   shows at batch 128.
+//
+// qtt_pack_sign_planes_* -- the producer, no TPU kernel (XLA fused
+//   binary_infer.py:149-206 with packing.py:27-43): one pass over the
+//   raw block input x writes k planes of packed sign words, (k, pixels,
+//   Wc); ls-1 is k = 1. Folded (thresh and flip given) it is
+//   threshold_sign_planes: u = x - t, p_1 = sign(u), p_{i+1} = sign(u -
+//   resid), resid += va_i * p_i, every op rounded to x's dtype; bit = p
+//   XOR (flip < 0). Unfolded it is activation_sign_planes (:109-146) on
+//   clamp(x) with per-sample scales, and a float32 scale times a bf16
+//   sign promotes the chain to float32. NaN packs as +1 (binary_sign's),
+//   pad bits are set. Bound by bytes: it reads x once and writes k/16 of
+//   it (bf16). Design: when C % 8 == 0 and x sits on 16 bytes, each lane
+//   owns 8 fixed channels (thresholds and flips loaded once) and walks
+//   pixels grid-stride with one 16-byte load (bf16; two for f32),
+//   neighbouring lanes on neighbouring addresses; per plane it builds 8
+//   bits and the 4 lanes of a word OR theirs with two shuffles. Pad
+//   groups of the last word are all-set lanes that load nothing. Any
+//   other C or base takes the scalar path: one warp per word, one
+//   __ballot_sync a plane.
 
 #include "common.cuh"
 #include "wgmma_core.cuh"
@@ -357,14 +380,40 @@ __device__ __forceinline__ int a_slot(int row, int kk) {
   return row * kKS + (kk ^ (((row >> 2) & 1) << 2));
 }
 
-template <typename OutT>
+// The multi-plane form's extra shape: ga activation groups of pa planes
+// and gw weight groups of pw planes (pa, pw = 2 where a scale covers two
+// planes, as ls-T's), the planes' strides in words, and the batch.
+struct PlaneShape {
+  int ga, pa, gw, pw, n;
+  long long x_plane, w_plane;
+};
+
+// a + b rounded to T, as `acc + term` in T does.
+__device__ __forceinline__ float add_round(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat16 add_round(__nv_bfloat16 a,
+                                                   __nv_bfloat16 b) {
+  return from_float<__nv_bfloat16>(__fadd_rn(to_float(a), to_float(b)));
+}
+
+// Multi = false: one activation plane against one weight plane, the
+// serving path's ls-1 conv. Multi = true: JAX's int8 pass loop over
+// plane groups (weight groups outer, activation groups inner). Each group
+// pair runs the whole pipeline with its plane pairs as more K (plane p's
+// words against weight plane q's, K padded to whole stages per pair),
+// so the integer dots of planes that share a scale add before the
+// epilogue; then its term is rounded to OutT and, from the second group
+// pair on, added to the partial sum in `out` in OutT's rounding (each
+// thread reads back only what it stored itself), the bias after the last.
+template <typename OutT, bool Multi>
 __global__ void __launch_bounds__(kConvThreads)
     xnor_conv2d_kernel(const uint32_t* __restrict__ x,
                        const uint32_t* __restrict__ wt,
                        const float* __restrict__ vx,
                        const float* __restrict__ vw,
                        const OutT* __restrict__ bias, OutT* __restrict__ out,
-                       ConvShape s) {
+                       ConvShape s, PlaneShape pl) {
   __shared__ __align__(16) uint32_t sa[kConvStages][kConvBM * kKS];
   __shared__ __align__(16) uint32_t sb[kConvStages][kKS * kConvBN];
   __shared__ uint32_t sv[kConvStages][kConvBM];  // valid bit per row, word
@@ -393,44 +442,11 @@ __global__ void __launch_bounds__(kConvThreads)
     iy0 = oy * s.stride - s.pad;
     ix0 = ox * s.stride - s.pad;
   }
-  int ti = 0, tj = 0, kq = 0, kidx = 0;
   const int b_lg = s.vb == 4 ? 2 : s.vb - 1;       // log2 of vb
   const int b_row_lg = 6 - b_lg;                   // pieces per B row
   static_assert(kConvBN == 64, "b_row_lg assumes 64 columns");
-
-  auto load_stage = [&](int slot, int k0) {
-    uint32_t valid = 0;
-    for (int j = 0; j < kKS; j += s.va) {
-      int iy = iy0 + ti, ix = ix0 + tj;
-      if (row_ok && kidx < s.ktot && iy >= 0 && iy < s.h && ix >= 0 &&
-          ix < s.w) {
-        cp_async_words(sa[slot] + a_slot(tid, j),
-                       x + (img + static_cast<long long>(iy) * s.w + ix) *
-                               s.wc + kq,
-                       s.va);
-        valid |= ((1u << s.va) - 1u) << j;
-      }
-      kidx += s.va;
-      kq += s.va;
-      if (kq == s.wc) {
-        kq = 0;
-        if (++tj == s.kw) {
-          tj = 0;
-          ++ti;
-        }
-      }
-    }
-    sv[slot][tid] = valid;
-    for (int p = tid; p < (kKS << b_row_lg); p += kConvThreads) {
-      int kr = p >> b_row_lg;
-      int col = (p & ((1 << b_row_lg) - 1)) << b_lg;
-      if (k0 + kr < s.ktot && n0 + col < s.o) {
-        cp_async_words(sb[slot] + kr * kConvBN + col,
-                       wt + static_cast<long long>(k0 + kr) * s.o + n0 + col,
-                       s.vb);
-      }
-    }
-  };
+  const int spp = (s.ktot + kKS - 1) / kKS;  // stages per plane pair
+  const int groups = Multi ? pl.ga * pl.gw : 1;
 
   // Pad channels of a tap's last word: bytes of channels >= cr are zeroed
   // in B (see expand_word for the channel each byte holds).
@@ -442,142 +458,230 @@ __global__ void __launch_bounds__(kConvThreads)
   }
   const int swz = ((g >> 2) & 1) << 2;  // a_slot's flip for this lane's rows
 
-  int acc[kConvMT][kConvNT][4];
-#pragma unroll
-  for (int i = 0; i < kConvMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kConvNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int gp = 0; gp < groups; ++gp) {
+    const int gi = Multi ? gp % pl.ga : 0;  // activation group
+    const int gj = Multi ? gp / pl.ga : 0;  // weight group
+    int ti = 0, tj = 0, kq = 0, kidx = 0;
+    const uint32_t* xp = x;
+    const uint32_t* wp = wt;
 
-  const int stages = (s.ktot + kKS - 1) / kKS;
-#pragma unroll
-  for (int st = 0; st < kConvStages - 1; ++st) {
-    if (st < stages) load_stage(st, st * kKS);
-    cp_async_commit();
-  }
+    // Stage st of this group pair: words k0.. of its plane pair.
+    auto load_stage = [&](int slot, int st) {
+      int k0 = st * kKS;
+      if constexpr (Multi) {
+        const int pair = st / spp, ls = st - pair * spp;
+        if (ls == 0) {  // a new plane pair: rewind the cursor
+          ti = tj = kq = kidx = 0;
+          xp = x + (gi * pl.pa + pair % pl.pa) * pl.x_plane;
+          wp = wt + (gj * pl.pw + pair / pl.pa) * pl.w_plane;
+        }
+        k0 = ls * kKS;
+      }
+      uint32_t valid = 0;
+      for (int j = 0; j < kKS; j += s.va) {
+        int iy = iy0 + ti, ix = ix0 + tj;
+        if (row_ok && kidx < s.ktot && iy >= 0 && iy < s.h && ix >= 0 &&
+            ix < s.w) {
+          cp_async_words(sa[slot] + a_slot(tid, j),
+                         xp + (img + static_cast<long long>(iy) * s.w + ix) *
+                                  s.wc + kq,
+                         s.va);
+          valid |= ((1u << s.va) - 1u) << j;
+        }
+        kidx += s.va;
+        kq += s.va;
+        if (kq == s.wc) {
+          kq = 0;
+          if (++tj == s.kw) {
+            tj = 0;
+            ++ti;
+          }
+        }
+      }
+      sv[slot][tid] = valid;
+      for (int p = tid; p < (kKS << b_row_lg); p += kConvThreads) {
+        int kr = p >> b_row_lg;
+        int col = (p & ((1 << b_row_lg) - 1)) << b_lg;
+        if (k0 + kr < s.ktot && n0 + col < s.o) {
+          cp_async_words(sb[slot] + kr * kConvBN + col,
+                         wp + static_cast<long long>(k0 + kr) * s.o + n0 +
+                             col,
+                         s.vb);
+        }
+      }
+    };
 
-  for (int kt = 0; kt < stages; ++kt) {
-    // Stage kt has landed; every warp is done with stage kt - 1, whose
-    // buffers the next load reuses.
-    cp_async_wait<kConvStages - 2>();
-    __syncthreads();
-    int next = kt + kConvStages - 1;
-    if (next < stages) load_stage(next % kConvStages, next * kKS);
-    cp_async_commit();
-
-    const int slot = kt % kConvStages;
-    const uint32_t* A = sa[slot];
-    const uint32_t* B = sb[slot] + wn * 32 + g;
-    uint32_t vm[kConvMT][2];
+    int acc[kConvMT][kConvNT][4];
 #pragma unroll
     for (int i = 0; i < kConvMT; ++i)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        vm[i][hh] = sv[slot][wm * 64 + i * 16 + hh * 8 + g];
-    // Bit kk set where word kt*kKS + kk is the last of its tap.
-    uint32_t last = 0;
-    if (s.cr < 32) {
-      for (int j = s.wc - 1 - (kt * kKS) % s.wc; j < kKS; j += s.wc)
-        last |= 1u << j;
+      for (int j = 0; j < kConvNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+    const int stages = Multi ? spp * pl.pa * pl.pw : spp;
+#pragma unroll
+    for (int st = 0; st < kConvStages - 1; ++st) {
+      if (st < stages) load_stage(st, st);
+      cp_async_commit();
     }
-    const int depth = min(kKS, s.ktot - kt * kKS);  // k-steps in the stage
+
+    for (int kt = 0; kt < stages; ++kt) {
+      // Stage kt has landed; every warp is done with stage kt - 1, whose
+      // buffers the next load reuses.
+      cp_async_wait<kConvStages - 2>();
+      __syncthreads();
+      int next = kt + kConvStages - 1;
+      if (next < stages) load_stage(next % kConvStages, next);
+      cp_async_commit();
+
+      const int slot = kt % kConvStages;
+      const int ls = Multi ? kt % spp : kt;  // the stage within its pair
+      const uint32_t* A = sa[slot];
+      const uint32_t* B = sb[slot] + wn * 32 + g;
+      uint32_t vm[kConvMT][2];
 #pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-      if (kk >= depth) break;
-      uint32_t bf[kConvNT][2];
+      for (int i = 0; i < kConvMT; ++i)
 #pragma unroll
-      for (int j = 0; j < kConvNT; ++j) {
-        expand_word(B[kk * kConvBN + j * 8], t, ~0u, bf[j][0], bf[j][1]);
+        for (int hh = 0; hh < 2; ++hh)
+          vm[i][hh] = sv[slot][wm * 64 + i * 16 + hh * 8 + g];
+      // Bit kk set where word ls*kKS + kk is the last of its tap.
+      uint32_t last = 0;
+      if (s.cr < 32) {
+        for (int j = s.wc - 1 - (ls * kKS) % s.wc; j < kKS; j += s.wc)
+          last |= 1u << j;
       }
-      if ((last >> kk) & 1u) {
+      const int depth = min(kKS, s.ktot - ls * kKS);  // k-steps in the stage
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        if (kk >= depth) break;
+        uint32_t bf[kConvNT][2];
 #pragma unroll
         for (int j = 0; j < kConvNT; ++j) {
-          bf[j][0] &= pad_lo;
-          bf[j][1] &= pad_hi;
+          expand_word(B[kk * kConvBN + j * 8], t, ~0u, bf[j][0], bf[j][1]);
         }
-      }
+        if ((last >> kk) & 1u) {
 #pragma unroll
-      for (int i = 0; i < kConvMT; ++i) {
-        uint32_t af[4];
+          for (int j = 0; j < kConvNT; ++j) {
+            bf[j][0] &= pad_lo;
+            bf[j][1] &= pad_hi;
+          }
+        }
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          int row = wm * 64 + i * 16 + hh * 8 + g;
-          // All ones if the word is a valid tap of a valid row, else 0.
-          uint32_t keep = static_cast<uint32_t>(
-              static_cast<int>(vm[i][hh] << (31 - kk)) >> 31);
-          expand_word(A[row * kKS + (kk ^ swz)], t, keep, af[hh],
+        for (int i = 0; i < kConvMT; ++i) {
+          uint32_t af[4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            int row = wm * 64 + i * 16 + hh * 8 + g;
+            // All ones if the word is a valid tap of a valid row, else 0.
+            uint32_t keep = static_cast<uint32_t>(
+                static_cast<int>(vm[i][hh] << (31 - kk)) >> 31);
+            expand_word(A[row * kKS + (kk ^ swz)], t, keep, af[hh],
                       af[2 + hh]);
+          }
+#pragma unroll
+          for (int j = 0; j < kConvNT; ++j) mma_s8(acc[i][j], af, bf[j]);
         }
-#pragma unroll
-        for (int j = 0; j < kConvNT; ++j) mma_s8(acc[i][j], af, bf[j]);
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it stages the epilogue
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: it stages the epilogue
 
-  // Epilogue: c[0], c[1] are row g, columns 2t, 2t+1; c[2], c[3] row g+8.
-  // Each warp writes one 16x32 m-tile of outputs to shared memory, then
-  // stores it row by row in 16-byte chunks.
-  float cw[kConvNT][2], cb[kConvNT][2];  // this lane's columns, loaded once
+    // Epilogue: c[0], c[1] are row g, columns 2t, 2t+1; c[2], c[3] row
+    // g+8. Each warp writes one 16x32 m-tile of outputs to shared memory,
+    // then stores it row by row in 16-byte chunks.
+    const float* vxg = vx + (Multi ? static_cast<long long>(gi) * pl.n : 0);
+    const float* vwg = vw + (Multi ? static_cast<long long>(gj) * s.o : 0);
+    const bool has_bias = !Multi && bias != nullptr;  // Multi: at the store
+    float cw[kConvNT][2], cb[kConvNT][2];  // this lane's columns, loaded once
 #pragma unroll
-  for (int j = 0; j < kConvNT; ++j) {
+    for (int j = 0; j < kConvNT; ++j) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      int oc = n0 + wn * 32 + j * 8 + 2 * t + e;
-      cw[j][e] = oc < s.o ? vw[oc] : 0.0f;
-      cb[j][e] = oc < s.o && bias ? to_float(bias[oc]) : 0.0f;
-    }
-  }
-  constexpr int kChunk = 16 / static_cast<int>(sizeof(OutT));  // per 16 B
-  constexpr int kPitch = 32 + kChunk;  // staged row: 16 B aligned, no bank
-                                       // conflicts for the pair writes
-  static_assert(4 * 16 * kPitch * sizeof(OutT) <= sizeof(sa), "staging");
-  OutT* tile = reinterpret_cast<OutT*>(&sa[0][0]) + (tid >> 5) * 16 * kPitch;
-  const long long pix = static_cast<long long>(s.oh) * s.ow;
-  const bool narrow = s.m <= 0xFFFFFFFFLL;  // 32-bit division suffices
-  const bool vec = s.o % kChunk == 0;       // whole chunks lie on 16 B
-  const int col0 = n0 + wn * 32;
-#pragma unroll
-  for (int i = 0; i < kConvMT; ++i) {
-    const long long mt0 = m0 + wm * 64 + i * 16;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      long long m = mt0 + hh * 8 + g;
-      if (m >= s.m) m = s.m - 1;  // any image: the row is not stored
-      float sx = vx[narrow ? static_cast<unsigned>(m) /
-                                 static_cast<unsigned>(pix)
-                           : m / pix];
-#pragma unroll
-      for (int j = 0; j < kConvNT; ++j) {
-        store_pair(tile + (hh * 8 + g) * kPitch + j * 8 + 2 * t,
-                   epilogue<OutT>(
-                       __fmul_rn(static_cast<float>(acc[i][j][2 * hh] >> 8),
-                                 __fmul_rn(sx, cw[j][0])),
-                       bias != nullptr, cb[j][0]),
-                   epilogue<OutT>(
-                       __fmul_rn(
-                           static_cast<float>(acc[i][j][2 * hh + 1] >> 8),
-                           __fmul_rn(sx, cw[j][1])),
-                       bias != nullptr, cb[j][1]));
+      for (int e = 0; e < 2; ++e) {
+        int oc = n0 + wn * 32 + j * 8 + 2 * t + e;
+        cw[j][e] = oc < s.o ? vwg[oc] : 0.0f;
+        cb[j][e] = oc < s.o && has_bias ? to_float(bias[oc]) : 0.0f;
       }
     }
-    __syncwarp();
-    for (int c = lane; c < 16 * (32 / kChunk); c += 32) {
-      int r = c / (32 / kChunk);
-      int cc = (c % (32 / kChunk)) * kChunk;
-      long long m = mt0 + r;
-      if (m >= s.m || col0 + cc >= s.o) continue;
-      const OutT* src = tile + r * kPitch + cc;
-      OutT* o = out + m * s.o + col0 + cc;
-      if (vec) {
-        *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int e = 0; e < kChunk && col0 + cc + e < s.o; ++e) o[e] = src[e];
+    constexpr int kChunk = 16 / static_cast<int>(sizeof(OutT));  // per 16 B
+    constexpr int kPitch = 32 + kChunk;  // staged row: 16 B aligned, no bank
+                                         // conflicts for the pair writes
+    static_assert(4 * 16 * kPitch * sizeof(OutT) <= sizeof(sa), "staging");
+    OutT* tile = reinterpret_cast<OutT*>(&sa[0][0]) + (tid >> 5) * 16 * kPitch;
+    const long long pix = static_cast<long long>(s.oh) * s.ow;
+    const bool narrow = s.m <= 0xFFFFFFFFLL;  // 32-bit division suffices
+    const bool vec = s.o % kChunk == 0;       // whole chunks lie on 16 B
+    const int col0 = n0 + wn * 32;
+    const bool first = gp == 0, final_term = gp == groups - 1;
+#pragma unroll
+    for (int i = 0; i < kConvMT; ++i) {
+      const long long mt0 = m0 + wm * 64 + i * 16;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        long long m = mt0 + hh * 8 + g;
+        if (m >= s.m) m = s.m - 1;  // any image: the row is not stored
+        float sx = vxg[narrow ? static_cast<unsigned>(m) /
+                                    static_cast<unsigned>(pix)
+                              : m / pix];
+#pragma unroll
+        for (int j = 0; j < kConvNT; ++j) {
+          store_pair(tile + (hh * 8 + g) * kPitch + j * 8 + 2 * t,
+                     epilogue<OutT>(
+                         __fmul_rn(static_cast<float>(acc[i][j][2 * hh] >> 8),
+                                   __fmul_rn(sx, cw[j][0])),
+                         has_bias, cb[j][0]),
+                     epilogue<OutT>(
+                         __fmul_rn(
+                             static_cast<float>(acc[i][j][2 * hh + 1] >> 8),
+                             __fmul_rn(sx, cw[j][1])),
+                         has_bias, cb[j][1]));
+        }
       }
+      __syncwarp();
+      for (int c = lane; c < 16 * (32 / kChunk); c += 32) {
+        int r = c / (32 / kChunk);
+        int cc = (c % (32 / kChunk)) * kChunk;
+        long long m = mt0 + r;
+        if (m >= s.m || col0 + cc >= s.o) continue;
+        const OutT* src = tile + r * kPitch + cc;
+        OutT* o = out + m * s.o + col0 + cc;
+        if constexpr (Multi) {
+          // The running sum in OutT: out holds the earlier terms, stored
+          // by this thread; the bias joins after the last term.
+          const int cnt = vec ? kChunk : min(kChunk, s.o - col0 - cc);
+          alignas(16) OutT v[kChunk];
+          if (vec) {
+            *reinterpret_cast<uint4*>(v) =
+                *reinterpret_cast<const uint4*>(src);
+            if (!first) {
+              alignas(16) OutT prev[kChunk];
+              *reinterpret_cast<uint4*>(prev) =
+                  *reinterpret_cast<const uint4*>(o);
+#pragma unroll
+              for (int e = 0; e < kChunk; ++e) v[e] = add_round(prev[e], v[e]);
+            }
+          } else {
+            for (int e = 0; e < cnt; ++e)
+              v[e] = first ? src[e] : add_round(o[e], src[e]);
+          }
+          if (final_term && bias != nullptr) {
+            for (int e = 0; e < cnt; ++e)
+              v[e] = add_round(v[e], bias[col0 + cc + e]);
+          }
+          if (vec) {
+            *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+          } else {
+            for (int e = 0; e < cnt; ++e) o[e] = v[e];
+          }
+        } else if (vec) {
+          *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < kChunk && col0 + cc + e < s.o; ++e) o[e] = src[e];
+        }
+      }
+      __syncwarp();
     }
-    __syncwarp();
+    if (Multi) __syncthreads();  // the staging is the next group's ring
   }
 }
 
@@ -600,15 +704,53 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// The producer's chain, for one channel of one pixel: u is the compared
+// value (x - t rounded to T when Folded, else clamp(x)), r the residual
+// sum so far (0 for the first plane, which compares u itself). Plane i's
+// sign is that of u - r (a float32 difference has the sign of the one
+// rounded to T); then r += s_i * p_i, rounded to T when Folded
+// (threshold_sign_planes runs in x's dtype) and to float32 when not
+// (activation_sign_planes promotes to float32). The bit is set where
+// p_i = +1: u - r >= 0, or NaN (binary_sign(NaN) is +1).
+template <typename T, bool Folded>
+__device__ __forceinline__ bool plane_bit(float u, float& r, float s,
+                                          bool first, bool more) {
+  // NaN is +1, as sign's.
+  const bool pos = !((first ? u : __fsub_rn(u, r)) < 0.0f);
+  if (more) {
+    const float sum = __fadd_rn(r, pos ? s : -s);
+    r = Folded ? round_to<T>(sum) : sum;
+  }
+  return pos;
+}
+
+// The scale of plane i for one channel (Folded: va[i][ch], rounded to T
+// as va[i].astype(x.dtype)) or one image (vs[i][img]).
+template <typename T, bool Folded>
+__device__ __forceinline__ float plane_scale(const float* scales, int i,
+                                             int ch, int c, long long img,
+                                             long long images) {
+  return Folded ? round_to<T>(__ldg(scales + static_cast<long long>(i) * c +
+                                    ch))
+                : __ldg(scales + i * images + img);
+}
+
 // C % 8 == 0 and x on 16 bytes. Thread gtid owns 8-channel group
 // j = gtid % (4 * wc) of pixels gtid / (4 * wc) + i * pix_step; groups
 // j >= C / 8 are pad (all bits set). 4 * wc and blockDim are multiples of
 // 4, so a word's four lanes are one aligned quad that leaves together.
-template <typename T>
-__global__ void pack_threshold_signs_wide_kernel(
+// Each pixel's k planes come from one load of x. K is k fixed at compile
+// time (0: k as given), so the plane loop unrolls. K = 1 (ls-1) has a
+// body of its own, the single-plane loop: on an H100 the general body at
+// k = 1 took 1.47x its time with k counted at run time, 1.056x with k
+// fixed.
+template <typename T, bool Folded, int K>
+__global__ void pack_sign_planes_wide_kernel(
     const T* __restrict__ x, const float* __restrict__ thresh,
-    const float* __restrict__ flip, uint32_t* __restrict__ out,
-    long long pixels, int c, int wc, long long pix_step) {
+    const float* __restrict__ flip, const float* __restrict__ scales,
+    uint32_t* __restrict__ out, long long pixels, int c, int wc, int k_arg,
+    long long hw, long long pix_step) {
+  const int k = K > 0 ? K : k_arg;
   long long gtid = blockIdx.x * static_cast<long long>(blockDim.x) +
                    threadIdx.x;
   const int groups = 4 * wc;
@@ -617,59 +759,116 @@ __global__ void pack_threshold_signs_wide_kernel(
   const int j = static_cast<int>(gtid % groups);
   const int ch0 = 8 * j;
   const bool live = ch0 < c;
-  // The threshold is rounded to x's dtype first (thresh.astype(x.dtype)
-  // in binary_infer.py:180); the sign of x - t survives the rounding of
-  // the difference, so comparing the float32 difference is exact.
   float tr[8];
   uint32_t neg = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    tr[i] = live ? round_to<T>(thresh[ch0 + i]) : 0.0f;
-    neg |= (live && flip[ch0 + i] < 0.0f ? 1u : 0u) << i;
+    tr[i] = Folded && live ? round_to<T>(thresh[ch0 + i]) : 0.0f;
+    neg |= (Folded && live && flip[ch0 + i] < 0.0f ? 1u : 0u) << i;
   }
   const unsigned quad = 0xFu << (threadIdx.x & 28);
   const int shift = 8 * (j & 3);
-  for (long long p = p0; p < pixels; p += pix_step) {
-    uint32_t bits = 0xFFu;  // pad channels are set
-    if (live) {
-      float v[8];
-      load8(x + p * c + ch0, v);
-      bits = 0;
+  if constexpr (K == 1) {
+    // The sign of x - t (t = 0 unfolded), which the rounding to T keeps:
+    // no rounding, no chain.
+    for (long long p = p0; p < pixels; p += pix_step) {
+      uint32_t bits = 0xFFu;  // pad channels are set
+      if (live) {
+        float v[8];
+        load8(x + p * c + ch0, v);
+        bits = 0;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        bits |= (__fsub_rn(v[i], tr[i]) >= 0.0f ? 1u : 0u) << i;
-      bits ^= neg;
+        for (int i = 0; i < 8; ++i)
+          bits |= (__fsub_rn(v[i], tr[i]) < 0.0f ? 0u : 1u) << i;
+        bits ^= neg;
+      }
+      uint32_t word = bits << shift;
+      word |= __shfl_xor_sync(quad, word, 1);
+      word |= __shfl_xor_sync(quad, word, 2);
+      if ((j & 3) == 0) out[p * wc + (j >> 2)] = word;
     }
-    uint32_t word = bits << shift;
-    word |= __shfl_xor_sync(quad, word, 1);
-    word |= __shfl_xor_sync(quad, word, 2);
-    if ((j & 3) == 0) out[p * wc + (j >> 2)] = word;
+    return;
+  }
+  const long long images = Folded ? 0 : pixels / hw;
+  const long long plane_words = pixels * wc;
+  for (long long p = p0; p < pixels; p += pix_step) {
+    float u[8], r[8];
+    if (live) {
+      load8(x + p * c + ch0, u);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (Folded) u[i] = round_to<T>(__fsub_rn(u[i], tr[i]));
+        r[i] = 0.0f;
+      }
+    }
+    const long long img = Folded ? 0 : p / hw;
+    uint32_t* o = out + p * wc + (j >> 2);
+#pragma unroll
+    for (int q = 0; q < k; ++q) {
+      uint32_t bits = 0xFFu;  // pad channels are set
+      if (live) {
+        bits = 0;
+        const bool more = q + 1 < k;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float s = more ? plane_scale<T, Folded>(scales, q, ch0 + i,
+                                                        c, img, images)
+                               : 0.0f;
+          bits |= (plane_bit<T, Folded>(u[i], r[i], s, q == 0, more) ? 1u
+                                                                   : 0u)
+                  << i;
+        }
+        bits ^= neg;
+      }
+      uint32_t word = bits << shift;
+      word |= __shfl_xor_sync(quad, word, 1);
+      word |= __shfl_xor_sync(quad, word, 2);
+      if ((j & 3) == 0) o[q * plane_words] = word;
+    }
   }
 }
 
-// Any C and base: one warp per output word, lane j reads channel 32w+j.
-template <typename T>
-__global__ void pack_threshold_signs_kernel(const T* __restrict__ x,
-                                            const float* __restrict__ thresh,
-                                            const float* __restrict__ flip,
-                                            uint32_t* __restrict__ out,
-                                            long long pixels, int c, int wc) {
+// Any C and base: one warp per output word, lane j on channel 32w+j,
+// one ballot per plane.
+template <typename T, bool Folded>
+__global__ void pack_sign_planes_kernel(
+    const T* __restrict__ x, const float* __restrict__ thresh,
+    const float* __restrict__ flip, const float* __restrict__ scales,
+    uint32_t* __restrict__ out, long long pixels, int c, int wc, int k,
+    long long hw) {
   long long gtid = blockIdx.x * static_cast<long long>(blockDim.x) +
                    threadIdx.x;
   long long word = gtid >> 5;
   int lane = threadIdx.x & 31;
-  // blockDim is a multiple of 32, so a warp leaves together and the
-  // ballot below always sees all 32 lanes.
+  // blockDim is a multiple of 32, so a warp leaves together and every
+  // ballot sees all 32 lanes.
   if (word >= pixels * wc) return;
   long long pix = word / wc;
   int ch = static_cast<int>(word % wc) * 32 + lane;
-  bool bit = true;  // pad channels are set
-  if (ch < c) {
-    float u = __fsub_rn(to_float(x[pix * c + ch]), round_to<T>(thresh[ch]));
-    bit = (u >= 0.0f) != (flip[ch] < 0.0f);
+  const bool live = ch < c;
+  float u = 0.0f, r = 0.0f;
+  bool neg = false;
+  if (live) {
+    u = to_float(x[pix * c + ch]);
+    if (Folded) {
+      u = round_to<T>(__fsub_rn(u, round_to<T>(thresh[ch])));
+      neg = flip[ch] < 0.0f;
+    }
   }
-  unsigned bits = __ballot_sync(0xffffffffu, bit);
-  if (lane == 0) out[word] = bits;
+  const long long images = pixels / hw;
+  const long long img = Folded ? 0 : pix / hw;
+  for (int q = 0; q < k; ++q) {
+    bool bit = true;  // pad channels are set
+    if (live) {
+      const bool more = q + 1 < k;
+      const float s = more ? plane_scale<T, Folded>(scales, q, ch, c, img,
+                                                    images)
+                           : 0.0f;
+      bit = plane_bit<T, Folded>(u, r, s, q == 0, more) != neg;
+    }
+    unsigned bits = __ballot_sync(0xffffffffu, bit);
+    if (lane == 0) out[q * pixels * wc + word] = bits;
+  }
 }
 
 // Widest cp.async piece (4, 2 or 1 words) that divides n and the base.
@@ -681,11 +880,11 @@ int piece_words(int n, const void* base) {
   return 1;
 }
 
-template <typename OutT>
+template <typename OutT, bool Multi = false>
 int launch_conv(const void* x, const void* w, const void* vx, const void* vw,
                 const void* bias, void* out, int n, int h, int wd, int wc,
                 int c, int o, int oh, int ow, int kh, int kw, int stride,
-                int pad, void* stream) {
+                int pad, void* stream, PlaneShape pl = PlaneShape{}) {
   ConvShape s;
   s.m = static_cast<long long>(n) * oh * ow;
   s.h = h; s.w = wd; s.wc = wc; s.o = o; s.oh = oh; s.ow = ow;
@@ -697,41 +896,84 @@ int launch_conv(const void* x, const void* w, const void* vx, const void* vw,
   if (s.m > 0 && o > 0) {
     dim3 grid(static_cast<unsigned>((s.m + kConvBM - 1) / kConvBM),
               static_cast<unsigned>((o + kConvBN - 1) / kConvBN));
-    xnor_conv2d_kernel<OutT>
+    pl.n = n;
+    pl.x_plane = static_cast<long long>(n) * h * wd * wc;
+    pl.w_plane = static_cast<long long>(kh) * kw * wc * o;
+    xnor_conv2d_kernel<OutT, Multi>
         <<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
             static_cast<const float*>(vx), static_cast<const float*>(vw),
-            static_cast<const OutT*>(bias), static_cast<OutT*>(out), s);
+            static_cast<const OutT*>(bias), static_cast<OutT*>(out), s, pl);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// Pixels one grid-stride step of a wide producer covers: enough threads
+// (4 * wc a pixel) to fill every SM twice (2048 a SM, 8 blocks of 256).
+long long wide_step(long long pixels, int wc) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long groups = 4LL * wc;
+  const long long cap = 2LL * (sms > 0 ? sms : 1) * 2048;
+  const long long step = cap / groups > 0 ? cap / groups : 1;
+  return step < pixels ? step : pixels;
+}
+
+// The producer: the wide kernel where C and x's base allow, else the
+// scalar one; hw is pixels an image (the per-sample scale's index is
+// pixel / hw).
+template <typename T, bool Folded>
+void launch_planes(const T* x, const float* th, const float* fl,
+                   const float* sc, uint32_t* o, long long pixels, int c,
+                   int wc, int k, long long hw, cudaStream_t st) {
+  if (c % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    const long long step = wide_step(pixels, wc);
+    const unsigned blocks = qtt::blocks_for(step * 4 * wc);
+    switch (k) {
+      case 1:
+        pack_sign_planes_wide_kernel<T, Folded, 1>
+            <<<blocks, qtt::kThreads, 0, st>>>(x, th, fl, sc, o, pixels, c,
+                                               wc, k, hw, step);
+        break;
+      case 2:
+        pack_sign_planes_wide_kernel<T, Folded, 2>
+            <<<blocks, qtt::kThreads, 0, st>>>(x, th, fl, sc, o, pixels, c,
+                                               wc, k, hw, step);
+        break;
+      case 3:
+        pack_sign_planes_wide_kernel<T, Folded, 3>
+            <<<blocks, qtt::kThreads, 0, st>>>(x, th, fl, sc, o, pixels, c,
+                                               wc, k, hw, step);
+        break;
+      default:
+        pack_sign_planes_wide_kernel<T, Folded, 0>
+            <<<blocks, qtt::kThreads, 0, st>>>(x, th, fl, sc, o, pixels, c,
+                                               wc, k, hw, step);
+    }
+  } else {
+    pack_sign_planes_kernel<T, Folded>
+        <<<qtt::blocks_for(pixels * wc * 32), qtt::kThreads, 0, st>>>(
+            x, th, fl, sc, o, pixels, c, wc, k, hw);
+  }
+}
+
 template <typename T>
-int launch_pack(const void* x, const void* thresh, const void* flip,
-                void* out, long long pixels, int c, int wc, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
+int launch_pack_planes(const void* x, const void* thresh, const void* flip,
+                       const void* scales, void* out, long long pixels,
+                       int c, int wc, int k, long long hw, void* stream) {
+  if (pixels <= 0 || k <= 0 || hw <= 0)
+    return static_cast<int>(cudaGetLastError());
   auto xs = static_cast<const T*>(x);
   auto th = static_cast<const float*>(thresh);
   auto fl = static_cast<const float*>(flip);
+  auto sc = static_cast<const float*>(scales);
   auto o = static_cast<uint32_t*>(out);
-  if (pixels <= 0) return static_cast<int>(cudaGetLastError());
-  if (c % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    // Enough threads to fill every SM twice (2048 a SM, 8 blocks of 256);
-    // each walks pixels grid-stride.
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const long long groups = 4LL * wc;
-    const long long cap = 2LL * (sms > 0 ? sms : 1) * 2048;
-    long long step = cap / groups > 0 ? cap / groups : 1;
-    if (step > pixels) step = pixels;
-    pack_threshold_signs_wide_kernel<T>
-        <<<qtt::blocks_for(step * groups), qtt::kThreads, 0, st>>>(
-            xs, th, fl, o, pixels, c, wc, step);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (th != nullptr) {
+    launch_planes<T, true>(xs, th, fl, sc, o, pixels, c, wc, k, hw, st);
   } else {
-    pack_threshold_signs_kernel<T>
-        <<<qtt::blocks_for(pixels * wc * 32), qtt::kThreads, 0, st>>>(
-            xs, th, fl, o, pixels, c, wc);
+    launch_planes<T, false>(xs, th, fl, sc, o, pixels, c, wc, k, hw, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -777,18 +1019,32 @@ extern "C" int qtt_xnor_conv2d_bf16(const void* x, const void* w,
                                     o, oh, ow, kh, kw, stride, pad, stream);
 }
 
-extern "C" int qtt_pack_threshold_signs_f32(const void* x, const void* thresh,
-                                            const void* flip, void* out,
-                                            long long pixels, int c, int wc,
-                                            void* stream) {
-  return launch_pack<float>(x, thresh, flip, out, pixels, c, wc, stream);
-}
+#define QTT_CONV_PLANES(SUFFIX, OUT_T)                                        \
+  extern "C" int qtt_xnor_conv2d_planes_##SUFFIX(                              \
+      const void* x, const void* w, const void* vx, const void* vw,          \
+      const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
+      int o, int oh, int ow, int kh, int kw, int stride, int pad, int ga,    \
+      int pa, int gw, int pw, void* stream) {                                \
+    PlaneShape pl{};                                                         \
+    pl.ga = ga;                                                              \
+    pl.pa = pa;                                                              \
+    pl.gw = gw;                                                              \
+    pl.pw = pw;                                                              \
+    return launch_conv<OUT_T, true>(x, w, vx, vw, bias, out, n, h, wd, wc,  \
+                                    c, o, oh, ow, kh, kw, stride, pad,       \
+                                    stream, pl);                             \
+  }
+QTT_CONV_PLANES(f32, float)
+QTT_CONV_PLANES(bf16, __nv_bfloat16)
 
-extern "C" int qtt_pack_threshold_signs_bf16(const void* x,
-                                             const void* thresh,
-                                             const void* flip, void* out,
-                                             long long pixels, int c, int wc,
-                                             void* stream) {
-  return launch_pack<__nv_bfloat16>(x, thresh, flip, out, pixels, c, wc,
-                                    stream);
-}
+// thresh and flip null: the unfolded mode (scales per sample).
+#define QTT_PACK_PLANES(SUFFIX, T)                                            \
+  extern "C" int qtt_pack_sign_planes_##SUFFIX(                                \
+      const void* x, const void* thresh, const void* flip,                   \
+      const void* scales, void* out, long long pixels, int c, int wc, int k, \
+      long long hw, void* stream) {                                          \
+    return launch_pack_planes<T>(x, thresh, flip, scales, out, pixels, c,    \
+                                 wc, k, hw, stream);                         \
+  }
+QTT_PACK_PLANES(f32, float)
+QTT_PACK_PLANES(bf16, __nv_bfloat16)

@@ -1,22 +1,24 @@
 """Serving preparation: pack, fold, strip (port of quant_tpu/nn/export.py:
-24-41, 145-345).
+24-134, 145-370).
 
 The JAX functions map variable trees to variable trees; here the state
-lives in the modules, so each function updates a QResNet in place and
-returns it. `packed_params_tree` reads the result back in the JAX
-tree's shape.
+lives in the modules, so each function updates a QResNet or QLeNet5 in
+place and returns it. `packed_params_tree` reads the result back in the
+JAX tree's shape.
 """
 
 import logging
 
+import numpy as np
 import torch
 
 from quant_tpu_torch.nn.layers import QuantConv2d
-from quant_tpu_torch.nn.resnet import QResNet
+from quant_tpu_torch.nn.lenet import QLeNet5
 
 logger = logging.getLogger(__name__)
 
-PACKED_LEAVES = ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va')
+PACKED_LEAVES = ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va',
+                 'b_fold')
 
 
 def _quant_convs(model: torch.nn.Module) -> list[tuple[str, QuantConv2d]]:
@@ -24,67 +26,144 @@ def _quant_convs(model: torch.nn.Module) -> list[tuple[str, QuantConv2d]]:
             if isinstance(m, QuantConv2d)]
 
 
-def export_packed_variables(model: QResNet) -> QResNet:
-    """Pack every quantized conv's sign words once; `w_scales` are the
-    cached weight scales (quant_state w_quantizer/vs)."""
+def _require_packed(model: torch.nn.Module, what: str) -> None:
+    if all(conv.w_packed is None for _, conv in _quant_convs(model)):
+        raise ValueError(f'{what} needs packed_params — run '
+                         'export_packed_variables first.')
+
+
+def export_packed_variables(model: torch.nn.Module) -> torch.nn.Module:
+    """Pack the sign words of every conv that serves packed (binary
+    weights) once; `w_scales` are the cached weight scales (quant_state
+    w_quantizer/vs), ls-T's repeated for its two planes."""
     for _, conv in _quant_convs(model):
-        conv.export_packed()
+        if conv.w_quant != 'fp':
+            conv.export_packed()
     return model
 
 
-def fold_xnor_thresholds(model: QResNet, eps: float = 1e-5) -> QResNet:
-    """Fold each pre-conv BN + clamp + sign extraction into per-channel
-    thresholds: x_thresh = -b/a, x_flip = sign(a), x_va = ema / |a|, for
-    the eval affine BN(x) = a*x + b.
+def fold_bn_into_packed(model: torch.nn.Module,
+                        eps: float = 1e-5) -> torch.nn.Module:
+    """Fold each eval BN that follows a packed conv into the conv's
+    epilogue (regular / regular_bottleneck families): for the affine
+    a*y + b with a = gamma/sqrt(var+eps), w_scales *= a and b_fold =
+    b + a*bias. Serve with model.bn_fold = True."""
+    _require_packed(model, 'fold_bn_into_packed')
+    block = getattr(model, 'block', None)
+    if block not in ('regular', 'regular_bottleneck'):
+        raise ValueError(
+            f'BN folding is defined for conv->BN block families '
+            f'(regular/regular_bottleneck), not {block!r}.')
+    for _, blk in model.blocks():
+        for _, conv, bn in blk.fold_pairs():
+            if conv.w_packed is None:
+                continue
+            a = bn.scale(eps)
+            b = bn.bias - bn.running_mean * a
+            conv.w_scales = conv.w_scales * a[None, :]
+            if conv.bias is not None:
+                b = b + a * conv.bias
+            conv.b_fold = b
+    return model
 
-    Validity checks (as the JAX fold): an EMA moving-average mode that
-    has tracked batches, and |a| > 0 per channel. The clamp-box check on
-    residual planes is vacuous for ls-1, the only ported scheme. Serve
-    the result with model.bn_fold = True (fold_for_serving does both).
+
+def _clamp_box_check(label: str, scheme: str, clamp: dict,
+                     ema: torch.Tensor) -> None:
+    """Under a symmetric clamp every residual plane must stay inside the
+    box: the EMA scale prefix sums through plane k-1 must be <= alpha."""
+    if clamp.get('kind') != 'symmetric':
+        return
+    ema_np = ema.cpu().numpy()
+    if scheme in ('ls-2', 'ls-T'):
+        prefix = ema_np[:1]  # the residual before plane 2 is v1 * b1
+    elif scheme.startswith('gf-'):
+        prefix = np.cumsum(ema_np)[:-1]
+    else:  # ls-1: one plane, no residual to bound
+        prefix = np.zeros(0)
+    alpha = float(clamp.get('alpha', 1.0))
+    if prefix.size and not (prefix <= alpha).all():
+        raise ValueError(
+            f'{label}: EMA scale prefix sums {prefix.tolist()} exceed '
+            f'clamp alpha {alpha} — residual planes would leave the '
+            'clamp box; serve unfolded.')
+
+
+def fold_xnor_thresholds(model: torch.nn.Module,
+                         eps: float = 1e-5) -> torch.nn.Module:
+    """Fold each pre-conv BN + clamp + sign extraction into per-channel
+    thresholds: x_thresh = -b/a, x_flip = sign(a), x_va = ema / |a|
+    (k, C), for the eval affine BN(x) = a*x + b.
+
+    Families: QResNet with 'xnor' / 'xnor_bottleneck' blocks (every
+    in-block BN; fp-activation convs are skipped) and QLeNet5 (its
+    affine-free bn_conv2, eps 1e-4). Validity checks, as the JAX fold:
+    an EMA moving-average mode that has tracked batches, |a| > 0 per
+    channel, and the clamp box (_clamp_box_check). Serve with
+    model.bn_fold = True (fold_for_serving does both).
     """
-    if all(conv.w_packed is None for _, conv in _quant_convs(model)):
-        raise ValueError('fold_xnor_thresholds needs packed_params — '
-                         'run export_packed_variables first.')
-    if getattr(model, 'block', None) != 'xnor':
+    _require_packed(model, 'fold_xnor_thresholds')
+    is_lenet = isinstance(model, QLeNet5)
+    block = getattr(model, 'block', None)
+    if block not in ('xnor', 'xnor_bottleneck') and not is_lenet:
         raise ValueError(
             f'threshold folding is defined for the BN->conv (xnor) '
-            f"families, not {getattr(model, 'block', None)!r}.")
+            f'families and QLeNet5, not {block!r}.')
     if model.moving_average_mode == 'off':
         raise ValueError(
             "threshold folding requires an EMA moving_average_mode "
             "('eval_only'/'train_and_eval'): with mode 'off' the eval "
             'scales are solved from the actual clamp(BN(x)) values, '
             'which the folded path never computes.')
-    for name, blk in model.blocks():
-        for conv_name, bn in (('conv1', blk.bn1), ('conv2', blk.bn2)):
-            conv = getattr(blk, conv_name)
-            if conv.w_packed is None:
-                continue
-            label = f'{name}/{conv_name}'
-            a = bn.weight / torch.sqrt(bn.running_var + eps)
-            if not bool((a.abs() > 0).all()):
-                raise ValueError(
-                    f'{label}: BN scale gamma has a zero channel — no '
-                    'threshold form exists; serve unfolded.')
-            quant = conv.x_quantizer
-            if not int(quant.ema_count) > 0:
-                raise ValueError(
-                    f'{label}: activation EMA has tracked no batches — '
-                    'train (or run a calibration pass) first.')
-            b = bn.bias - bn.running_mean * a
-            conv.x_thresh = (-b / a).to(torch.float32)
-            conv.x_flip = torch.where(a >= 0, 1.0, -1.0).to(torch.float32)
-            conv.x_va = (quant.ema[:, None] / a.abs()[None, :]).to(
-                torch.float32)
+    if is_lenet:
+        if model.x_quant == 'fp':
+            raise ValueError('threshold folding is undefined for fp '
+                             'activations (they consume BN values).')
+        # bn_conv2 is affine-free at eps 1e-4 (lenet.py:60-67).
+        pairs = [('conv2/bn_conv2', conv, bn, 1e-4)
+                 for _, conv, bn in model.fold_pairs()]
+    else:
+        pairs = [(f'{name}/{conv_name}', conv, bn, eps)
+                 for name, blk in model.blocks()
+                 for conv_name, conv, bn in blk.fold_pairs()]
+    folds = []  # every conv is checked before any is written
+    for label, conv, bn, bn_eps in pairs:
+        if conv.x_quant == 'fp' or conv.w_packed is None:
+            continue
+        a = bn.scale(bn_eps)
+        if not bool((a.abs() > 0).all()):
+            raise ValueError(
+                f'{label}: BN scale gamma has a zero channel — no '
+                'threshold form exists; serve unfolded.')
+        quant = conv.x_quantizer
+        if not int(quant.ema_count) > 0:
+            raise ValueError(
+                f'{label}: activation EMA has tracked no batches — '
+                'train (or run a calibration pass) first.')
+        _clamp_box_check(label, conv.x_quant, conv.clamp, quant.ema)
+        beta = (bn.bias if bn.bias is not None
+                else torch.zeros_like(bn.running_mean))
+        b = beta - bn.running_mean * a
+        folds.append((conv, (-b / a).to(torch.float32),
+                      torch.where(a >= 0, 1.0, -1.0).to(torch.float32),
+                      (quant.ema[:, None] / a.abs()[None, :]).to(
+                          torch.float32)))
+    for conv, thresh, flip, va in folds:
+        conv.x_thresh, conv.x_flip, conv.x_va = thresh, flip, va
     return model
 
 
-def fold_for_serving(model: QResNet) -> tuple[QResNet, bool]:
-    """Apply the threshold fold and set bn_fold; when the fold's
+def fold_for_serving(model: torch.nn.Module
+                     ) -> tuple[torch.nn.Module, bool]:
+    """The family's export-time BN elimination, as JAX dispatches it:
+    the epilogue fold (fold_bn_into_packed) first, then the threshold
+    fold; set bn_fold where one applied. When neither is defined or its
     preconditions are unmet, log why and return the model unfolded.
     Returns (model, folded)."""
     try:
-        fold_xnor_thresholds(model)
+        try:
+            fold_bn_into_packed(model)
+        except (ValueError, KeyError):
+            fold_xnor_thresholds(model)
     except (ValueError, KeyError) as e:
         logger.info('BN folding not applicable (%s); serving the '
                     'unfolded packed form', e)
@@ -93,18 +172,15 @@ def fold_for_serving(model: QResNet) -> tuple[QResNet, bool]:
     return model, True
 
 
-def strip_for_deployment(model: QResNet) -> QResNet:
+def strip_for_deployment(model: torch.nn.Module) -> torch.nn.Module:
     """Drop what serving never reads: the fp kernels and cached weight
     scales of every packed conv. The model then serves from the packed
     buffers only."""
-    convs = [conv for _, conv in _quant_convs(model)
-             if conv.w_packed is not None]
-    if not convs:
-        raise ValueError('strip_for_deployment needs packed_params — '
-                         'run export_packed_variables first.')
-    for conv in convs:
-        conv.kernel = None
-        conv.w_vs = None
+    _require_packed(model, 'strip_for_deployment')
+    for _, conv in _quant_convs(model):
+        if conv.w_packed is not None:
+            conv.kernel = None
+            conv.w_vs = None
     return model
 
 
@@ -122,3 +198,16 @@ def packed_params_tree(model: torch.nn.Module) -> dict:
             node = node.setdefault(part, {})
         node.update(leaves)
     return tree
+
+
+def packed_weight_bytes(model: torch.nn.Module) -> tuple[int, int]:
+    """(bytes of every packed_params leaf, bytes of the fp32 kernels of
+    the convs that have packed words), as the JAX function counts."""
+    packed = fp = 0
+    for _, conv in _quant_convs(model):
+        leaves = [getattr(conv, k) for k in PACKED_LEAVES]
+        packed += sum(t.numel() * t.element_size() for t in leaves
+                      if t is not None)
+        if conv.w_packed is not None and conv.kernel is not None:
+            fp += conv.kernel.numel() * conv.kernel.element_size()
+    return packed, fp

@@ -1,12 +1,13 @@
-"""Eval-form layers of the packed serving path (port of
-quant_tpu/nn/layers.py:124-330 and the packed branch of QuantConv2d,
-:400-542).
+"""Eval-form layers (port of quant_tpu/nn/layers.py:87-564, eval only).
 
 Modules keep the JAX layouts (HWIO kernels, (in, out) dense kernels,
 NHWC activations) and the JAX tree's leaf names where PyTorch has no
 idiom of its own, so `utils.jax_import.from_jax_variables` maps one
-exported variable tree onto them. Everything here is inference only:
-the dense QAT path and training are queued for Slice C.
+exported variable tree onto them. Everything here is inference: the
+quantizers read cached or EMA scales (or solve a batch's where no
+least-squares optimum is needed), and QuantConv2d runs the packed
+serving conv or the dense eval conv. Training, EMA updates and the
+train_dtype path are queued for Slice C.
 """
 
 import math
@@ -17,7 +18,9 @@ from torch import nn
 
 from quant_tpu_torch.ops import binary_infer as BI
 from quant_tpu_torch.ops.conv import _pair, conv2d, stem_conv_s2d
-from quant_tpu_torch.ops.quantize import get_clamp_fn, quantizer_ls_1
+from quant_tpu_torch.ops.quantize import (
+    get_clamp_fn, quantize_with_scheme, scheme_num_scales, validate_scheme,
+)
 
 IntOr2 = Union[int, Sequence[int]]
 DtypeLike = Union[None, str, torch.dtype]
@@ -42,13 +45,6 @@ def _uniform(shape: Sequence[int], fan_in: int,
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
-
-
-def _require_ls1(scheme: str, what: str) -> None:
-    if scheme != 'ls-1':
-        raise NotImplementedError(
-            f'{what} {scheme!r}: only ls-1 is ported; fp and the '
-            'multi-plane schemes are queued for Slice B.')
 
 
 class PReLU(nn.Module):
@@ -122,65 +118,102 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """Eval BatchNorm as flax computes it: (x - mean) * (rsqrt(var + eps)
-    * weight) + bias in float32, rounded once to `dtype`.
+    * weight) + bias in float32, rounded once to `dtype`. Affine-free
+    (`affine=False`, LeNet-5's) has no weight and no bias.
 
     eps 1e-5 as the JAX BatchNorm; its training-time running-stat update
     (torch momentum convention) is Slice C.
     """
 
-    def __init__(self, num_features: int, epsilon: float = 1e-5):
+    def __init__(self, num_features: int, epsilon: float = 1e-5,
+                 affine: bool = True):
         super().__init__()
         self.epsilon = epsilon
         ones = torch.ones(num_features, dtype=torch.float32)
         zeros = torch.zeros(num_features, dtype=torch.float32)
-        self.weight = _frozen(ones.clone())
-        self.bias = _frozen(zeros.clone())
+        self.weight = _frozen(ones.clone()) if affine else None
+        self.bias = _frozen(zeros.clone()) if affine else None
         self.register_buffer('running_mean', zeros.clone())
         self.register_buffer('running_var', ones.clone())
 
+    def scale(self, eps: float) -> torch.Tensor:
+        """The eval affine's a = gamma / sqrt(var + eps), as the export
+        folds compute it (gamma = 1 when affine-free)."""
+        g = (self.weight if self.weight is not None
+             else torch.ones_like(self.running_var))
+        # torch's float32 sqrt on the CPU can land an ulp off the
+        # correctly rounded root that XLA takes (seen at var ~ 1.23); a
+        # float64 root rounded once to float32 is the correctly rounded
+        # one.
+        var = self.running_var + eps
+        return g / torch.sqrt(var.double()).to(var.dtype)
+
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
-        y = (x.to(torch.float32) - self.running_mean) * mul + self.bias
+        mul = torch.rsqrt(self.running_var + self.epsilon)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x.to(torch.float32) - self.running_mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
         return y.to(dtype or torch.promote_types(x.dtype, torch.float32))
 
 
 class ActivationQuantizer(nn.Module):
     """Per-sample activation scales in eval: the EMA broadcast over the
-    batch when an EMA mode tracks one, else the batch's own ls-1 solve.
-    Only the scales are returned; the packed conv re-derives the signs.
+    batch when an EMA mode tracks one, else the batch's own solve (ls-1
+    and gf-k; the ls-2 and ls-T solves need opt_v1, Slice C). fp has no
+    scales and no state.
     """
 
     def __init__(self, scheme: str, moving_average_mode: str = 'off'):
         super().__init__()
+        validate_scheme(scheme)
         if moving_average_mode not in ('off',) + _EMA_MODES:
             raise ValueError(
                 f'Invalid moving average mode {moving_average_mode}.')
-        _require_ls1(scheme, 'activation scheme')
         self.scheme = scheme
         self.moving_average_mode = moving_average_mode
-        use_ema = moving_average_mode != 'off'
+        use_ema = moving_average_mode != 'off' and scheme != 'fp'
+        k = scheme_num_scales(scheme)
         self.register_buffer(
-            'ema', torch.zeros(1, dtype=torch.float32) if use_ema else None)
+            'ema', torch.zeros(k, dtype=torch.float32) if use_ema else None)
         self.register_buffer(
             'ema_count',
             torch.zeros((), dtype=torch.int32) if use_ema else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(k, N) scales for x (N leading)."""
+    def forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """(k, N) scales for x (N leading); None for fp."""
+        if self.scheme == 'fp':
+            return None
         if self.ema is not None:
             return self.ema[:, None].expand(self.ema.shape[0], x.shape[0])
-        return quantizer_ls_1(x)[0]
+        return quantize_with_scheme(self.scheme, x, None)[0]
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """x_q = sum_i v_i * b_i with this batch's scales (x for fp)."""
+        return quantize_with_scheme(self.scheme, x, self(x))[1]
 
 
 class QuantConv2d(nn.Module):
-    """Packed-serving quantized conv: conv(w_quant(w), x_quant(clamp(x))).
+    """Quantized conv in eval: conv(w_quant(w), x_quant(clamp(x))).
 
-    Weights come from the exported `w_packed` / `w_scales` buffers, or,
-    before export, from the fp kernel and its cached scales `w_vs`. A
-    stripped conv has no kernel and no `w_vs`. With `x_thresh`/`x_flip`
-    (from nn.export.fold_xnor_thresholds) x is the raw pre-BN block input
-    and the signs come from per-channel threshold compares.
+    inference_mode 'packed' (with a binary w_quant) serves the packed
+    conv of ops.binary_infer: weights from the exported `w_packed` /
+    `w_scales` buffers or, before export, from the fp kernel and its
+    cached scales `w_vs` ((k, O), the JAX tree's quant_state
+    w_quantizer/vs). A stripped conv has no kernel and no `w_vs`. With
+    `x_thresh`/`x_flip`/`x_va` (nn.export.fold_xnor_thresholds) x is the
+    raw pre-BN input and the signs come from per-channel threshold
+    compares; with `b_fold` (nn.export.fold_bn_into_packed) the following
+    BN lives in `w_scales` and `b_fold`. fp activations take
+    fp_activation_conv_infer. `sign_compute` picks the sign-plane route:
+    'int8' (the kernels, exact), 'bf16' (the bake when `pass_fusion`,
+    else the pass loop) or 'auto', JAX's rule: int8 when both sides have
+    one effective plane (ls-1, ls-T), bf16 otherwise.
+
+    inference_mode 'dense' (and an fp w_quant) runs the conv of the
+    quantized tensors in float32, as JAX's eval forward does.
     """
 
     def __init__(self, in_channels: int, features: int,
@@ -189,19 +222,16 @@ class QuantConv2d(nn.Module):
                  clamp: Optional[dict[str, Any]] = None,
                  stride: IntOr2 = 1, padding: IntOr2 = 0,
                  use_bias: bool = True, moving_average_mode: str = 'off',
+                 inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _require_ls1(x_quant, 'activation scheme')
-        _require_ls1(w_quant, 'weight scheme')
-        # 'auto' picks int8 when both sides have one effective plane
-        # (layers.py:509-522), which ls-1 x ls-1 always has.
-        if sign_compute == 'bf16':
-            raise NotImplementedError(
-                "sign_compute='bf16' is queued for Slice B; ls-1 x ls-1 "
-                "runs the int8 route ('auto').")
-        if sign_compute not in ('auto', 'int8'):
+        validate_scheme(x_quant)
+        validate_scheme(w_quant)
+        if sign_compute not in ('auto', 'int8', 'bf16'):
             raise ValueError(f'invalid sign_compute {sign_compute!r}')
+        if inference_mode not in ('packed', 'dense'):
+            raise ValueError(f'invalid inference_mode {inference_mode!r}')
         kh, kw = _pair(kernel_size)
         fan_in = in_channels * kh * kw
         self.in_channels, self.features = in_channels, features
@@ -209,44 +239,82 @@ class QuantConv2d(nn.Module):
         self.clamp = dict(clamp) if clamp else {'kind': 'identity'}
         self.stride, self.padding = stride, padding
         self.moving_average_mode = moving_average_mode
+        self.inference_mode = inference_mode
+        self.pass_fusion, self.sign_compute = pass_fusion, sign_compute
         self.kernel = _frozen(_uniform((kh, kw, in_channels, features),
                                        fan_in, generator))
         self.bias = (_frozen(_uniform((features,), fan_in, generator))
                      if use_bias else None)
-        self.register_buffer('w_vs',
-                             torch.zeros(1, features, dtype=torch.float32))
+        k_w = scheme_num_scales(w_quant)
+        self.register_buffer(
+            'w_vs', torch.zeros(k_w, features, dtype=torch.float32)
+            if w_quant != 'fp' else None)
         self.x_quantizer = ActivationQuantizer(x_quant, moving_average_mode)
-        for name in ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va'):
+        for name in ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va',
+                     'b_fold'):
             self.register_buffer(name, None)
 
     def clamp_fn(self) -> Callable:
         return get_clamp_fn(**self.clamp)
 
+    @property
+    def packed(self) -> bool:
+        """Whether this conv serves the packed path."""
+        return self.inference_mode == 'packed' and self.w_quant != 'fp'
+
+    def _w_oi(self) -> torch.Tensor:
+        if self.kernel is None or (self.w_quant != 'fp'
+                                   and self.w_vs is None):
+            raise ValueError('stripped conv has no kernel to quantize')
+        return torch.movedim(self.kernel, -1, 0)
+
     def pack(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(w_packed (1,kh,kw,Wd,O), w_scales (1,O)) from the fp kernel
+        """(w_packed (k,kh,kw,Wd,O), w_scales (k,O)) from the fp kernel
         and its cached scales."""
-        if self.kernel is None or self.w_vs is None:
-            raise ValueError('stripped conv has no kernel to pack')
-        w_oi = torch.movedim(self.kernel, -1, 0)
-        planes = BI.weight_sign_planes(w_oi, self.w_quant, self.w_vs)
+        planes = BI.weight_sign_planes(self._w_oi(), self.w_quant, self.w_vs)
         w_packed = torch.stack([BI.pack_weights(torch.movedim(p, 0, -1))
                                 for p in planes])
-        return w_packed, self.w_vs.clone()
+        scales = BI.weight_scales_for_planes(self.w_quant, self.w_vs)
+        return w_packed, scales.clone()
 
     def export_packed(self) -> None:
         """Persist the packed weights in the w_packed/w_scales buffers."""
         self.w_packed, self.w_scales = self.pack()
 
+    def _dense(self, x: torch.Tensor) -> torch.Tensor:
+        x_q = self.x_quantizer.quantize(self.clamp_fn()(x))
+        w_q = torch.movedim(quantize_with_scheme(
+            self.w_quant, self._w_oi(), self.w_vs)[1], 0, -1)
+        if x_q.dtype != w_q.dtype:
+            raise TypeError(
+                'the dense conv takes operands of one dtype (as '
+                f'lax.conv_general_dilated), got {x_q.dtype} and '
+                f'{w_q.dtype}')
+        return conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
+                      bias=self.bias).to(torch.float32)
+
+    def _sign_compute(self) -> str:
+        if self.sign_compute != 'auto':
+            return self.sign_compute
+        def one_plane(scheme: str) -> bool:  # one effective plane
+            return scheme == 'ls-T' or BI.sign_planes(scheme) == 1
+        one_pass = one_plane(self.x_quant) and one_plane(self.w_quant)
+        return 'int8' if one_pass else 'bf16'
+
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 bn_folded: bool = False) -> torch.Tensor:
+        if not self.packed:
+            return self._dense(x)
+        has_fold = self.b_fold is not None
         has_thresh = self.x_thresh is not None
-        if bn_folded and not has_thresh:
+        if bn_folded and not (has_fold or has_thresh):
             raise ValueError(
                 'bn_fold serving requested but packed_params carry no '
-                'x_thresh — run nn.export.fold_xnor_thresholds on the '
-                'exported model first.')
-        if has_thresh and not bn_folded:
+                'b_fold/x_thresh — run nn.export.fold_bn_into_packed '
+                '(conv->BN families) or fold_xnor_thresholds (BN->conv '
+                'families) on the exported model first.')
+        if (has_fold or has_thresh) and not bn_folded:
             raise ValueError(
                 'packed_params are BN-folded but the model was not built '
                 'with bn_fold=True — applying them through the unfolded '
@@ -270,10 +338,20 @@ class QuantConv2d(nn.Module):
             w_packed, w_scales = self.w_packed, self.w_scales
         else:
             w_packed, w_scales = self.pack()
+        common = dict(w_packed=w_packed, w_vs=w_scales,
+                      in_channels=self.in_channels,
+                      bias=self.b_fold if has_fold else self.bias,
+                      stride=self.stride, padding=self.padding,
+                      out_dtype=out_dtype or torch.float32,
+                      fused=self.pass_fusion)
+        if self.x_quant == 'fp':
+            if has_thresh:
+                raise ValueError(
+                    'threshold folding is undefined for fp activations '
+                    '(they consume BN output values).')
+            return BI.fp_activation_conv_infer(x, **common)
         return BI.quant_conv2d_infer(
-            x,
-            x_scheme=self.x_quant, x_vs=x_vs, w_packed=w_packed,
-            w_vs=w_scales, in_channels=self.in_channels, bias=self.bias,
-            stride=self.stride, padding=self.padding,
-            out_dtype=out_dtype or torch.float32, compute_dtype='int8',
-            **thresh_kw)
+            x, x_scheme=self.x_quant, x_vs=x_vs,
+            w_planes_share_scale=self.w_quant == 'ls-T',
+            compute_dtype='int8' if self._sign_compute() == 'int8' else None,
+            **common, **thresh_kw)

@@ -1,9 +1,12 @@
-"""QResNet with XNOR-ordering basic blocks, packed serving form (port of
-quant_tpu/nn/resnet.py:39-53, 119-188, 351-453).
+"""QResNet and its four block families in eval form (port of
+quant_tpu/nn/resnet.py): the regular (conv->BN) and XNOR (BN->conv)
+orderings, each as basic and bottleneck blocks.
 
 Module names match the JAX variable tree (conv1, bn1, layer{s}_block{b},
-fc; inside a block bn1, conv1, nonlin1, bn2, conv2, nonlin2, shortcut).
-The other block families are queued for Slice B.
+fc; inside a block bn1, conv1, nonlin1, ..., conv3, bn3, nonlin3,
+shortcut). With `bn_fold` the blocks skip the BNs that an export fold
+put into their convs: the epilogue's (`b_fold`, regular families) or
+the thresholds (`x_thresh`, XNOR families).
 """
 
 from typing import Any, Iterator, Optional, Sequence
@@ -50,60 +53,242 @@ class _Shortcut(nn.Module):
         return self.norm(self.conv(x, dtype), dtype)
 
 
-class XnorBasicBlock(nn.Module):
+class _Block(nn.Module):
+    """What the four block families share: the quantized-conv settings
+    and the rule for when the fold applies (packed convs with binary
+    weights; the XNOR families also need binary activations)."""
+
+    xnor = False
+
+    def __init__(self, x_quant: str, w_quant: str, nonlins: Sequence[str],
+                 clamp: Optional[dict[str, Any]], moving_average_mode: str,
+                 inference_mode: str, pass_fusion: bool, sign_compute: str,
+                 use_bias: bool, generator: Optional[torch.Generator]):
+        super().__init__()
+        if len(nonlins) != 2:
+            raise ValueError('There should be 2 non-linearities.')
+        self.x_quant, self.w_quant = x_quant, w_quant
+        self.inference_mode = inference_mode
+        self.qconv = dict(x_quant=x_quant, w_quant=w_quant, clamp=clamp,
+                          moving_average_mode=moving_average_mode,
+                          inference_mode=inference_mode,
+                          pass_fusion=pass_fusion, sign_compute=sign_compute,
+                          use_bias=use_bias, generator=generator)
+
+    def _fold(self, bn_fold: bool) -> bool:
+        return (bn_fold and self.inference_mode == 'packed'
+                and self.w_quant != 'fp'
+                and not (self.xnor and self.x_quant == 'fp'))
+
+    def fold_pairs(self) -> list[tuple[str, QuantConv2d, BatchNorm]]:
+        """(name, conv, the BN folded into it): convN and bnN, the BN
+        after its conv (regular) or before it (XNOR)."""
+        return [(f'conv{n}', getattr(self, f'conv{n}'),
+                 getattr(self, f'bn{n}'))
+                for n in '123' if hasattr(self, f'conv{n}')]
+
+
+class RegularBasicBlock(_Block):
+    """conv -> BN -> nonlin basic block, bias-free quantized 3x3 convs,
+    fp 1x1+BN downsample shortcut (resnet.py:56-116)."""
+
+    def __init__(self, in_planes: int, planes: int, x_quant: str,
+                 w_quant: str, nonlins: Sequence[str], stride: int = 1,
+                 clamp: Optional[dict[str, Any]] = None,
+                 moving_average_mode: str = 'off',
+                 inference_mode: str = 'packed', pass_fusion: bool = True,
+                 sign_compute: str = 'auto',
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(x_quant, w_quant, nonlins, clamp,
+                         moving_average_mode, inference_mode, pass_fusion,
+                         sign_compute, False, generator)
+        self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride,
+                                 padding=1, **self.qconv)
+        self.bn1 = BatchNorm(planes)
+        self.nonlin1 = _nonlin(nonlins[0])
+        self.conv2 = QuantConv2d(planes, planes, 3, padding=1, **self.qconv)
+        self.bn2 = BatchNorm(planes)
+        self.nonlin2 = _nonlin(nonlins[1])
+        self.shortcut = _Shortcut(in_planes, planes, stride, use_bias=False,
+                                  generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                bn_fold: bool = False) -> torch.Tensor:
+        fold = self._fold(bn_fold)
+        out = self.conv1(x, dtype, fold)
+        if not fold:
+            out = self.bn1(out, dtype)
+        out = self.conv2(self.nonlin1(out), dtype, fold)
+        if not fold:
+            out = self.bn2(out, dtype)
+        return self.nonlin2(out + self.shortcut(x, dtype))
+
+
+class XnorBasicBlock(_Block):
     """BN -> quant-conv -> nonlin block (XNOR-Net ordering), optional
-    Bi-Real double shortcut. With bn_fold the BNs are skipped: their
-    affine lives in the convs' thresholds."""
+    Bi-Real double shortcut (resnet.py:119-188)."""
+
+    xnor = True
 
     def __init__(self, in_planes: int, planes: int, x_quant: str,
                  w_quant: str, nonlins: Sequence[str], stride: int = 1,
                  double_shortcut: bool = False,
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
-        if len(nonlins) != 2:
-            raise ValueError('There should be 2 non-linearities.')
+        super().__init__(x_quant, w_quant, nonlins, clamp,
+                         moving_average_mode, inference_mode, pass_fusion,
+                         sign_compute, True, generator)
         self.double_shortcut = double_shortcut
-        qconv = dict(x_quant=x_quant, w_quant=w_quant, clamp=clamp,
-                     moving_average_mode=moving_average_mode,
-                     sign_compute=sign_compute, use_bias=True, padding=1,
-                     generator=generator)
         self.bn1 = BatchNorm(in_planes)
-        self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride, **qconv)
+        self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride,
+                                 padding=1, **self.qconv)
         self.nonlin1 = _nonlin(nonlins[0])
         self.bn2 = BatchNorm(planes)
-        self.conv2 = QuantConv2d(planes, planes, 3, stride=1, **qconv)
+        self.conv2 = QuantConv2d(planes, planes, 3, padding=1, **self.qconv)
         self.nonlin2 = _nonlin(nonlins[1])
         self.shortcut = _Shortcut(in_planes, planes, stride, use_bias=True,
                                   generator=generator)
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
                 bn_fold: bool = False) -> torch.Tensor:
-        out1 = x if bn_fold else self.bn1(x, dtype)
-        out1 = self.nonlin1(self.conv1(out1, dtype, bn_fold))
+        fold = self._fold(bn_fold)
+        out1 = x if fold else self.bn1(x, dtype)
+        out1 = self.nonlin1(self.conv1(out1, dtype, fold))
         if self.double_shortcut:
             out1 = out1 + self.shortcut(x, dtype)
-        out2 = out1 if bn_fold else self.bn2(out1, dtype)
-        out2 = self.conv2(out2, dtype, bn_fold)
+        out2 = out1 if fold else self.bn2(out1, dtype)
+        out2 = self.conv2(out2, dtype, fold)
         if self.double_shortcut:
             return self.nonlin2(out2) + out1
         return self.nonlin2(out2 + self.shortcut(x, dtype))
 
 
+class RegularBottleneckBlock(_Block):
+    """1x1-reduce -> 3x3 -> 1x1-expand bottleneck (ResNet-50 family),
+    conv -> BN -> nonlin, bias-free convs (resnet.py:191-263). nonlins[0]
+    follows bn1 and bn2, nonlins[1] the residual sum."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, x_quant: str,
+                 w_quant: str, nonlins: Sequence[str], stride: int = 1,
+                 clamp: Optional[dict[str, Any]] = None,
+                 moving_average_mode: str = 'off',
+                 inference_mode: str = 'packed', pass_fusion: bool = True,
+                 sign_compute: str = 'auto',
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(x_quant, w_quant, nonlins, clamp,
+                         moving_average_mode, inference_mode, pass_fusion,
+                         sign_compute, False, generator)
+        out_planes = planes * self.expansion
+        self.conv1 = QuantConv2d(in_planes, planes, 1, **self.qconv)
+        self.bn1 = BatchNorm(planes)
+        self.nonlin1 = _nonlin(nonlins[0])
+        self.conv2 = QuantConv2d(planes, planes, 3, stride=stride,
+                                 padding=1, **self.qconv)
+        self.bn2 = BatchNorm(planes)
+        self.nonlin2 = _nonlin(nonlins[0])
+        self.conv3 = QuantConv2d(planes, out_planes, 1, **self.qconv)
+        self.bn3 = BatchNorm(out_planes)
+        self.nonlin3 = _nonlin(nonlins[1])
+        self.shortcut = _Shortcut(in_planes, out_planes, stride,
+                                  use_bias=False, generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                bn_fold: bool = False) -> torch.Tensor:
+        fold = self._fold(bn_fold)
+        out = x
+        for conv, bn, nonlin in ((self.conv1, self.bn1, self.nonlin1),
+                                 (self.conv2, self.bn2, self.nonlin2),
+                                 (self.conv3, self.bn3, None)):
+            out = conv(out, dtype, fold)
+            if not fold:
+                out = bn(out, dtype)
+            if nonlin is not None:
+                out = nonlin(out)
+        return self.nonlin3(out + self.shortcut(x, dtype))
+
+
+class XnorBottleneckBlock(_Block):
+    """Bottleneck with XNOR-Net ordering: BN -> quant-conv -> nonlin per
+    sub-conv, biased convs, one fp shortcut around the block
+    (resnet.py:266-340). double_shortcut raises: the 1x1 convs change
+    the channel count."""
+
+    xnor = True
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, x_quant: str,
+                 w_quant: str, nonlins: Sequence[str], stride: int = 1,
+                 double_shortcut: bool = False,
+                 clamp: Optional[dict[str, Any]] = None,
+                 moving_average_mode: str = 'off',
+                 inference_mode: str = 'packed', pass_fusion: bool = True,
+                 sign_compute: str = 'auto',
+                 generator: Optional[torch.Generator] = None):
+        if double_shortcut:
+            raise ValueError(
+                'double_shortcut is only defined for basic blocks '
+                '(channel counts change inside a bottleneck).')
+        super().__init__(x_quant, w_quant, nonlins, clamp,
+                         moving_average_mode, inference_mode, pass_fusion,
+                         sign_compute, True, generator)
+        out_planes = planes * self.expansion
+        self.bn1 = BatchNorm(in_planes)
+        self.conv1 = QuantConv2d(in_planes, planes, 1, **self.qconv)
+        self.nonlin1 = _nonlin(nonlins[0])
+        self.bn2 = BatchNorm(planes)
+        self.conv2 = QuantConv2d(planes, planes, 3, stride=stride,
+                                 padding=1, **self.qconv)
+        self.nonlin2 = _nonlin(nonlins[0])
+        self.bn3 = BatchNorm(planes)
+        self.conv3 = QuantConv2d(planes, out_planes, 1, **self.qconv)
+        self.nonlin3 = _nonlin(nonlins[1])
+        self.shortcut = _Shortcut(in_planes, out_planes, stride,
+                                  use_bias=True, generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                bn_fold: bool = False) -> torch.Tensor:
+        fold = self._fold(bn_fold)
+        out = x
+        for bn, conv, nonlin in ((self.bn1, self.conv1, self.nonlin1),
+                                 (self.bn2, self.conv2, self.nonlin2),
+                                 (self.bn3, self.conv3, None)):
+            if not fold:
+                out = bn(out, dtype)
+            out = conv(out, dtype, fold)
+            if nonlin is not None:
+                out = nonlin(out)
+        return self.nonlin3(out + self.shortcut(x, dtype))
+
+
+BLOCKS = {
+    'regular': RegularBasicBlock,
+    'xnor': XnorBasicBlock,
+    'regular_bottleneck': RegularBottleneckBlock,
+    'xnor_bottleneck': XnorBottleneckBlock,
+}
+
+
 class QResNet(nn.Module):
-    """ResNet with per-stage quantization config, packed serving form.
+    """ResNet with per-stage quantization config, in eval form.
 
     Arguments mirror the JAX QResNet (layer0 configures the fp stem,
-    layer1..layer4 carry {x_quant, w_quant, clamp, double_shortcut}).
-    `eval_dtype` (e.g. torch.bfloat16) is the feature-map chain's dtype
-    and `bn_fold` serves threshold-folded convs; both are plain
-    attributes that may be changed between forwards. `stem_s2d` runs the
-    stem conv in its exact space-to-depth form (`conv1.s2d`; JAX
-    resnet.py:386,409), with the same parameters. Parameters start
-    from torch's default init drawn from `generator`, or come from a JAX
-    tree via utils.jax_import.from_jax_variables.
+    layer1..layer4 carry {x_quant, w_quant, clamp, double_shortcut?}),
+    `block` is one of BLOCKS (with num_blocks [3, 4, 6, 3],
+    'regular_bottleneck' is ResNet-50). `inference_mode` 'packed' serves
+    the binary convs packed, 'dense' runs every conv as a float32 conv of
+    the quantized tensors (the fp32 twin: schemes 'fp'). `eval_dtype`
+    (e.g. torch.bfloat16) is the feature-map chain's dtype and `bn_fold`
+    serves convs that an export fold prepared; both are plain attributes
+    that may be changed between forwards. `stem_s2d` runs the stem conv
+    in its exact space-to-depth form (`conv1.s2d`; JAX resnet.py:386,409),
+    with the same parameters. Parameters start from torch's default init
+    drawn from `generator`, or come from a JAX tree via
+    utils.jax_import.from_jax_variables.
 
     Builds on `device` ('cuda' by default; raises if CUDA is missing).
     """
@@ -114,20 +299,16 @@ class QResNet(nn.Module):
                  nonlins: Sequence[str], num_blocks: Sequence[int],
                  output_classes: int, moving_average_mode: str = 'off',
                  inference_mode: str = 'packed',
-                 eval_dtype: DtypeLike = None, sign_compute: str = 'auto',
-                 bn_fold: bool = False, stem_s2d: bool = False,
-                 in_channels: int = 3, device: DeviceLike = 'cuda',
+                 eval_dtype: DtypeLike = None, pass_fusion: bool = True,
+                 sign_compute: str = 'auto', bn_fold: bool = False,
+                 stem_s2d: bool = False, in_channels: int = 3,
+                 device: DeviceLike = 'cuda',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        if block != 'xnor':
-            raise NotImplementedError(
-                f'block {block!r}: only the xnor basic block is ported; '
-                'the other families are queued for Slice B.')
-        if inference_mode != 'packed':
-            raise NotImplementedError(
-                f'inference_mode {inference_mode!r}: only the packed '
-                'serving path is ported; the dense QAT path is Slice C.')
+        if block not in BLOCKS:
+            raise ValueError(f'Block {block} is not supported.')
+        block_cls = BLOCKS[block]
         self.block = block
         self.moving_average_mode = moving_average_mode
         self.eval_dtype = as_dtype(eval_dtype)
@@ -147,6 +328,7 @@ class QResNet(nn.Module):
                   (layer3, 4 * width, 2)]
         if layer4 is not None:
             stages.append((layer4, 8 * width, 2))
+        expansion = getattr(block_cls, 'expansion', 1)
         self.block_names: list[str] = []
         in_planes = width
         for s, (cfg, planes, first_stride) in enumerate(stages):
@@ -155,19 +337,20 @@ class QResNet(nn.Module):
                           w_quant=cfg.pop('w_quant'),
                           clamp=cfg.pop('clamp', None), nonlins=nonlins,
                           moving_average_mode=moving_average_mode,
-                          sign_compute=sign_compute, generator=generator,
-                          **cfg)
+                          inference_mode=inference_mode,
+                          pass_fusion=pass_fusion, sign_compute=sign_compute,
+                          generator=generator, **cfg)
             for b in range(num_blocks[s]):
                 name = f'layer{s + 1}_block{b}'
-                self.add_module(name, XnorBasicBlock(
+                self.add_module(name, block_cls(
                     in_planes, planes, stride=first_stride if b == 0 else 1,
                     **kwargs))
                 self.block_names.append(name)
-                in_planes = planes
+                in_planes = planes * expansion
         self.fc = Dense(in_planes, output_classes, generator=generator)
         self.to(dev)
 
-    def blocks(self) -> Iterator[tuple[str, XnorBasicBlock]]:
+    def blocks(self) -> Iterator[tuple[str, _Block]]:
         for name in self.block_names:
             yield name, getattr(self, name)
 

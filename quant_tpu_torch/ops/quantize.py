@@ -1,16 +1,25 @@
-"""Activation clamps and the eval form of the ls-1 quantizer (port of
-quant_tpu/ops/quantize.py:37-81, 149-156).
+"""Activation clamps, the scheme registry and the eval forms of the
+quantizers (port of quant_tpu/ops/quantize.py:37-156 and
+quant_tpu/nn/layers.py:34-66).
 
 Scales are solved in float32 over a row view (rows = out-channels for
-weights, samples for activations); x_q keeps x's dtype.
+weights, samples for activations); x_q keeps x's dtype, each scale cast
+to it first. Each quantizer returns ((k, rows) scales, x_q). With the
+scales given, every scheme runs; solving them needs, for ls-1 and gf-k,
+only means. The ls-2 and ls-T solves call the least-squares optimum
+`opt_v1` (quant_tpu/ops/optimal.py), which is ported with the training
+code in Slice C: those solves raise NotImplementedError.
 """
 
+import re
 from functools import partial
 from typing import Callable, Optional
 
 import torch
 
 from quant_tpu_torch.ops.ste import binary_sign
+
+_LS_SCALES = {'fp': 0, 'ls-1': 1, 'ls-2': 2, 'ls-T': 1}
 
 
 def clamp_identity(x: torch.Tensor) -> torch.Tensor:
@@ -33,6 +42,44 @@ def get_clamp_fn(kind: str = 'identity',
     raise ValueError(f'{kind} is not a valid clamping function.')
 
 
+def validate_scheme(scheme: str) -> None:
+    """Raise on a scheme that is not fp, ls-1, ls-2, ls-T or gf-<k>."""
+    if scheme not in _LS_SCALES and not re.fullmatch(r'gf-\d+', scheme):
+        raise ValueError(
+            f'Scheme {scheme} is invalid. Please see docs for valid schemes.')
+
+
+def scheme_num_scales(scheme: str) -> int:
+    """Number of scale vectors (k) a scheme tracks."""
+    validate_scheme(scheme)
+    if scheme in _LS_SCALES:
+        return _LS_SCALES[scheme]
+    return int(scheme.split('-')[1])
+
+
+def _rows32(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).to(torch.float32)
+
+
+def _per_row(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (rows,) scale vector against x's trailing dims, in x's dtype."""
+    return v.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+
+
+def _needs_opt_v1(scheme: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'solving {scheme} scales needs the least-squares optimum opt_v1 '
+        '(quant_tpu/ops/optimal.py), queued for Slice C; pass cached '
+        'scales (vs) or use an EMA moving_average_mode.')
+
+
+def quantizer_fp(x: torch.Tensor, vs: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-precision passthrough: ((0, rows) scales, x)."""
+    del vs
+    return torch.zeros((0, x.shape[0]), dtype=x.dtype, device=x.device), x
+
+
 def quantizer_ls_1(x: torch.Tensor, v1: Optional[torch.Tensor] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """1-bit least-squares quantization, eval form.
@@ -40,9 +87,65 @@ def quantizer_ls_1(x: torch.Tensor, v1: Optional[torch.Tensor] = None
     v1 is the per-row mean(|x|) in float32 when not supplied. Returns
     ((1, rows) scales, v1 * sign(x)) with sign(0) = +1.
     """
-    rows = x.reshape(x.shape[0], -1)
     if v1 is None:
-        v1 = rows.to(torch.float32).abs().mean(dim=-1)
+        v1 = _rows32(x).abs().mean(dim=-1)
     v1 = v1.reshape(-1)
-    per_row = v1.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
-    return v1[None, :], per_row * binary_sign(x)
+    return v1[None, :], _per_row(v1, x) * binary_sign(x)
+
+
+def quantizer_ls_2(x: torch.Tensor, vs: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """2-bit least-squares quantization with given (2, rows) scales:
+    x_q = v1*b1 + v2*sign(x - v1*b1)."""
+    if vs is None:
+        raise _needs_opt_v1('ls-2')
+    v1, v2 = vs[0].reshape(-1), vs[1].reshape(-1)
+    b1 = binary_sign(x)
+    v1b = _per_row(v1, x)
+    x_q = v1b * b1 + _per_row(v2, x) * binary_sign(x - v1b * b1)
+    return torch.stack([v1, v2]), x_q
+
+
+def quantizer_ls_ternary(x: torch.Tensor, vs: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ternary least-squares quantization with a given (1, rows) scale:
+    x_q = v1*(b1 + sign(x - v1*b1)), values in {-2v1, 0, +2v1}."""
+    if vs is None:
+        raise _needs_opt_v1('ls-T')
+    v1 = vs[0].reshape(-1)
+    b1 = binary_sign(x)
+    v1b = _per_row(v1, x)
+    return v1[None, :], v1b * (b1 + binary_sign(x - v1b * b1))
+
+
+def quantizer_gf(x: torch.Tensor, k: int, vs: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy-foldable k-bit quantization: pass i takes v_i = mean
+    |residual| (float32, over the row) unless vs gives it, and adds
+    v_i * sign(x - result) to the result."""
+    residual = _rows32(x)
+    result = torch.zeros_like(x)
+    saved = []
+    for i in range(k):
+        v = (vs[i].reshape(-1) if vs is not None
+             else residual.abs().mean(dim=-1))
+        saved.append(v)
+        residual = residual - v[:, None] * binary_sign(residual)
+        result = result + _per_row(v, x) * binary_sign(x - result)
+    return torch.stack(saved), result
+
+
+def quantize_with_scheme(scheme: str, x: torch.Tensor,
+                         vs: Optional[torch.Tensor]
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch to the quantizer of `scheme`: ((k, rows) scales, x_q)."""
+    validate_scheme(scheme)
+    if scheme == 'fp':
+        return quantizer_fp(x, vs)
+    if scheme == 'ls-1':
+        return quantizer_ls_1(x, vs[0] if vs is not None else None)
+    if scheme == 'ls-2':
+        return quantizer_ls_2(x, vs)
+    if scheme == 'ls-T':
+        return quantizer_ls_ternary(x, vs)
+    return quantizer_gf(x, scheme_num_scales(scheme), vs)

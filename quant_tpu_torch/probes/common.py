@@ -76,15 +76,11 @@ def timed_loop(step: Callable[[Any], Any], carry: Any, dev: torch.device,
     return (time.perf_counter() - t0) / reps, carry
 
 
-def card_ms(fn: Callable[[], Any], iters: int,
-            head_start_ms: float = 20.0) -> float:
-    """Mean milliseconds per call of `fn` on the current CUDA stream.
-
-    After two warm-up calls the stream first sleeps for `head_start_ms`
-    (before the start event), so the host queues the calls meanwhile and
-    the events time the card's work alone, not the host's launch time,
-    as long as the queueing takes less than the sleep. head_start_ms=0
-    times the calls back to back, host included."""
+def _timed(fn: Callable[[], Any], iters: int, head_start_ms: float
+           ) -> tuple[float, bool]:
+    """(mean ms a call of `fn` on the current CUDA stream, whether the
+    stream was still in its head start when the host had queued the
+    last call)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -95,9 +91,41 @@ def card_ms(fn: Callable[[], Any], iters: int,
     start.record()
     for _ in range(iters):
         fn()
+    lead_held = not start.query()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, lead_held
+
+
+def card_ms(fn: Callable[[], Any], iters: int,
+            head_start_ms: float = 20.0) -> float:
+    """Mean milliseconds per call of `fn` on the current CUDA stream.
+
+    After two warm-up calls the stream first sleeps for `head_start_ms`
+    (before the start event), so the host queues the calls meanwhile and
+    the events time the card's work alone, not the host's launch time,
+    as long as the queueing takes less than the sleep. head_start_ms=0
+    times the calls back to back, host included."""
+    return _timed(fn, iters, head_start_ms)[0]
+
+
+def card_alone_ms(fn: Callable[[], Any], iters: int,
+                  back_to_back_ms: float) -> tuple[Optional[float], int]:
+    """(card_ms of `fn`, the calls it averages) behind a head start sized
+    from the back-to-back time (1.5x that of the calls, plus 20 ms),
+    read only where the stream was still in its head start when the
+    host had queued the last call, so that the card never waited for
+    the host. A launch queue that fills up stalls the host before that
+    (eager forwards of hundreds of launches each): then fewer calls are
+    timed, halving `iters` down to one. (None, 0) where even one call
+    outlasts the head start: the card time alone was not measured."""
+    n = iters
+    while n >= 1:
+        ms, lead_held = _timed(fn, n, 1.5 * back_to_back_ms * n + 20.0)
+        if lead_held:
+            return ms, n
+        n //= 2
+    return None, 0
 
 
 @contextlib.contextmanager

@@ -1,20 +1,33 @@
-"""The bench's ResNet-18 for the probes and the smoke run.
+"""Seeded models for the probes, the smoke run and the tests.
 
 `bench_resnet18` ports the model builder of bench.py:59-77;
-`seeded_serving_resnet18` builds that model with seeded weights and
-prepares it for serving, so the smoke run and the batch-sweep probe
-serve one model.
+`resnet50_cifar` the ResNet-50 of
+examples/cifar100/cifar100_resnet50_ls2_tpu.yaml and `lenet5` the
+LeNet-5 of examples/mnist/*.yaml. `seed_state` gives a built model the
+state training leaves (BN affines and statistics, cached weight scales,
+EMA activation scales, each plane with a scale of its own), and
+`seeded_model` builds, seeds and prepares one for serving with the
+port's own export, fold and strip. `seeded_serving_resnet18` is the
+bench's headline model, which the smoke run and the batch-sweep probe
+serve.
 """
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from quant_tpu_torch.device import DeviceLike
 from quant_tpu_torch.nn import export
 from quant_tpu_torch.nn.layers import BatchNorm, QuantConv2d
+from quant_tpu_torch.nn.lenet import QLeNet5
 from quant_tpu_torch.nn.resnet import QResNet
-from quant_tpu_torch.ops.quantize import quantizer_ls_1
+from quant_tpu_torch.ops.quantize import quantizer_gf, quantizer_ls_1
+from quant_tpu_torch.ops.ste import binary_sign
+
+# EMA activation scales per plane, as a trained model's fall: distinct,
+# so that a swapped plane or scale shows, and with prefix sums (0.9,
+# 1.35) inside the clamp's alpha of 2, so that the threshold fold holds.
+EMA_SCALES = (0.9, 0.45, 0.2)
 
 
 def bench_resnet18(x_quant: str, w_quant: str, block: str = 'xnor',
@@ -36,37 +49,131 @@ def bench_resnet18(x_quant: str, w_quant: str, block: str = 'xnor',
         num_blocks=[2, 2, 2, 2], output_classes=1000, **kwargs)
 
 
-def seeded_serving_resnet18(device: DeviceLike, seed: int,
-                            stem_s2d: bool = False) -> QResNet:
-    """Packed, folded, stripped ls-1 XNOR ResNet-18 from seeded weights.
+def resnet50_cifar(x_quant: str, w_quant: str, **kwargs: Any) -> QResNet:
+    """The regular_bottleneck ResNet-50 of cifar100_resnet50_ls2_tpu.yaml:
+    32 px, 3x3 stem of 64 channels, no pool, blocks [3, 4, 6, 3], ReLU,
+    symmetric clamp alpha 2, 100 classes."""
+    layer = {'x_quant': x_quant, 'w_quant': w_quant,
+             'clamp': {'kind': 'symmetric', 'alpha': 2.0}}
+    return QResNet(
+        block='regular_bottleneck',
+        layer0={'n_in_channels': 64, 'kernel_size': 3, 'stride': 1,
+                'padding': 1, 'bias': False, 'maxpool': {'type': 'identity'}},
+        layer1=dict(layer), layer2=dict(layer), layer3=dict(layer),
+        layer4=dict(layer), nonlins=['relu', 'relu'],
+        num_blocks=[3, 4, 6, 3], output_classes=100, **kwargs)
 
-    Built on the CPU from one torch.Generator: weights by torch's default
-    init, BN affines with 30% negative gammas, cached weight scales as
-    training leaves them (per-out-channel mean |w|) and EMA activation
-    scales as the JAX bench fills them (0.5, one tracked batch); then
-    exported, threshold-folded and stripped, and moved to `device`.
-    """
-    gen = torch.Generator().manual_seed(seed)
-    model = bench_resnet18('ls-1', 'ls-1', moving_average_mode='eval_only',
-                           stem_s2d=stem_s2d, device='cpu', generator=gen)
 
+def lenet5(x_quant: str, w_quant: str, **kwargs: Any) -> QLeNet5:
+    """The LeNet-5 of examples/mnist: 28 px, 20 and 50 filters, 10
+    classes, identity clamp."""
+    return QLeNet5(conv1_filters=20, conv2_filters=50, output_classes=10,
+                   x_quant=x_quant, w_quant=w_quant,
+                   clamp={'kind': 'identity'}, **kwargs)
+
+
+def small_config(family: str, x_quant: str, w_quant: str) -> dict:
+    """A small model of a family, as keyword arguments of the port's and
+    the JAX package's constructors: for the ResNets width 8, one block a
+    stage, the 7x7/s2 stem with the 3x3/s2 pool, symmetric clamp alpha 2,
+    10 classes (32 px in); LeNet-5 ('lenet') with 8 and 12 filters (28
+    px in). EMA activation scales (eval_only)."""
+    if family == 'lenet':
+        return dict(conv1_filters=8, conv2_filters=12, output_classes=10,
+                    x_quant=x_quant, w_quant=w_quant,
+                    clamp={'kind': 'identity'},
+                    moving_average_mode='eval_only')
+    layer: dict[str, Any] = {'x_quant': x_quant, 'w_quant': w_quant,
+                             'clamp': {'kind': 'symmetric', 'alpha': 2.0}}
+    if family == 'xnor':
+        layer['double_shortcut'] = True
+    return dict(
+        block=family,
+        layer0={'n_in_channels': 8, 'kernel_size': 7, 'stride': 2,
+                'padding': 3, 'bias': False,
+                'maxpool': {'type': 'maxpool2d', 'kernel_size': 3,
+                            'stride': 2, 'padding': 1}},
+        layer1=dict(layer), layer2=dict(layer), layer3=dict(layer),
+        layer4=dict(layer), nonlins=['prelu', 'prelu'],
+        num_blocks=[1, 1, 1, 1], output_classes=10,
+        moving_average_mode='eval_only')
+
+
+def build(family: str, config: dict, **kwargs: Any) -> torch.nn.Module:
+    """QLeNet5 for 'lenet', else a QResNet of that block family."""
+    cls = QLeNet5 if family == 'lenet' else QResNet
+    return cls(**{**config, **kwargs})
+
+
+def _weight_scales(conv: QuantConv2d) -> torch.Tensor:
+    """Cached weight scales as training leaves them, per out-channel:
+    ls-1 and gf-k their greedy means; ls-2 and ls-T take mean |w| as v1
+    in place of the least-squares optimum (opt_v1, not ported), and
+    ls-2's v2 is the mean |residual|."""
+    w_oi = torch.movedim(conv.kernel, -1, 0)
+    if conv.w_quant == 'ls-1':
+        return quantizer_ls_1(w_oi)[0]
+    if conv.w_quant.startswith('gf-'):
+        return quantizer_gf(w_oi, conv.w_vs.shape[0])[0]
+    rows = w_oi.reshape(w_oi.shape[0], -1)
+    v1 = rows.abs().mean(dim=-1)
+    if conv.w_quant == 'ls-T':
+        return v1[None]
+    v2 = (rows - v1[:, None] * binary_sign(rows)).abs().mean(dim=-1)
+    return torch.stack([v1, v2])
+
+
+@torch.no_grad()
+def seed_state(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """The state of a trained model, drawn from `gen`: BN affines with
+    30% negative gammas and random statistics, cached weight scales
+    (_weight_scales) and EMA activation scales EMA_SCALES, jittered by
+    up to 10% per conv, with one tracked batch."""
     def uniform(like: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
         return torch.empty_like(like).uniform_(lo, hi, generator=gen)
 
     for m in model.modules():
         if isinstance(m, BatchNorm):
-            sign = torch.where(uniform(m.weight, 0, 1) < 0.3, -1.0, 1.0)
-            m.weight.copy_(uniform(m.weight, 0.3, 1.5) * sign)
-            m.bias.copy_(uniform(m.bias, -0.8, 0.8))
+            if m.weight is not None:
+                sign = torch.where(uniform(m.weight, 0, 1) < 0.3, -1.0, 1.0)
+                m.weight.copy_(uniform(m.weight, 0.3, 1.5) * sign)
+                m.bias.copy_(uniform(m.bias, -0.8, 0.8))
             m.running_mean.copy_(uniform(m.running_mean, -0.5, 0.5))
             m.running_var.copy_(uniform(m.running_var, 0.2, 2.0))
         elif isinstance(m, QuantConv2d):
-            m.w_vs = quantizer_ls_1(torch.movedim(m.kernel, -1, 0))[0]
-            m.x_quantizer.ema.fill_(0.5)
-            m.x_quantizer.ema_count.fill_(1)
-    export.export_packed_variables(model)
-    model, folded = export.fold_for_serving(model)
-    if not folded:
-        raise RuntimeError('threshold fold did not apply')
-    export.strip_for_deployment(model)
+            if m.w_vs is not None:
+                m.w_vs = _weight_scales(m)
+            ema = m.x_quantizer.ema
+            if ema is not None:
+                k = ema.shape[0]
+                ema.copy_(torch.tensor(EMA_SCALES[:k])
+                          * uniform(ema, 0.9, 1.0))
+                m.x_quantizer.ema_count.fill_(1)
+
+
+def seeded_model(make: Callable[..., torch.nn.Module], x_quant: str,
+                 w_quant: str, device: DeviceLike, seed: int,
+                 **kwargs: Any) -> torch.nn.Module:
+    """make(x_quant, w_quant, **kwargs) on the CPU from one
+    torch.Generator (weights by torch's default init, then seed_state);
+    a packed model with binary weights is then exported, folded with its
+    family's fold (raises if none applies) and stripped. Moved to
+    `device`."""
+    gen = torch.Generator().manual_seed(seed)
+    model = make(x_quant, w_quant, device='cpu', generator=gen, **kwargs)
+    seed_state(model, gen)
+    if w_quant != 'fp' and kwargs.get('inference_mode', 'packed') == 'packed':
+        export.export_packed_variables(model)
+        if not export.fold_for_serving(model)[1]:
+            raise RuntimeError('no fold applied to the seeded model')
+        export.strip_for_deployment(model)
     return model.to(device)
+
+
+def seeded_serving_resnet18(device: DeviceLike, seed: int,
+                            stem_s2d: bool = False, x_quant: str = 'ls-1',
+                            w_quant: str = 'ls-1') -> QResNet:
+    """Packed, threshold-folded, stripped XNOR ResNet-18 (EMA scales) from
+    seeded weights: by default the bench's headline ls-1 model."""
+    return seeded_model(bench_resnet18, x_quant, w_quant, device, seed,
+                        moving_average_mode='eval_only', stem_s2d=stem_s2d)

@@ -33,8 +33,10 @@ Baselines (--baseline PATH, --baseline-probe PATH, --baseline-pool
 PATH). Another xnor.cu, probe.cu or pool.cu with the same C interface,
 such as an earlier commit's (`git show
 REV:quant_tpu_torch/csrc/xnor.cu > build/xnor_base.cu`). The baseline
-xnor.cu's xnor_conv2d and pack_threshold_signs are timed against this
-tree's on the inputs the 16 binary convs of the seeded serving
+xnor.cu's xnor_conv2d and producer (an older source's single-plane
+qtt_pack_threshold_signs_bf16 where it has one, else
+qtt_pack_sign_planes_bf16 at k = 1) are timed against this tree's on
+the inputs the 16 binary convs of the seeded serving
 ResNet-18 see in one bf16 forward at batch 128 (times summed over the
 16 launches), and its xnor_gemm at the layer4 GEMM; the baseline
 probe.cu's tiled_matmul, bf16 and int8, at 4096^3 and its add at both
@@ -202,7 +204,12 @@ GEMM_SHAPE = (6272, 4608, 512)      # xnor_gemm (M, K, N): layer4, batch 128
 MATMUL_SHAPE = (4096, 4096, 4096)   # tiled_matmul (M, K, N): the probes'
 OUT_DIR = _build.BUILD_ROOT / 'variants'
 ITERS = 20  # timed calls per reading
-SIGNATURES = {'xnor': {**B._SIGNATURES, **G._SIGNATURES},
+# Sources before the single-plane producer was folded into the k-plane
+# one exported it as qtt_pack_threshold_signs_*.
+_SINGLE_PACK_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p]
+SIGNATURES = {'xnor': {**B._SIGNATURES, **G._SIGNATURES,
+                       'qtt_pack_threshold_signs_bf16': _SINGLE_PACK_SIG},
               'probe': PK._SIGNATURES, 'pool': P._SIGNATURES}
 
 
@@ -446,10 +453,16 @@ def lib_calls(lib: ctypes.CDLL, seen: list
         thresh = conv.x_thresh.float().contiguous()
         flip = conv.x_flip.float().contiguous()
         words = torch.empty(n, h, w, wc, dtype=torch.int32, device=xin.device)
-        packs.append(launcher(
-            lib.qtt_pack_threshold_signs_bf16, (xin, thresh, flip, words),
-            (n * h * w, c, wc, _build.stream(xin))))
-        want_words = B.pack_threshold_signs_plain(xin, thresh, flip)
+        single = getattr(lib, 'qtt_pack_threshold_signs_bf16', None)
+        if single is not None:
+            packs.append(launcher(single, (xin, thresh, flip, words),
+                                  (n * h * w, c, wc, _build.stream(xin))))
+        else:
+            packs.append(launcher(
+                lib.qtt_pack_sign_planes_bf16,
+                (xin, thresh, flip, None, words),
+                (n * h * w, c, wc, 1, h * w, _build.stream(xin))))
+        want_words = B.pack_sign_planes_plain(xin, 1, None, thresh, flip)[0]
         wp = conv.w_packed[0].contiguous()
         vx = conv.x_quantizer(xin)[0].float().contiguous()
         vw = conv.w_scales[0].float().contiguous()
@@ -465,7 +478,7 @@ def lib_calls(lib: ctypes.CDLL, seen: list
         want_out = B.xnor_conv2d_plain(want_words, wp, vx, vw, bias,
                                        in_channels=c, stride=s, padding=1,
                                        out_dtype=torch.bfloat16)
-        checks += [(f'pack_threshold_signs {i}', words, want_words),
+        checks += [(f'producer {i}', words, want_words),
                    (f'xnor_conv2d {i}', out, want_out)]
 
     def unequal() -> list[str]:
@@ -521,7 +534,7 @@ def baseline_vs_current(libs: dict[str, dict[str, ctypes.CDLL]],
             if bad:
                 raise AssertionError(f'{name} xnor.cu differs from the '
                                      f'twins: {bad}')
-        for k, kname in enumerate(('pack_threshold_signs', 'xnor_conv2d')):
+        for k, kname in enumerate(('producer', 'xnor_conv2d')):
             _rounds({name: c[k] for name, c in calls.items()}, dev,
                     kernel=kname)
     if 'gemm' not in parts:

@@ -1,4 +1,5 @@
-"""Fill the port's modules from a quant_tpu (JAX) variable tree.
+"""Fill the port's modules from a quant_tpu (JAX) variable tree, and
+read them back as one.
 
 The tree is nested dicts of numpy arrays with the JAX collections
 `params`, `batch_stats`, `quant_state` and `packed_params`, exactly as
@@ -35,7 +36,8 @@ _LEAVES: dict[str, list[tuple[str, str, tuple[str, ...], bool]]] = {
         ('w_scales', 'packed_params', ('w_scales',), True),
         ('x_thresh', 'packed_params', ('x_thresh',), True),
         ('x_flip', 'packed_params', ('x_flip',), True),
-        ('x_va', 'packed_params', ('x_va',), True)],
+        ('x_va', 'packed_params', ('x_va',), True),
+        ('b_fold', 'packed_params', ('b_fold',), True)],
 }
 
 
@@ -61,32 +63,37 @@ def from_jax_variables(model: nn.Module,
     ===================  =================================  ==============
     Conv (stem conv1,    params/kernel (kh,kw,I,O)          kernel (HWIO)
     shortcut.conv)       params/bias                        bias
-    Dense (fc)           params/kernel (in,out)             kernel
+    Dense (fc, fc1, fc2) params/kernel (in,out)             kernel
                          params/bias                        bias
-    BatchNorm (bn1, bn2, params/bn/scale                    weight
-    shortcut.norm)       params/bn/bias                     bias
+    BatchNorm (bn1..3,   params/bn/scale (absent when       weight
+    shortcut.norm,       affine-free: LeNet's bn_conv1/2)
+    bn_conv1, bn_conv2)  params/bn/bias (same)              bias
                          batch_stats/bn/mean                running_mean
                          batch_stats/bn/var                 running_var
-    PReLU (nonlin1/2)    params/negative_slope ()           negative_slope
+    PReLU (nonlin1..3)   params/negative_slope ()           negative_slope
     QuantConv2d          params/kernel (absent if stripped) kernel or None
-    (blockN.conv1/2)     params/bias                        bias
-                         quant_state/w_quantizer/vs (1,O)   w_vs or None
-                         (absent if stripped)
+    (blockN.conv1..3,    params/bias                        bias
+    LeNet's conv2)       quant_state/w_quantizer/vs (k,O)   w_vs or None
+                         (absent if stripped, or fp)
                          packed_params/w_packed             w_packed or
-                         (1,kh,kw,Wd,O) int32               None
-                         packed_params/w_scales (1,O)       w_scales
+                         (k,kh,kw,Wd,O) int32, k planes     None
+                         packed_params/w_scales (k,O)       w_scales
                          packed_params/x_thresh (C,)        x_thresh
                          packed_params/x_flip (C,)          x_flip
-                         packed_params/x_va (1,C)           x_va
-                         (the three fold leaves only after
-                         fold_xnor_thresholds)
-    ActivationQuantizer  quant_state/ema (1,)               ema
+                         packed_params/x_va (k,C)           x_va
+                         (the three after fold_xnor_
+                         thresholds)
+                         packed_params/b_fold (O,) (after   b_fold
+                         fold_bn_into_packed)
+    ActivationQuantizer  quant_state/ema (k,)               ema
     (convN.x_quantizer)  quant_state/ema_count () int32     ema_count
     ===================  =================================  ==============
 
-    Stripped trees (strip_for_deployment) lack the QuantConv2d kernel
-    and w_vs, which are then set to None; unexported trees lack every
-    packed_params leaf. A required leaf that is missing raises KeyError;
+    Here k is the scheme's scale count (ls-1 and ls-T 1, ls-2 2, gf-k k)
+    and, for w_packed, its sign planes (ls-T 2). Stripped trees
+    (strip_for_deployment) lack the QuantConv2d kernel and w_vs, which
+    are then set to None; unexported trees lack every packed_params
+    leaf. A required leaf that is missing raises KeyError;
     a leaf whose shape differs from the module's, or that the module's
     configuration has no place for (a bias of a bias-free conv, EMA
     state of a moving_average_mode 'off' model), raises ValueError.
@@ -122,3 +129,24 @@ def from_jax_variables(model: nn.Module,
             else:
                 setattr(module, attr, t)
     return model
+
+
+def to_jax_variables(model: nn.Module) -> dict[str, Any]:
+    """The model's state as a JAX variable tree of numpy arrays, the
+    inverse of from_jax_variables (by the same leaf map): an attribute
+    that is None is left out of the tree."""
+    tree: dict[str, Any] = {}
+    for name, module in model.named_modules():
+        rows = _LEAVES.get(type(module).__name__)
+        if rows is None:
+            continue
+        prefix = name.split('.') if name else []
+        for attr, coll, path, _ in rows:
+            value = getattr(module, attr)
+            if value is None:
+                continue
+            node = tree.setdefault(coll, {})
+            for key in prefix + list(path[:-1]):
+                node = node.setdefault(key, {})
+            node[path[-1]] = value.detach().cpu().numpy()
+    return tree

@@ -17,6 +17,32 @@ import torch
 import chip_smoke
 from quant_tpu_torch import _build
 from quant_tpu_torch.ops import pool
+from quant_tpu_torch.probes import models
+
+# The model phases' models cut to probes.models.small_config (width 8,
+# one block a stage, 32 px; LeNet-5 with 8 and 12 filters): (make,
+# input, QuantConv2d count, stem pool launches).
+SMALL_MODELS = {
+    key: (lambda xq, wq, family=family, **kw: models.build(
+        family, models.small_config(family, xq, wq), **kw), hwc, convs, pools)
+    for key, family, hwc, convs, pools in (
+        ('resnet18', 'xnor', (32, 32, 3), 8, 1),
+        ('resnet18_regular', 'regular', (32, 32, 3), 8, 1),
+        ('resnet50', 'regular_bottleneck', (32, 32, 3), 12, 1),
+        ('lenet', 'lenet', (28, 28, 1), 1, 0))}
+
+
+def phase_counts() -> list[dict]:
+    """The launch counts each model phase expects of its small model."""
+    out = []
+    for _, build, _, _, _, per_conv in chip_smoke.MODEL_PHASES:
+        _, _, convs, pools = SMALL_MODELS[build]
+        want = {k: 0 for k in chip_smoke.SERVING_KERNELS
+                + chip_smoke.PROBE_KERNELS}
+        want.update({k: v * convs for k, v in per_conv.items()})
+        want['max_pool_3x3_s2_p1'] = pools
+        out.append(want)
+    return out
 
 KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -26,14 +52,18 @@ KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
 @pytest.fixture
 def rehearsal(monkeypatch):
     """chip_smoke on the CPU; yields the expected main-path counts."""
-    main = dict(xnor_conv2d=16, pack_threshold_signs=16,
-                max_pool_3x3_s2_p1=1, xnor_gemm=0,
-                **{k: 0 for k in chip_smoke.PROBE_KERNELS})
+    main = {k: 0 for k in chip_smoke.SERVING_KERNELS
+            + chip_smoke.PROBE_KERNELS}
+    main.update(xnor_conv2d=16, pack_sign_planes=16,
+                max_pool_3x3_s2_p1=1)
     probe = dict(main, **{k: 1 for k in chip_smoke.PROBE_KERNELS})
-    counts = iter([main, probe])
+    counts = iter([main, *phase_counts(), probe])
+    monkeypatch.setattr(chip_smoke, 'PHASE_MODELS', SMALL_MODELS)
     monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
     monkeypatch.setattr(chip_smoke, 'card_ms',
                         lambda fn, *args, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, 'card_alone_ms',
+                        lambda fn, *args, **kw: (fn(), (1.0, 1))[1])
     monkeypatch.setattr(chip_smoke, 'card_line', lambda: 'CPU, 0 W')
     monkeypatch.setattr(chip_smoke, 'MATMUL_SHAPES', ((128, 128, 128),))
     monkeypatch.setattr(chip_smoke, 'ADD_BW_SHAPE', (64, 36))
@@ -59,8 +89,10 @@ def rehearsal(monkeypatch):
     yield main
 
 
-def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys):
-    assert chip_smoke.main(['--batch', '2', '--iters', '1']) == 0
+def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
+    report = tmp_path / 'report.json'
+    assert chip_smoke.main(['--batch', '2', '--iters', '1',
+                            '--report', str(report)]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == 'CPU, 0 W'
     assert json.loads(lines[-1]) == {'ok': True, 'device': {
@@ -68,16 +100,31 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys):
     kernels = json.loads(next(ln for ln in lines
                               if ln.startswith('{"kernels"')))['kernels']
     assert {k['name'] for k in kernels} == {
-        'xnor_conv2d', 'pack_threshold_signs', 'max_pool_3x3_s2_p1',
-        'xnor_gemm', *chip_smoke.PROBE_KERNELS}
+        'xnor_conv2d', 'pack_sign_planes', 'max_pool_3x3_s2_p1',
+        'xnor_gemm', 'xnor_conv2d_planes', *chip_smoke.PROBE_KERNELS}
+    headline = phase_counts()[0]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k['name']
         assert k['max_abs_err'] == 0.0, k['name']
-        on_main = k['name'] in ('xnor_conv2d', 'pack_threshold_signs',
+        on_main = k['name'] in ('xnor_conv2d', 'pack_sign_planes',
                                 'max_pool_3x3_s2_p1')
-        assert k['launches'] == (rehearsal[k['name']] if on_main else
-                                 1 if k['name'] in chip_smoke.PROBE_KERNELS
-                                 else 0)
+        assert k['launches'] == (
+            rehearsal[k['name']] if on_main else
+            headline[k['name']] if k['name'] == 'xnor_conv2d_planes' else
+            1 if k['name'] in chip_smoke.PROBE_KERNELS else 0)
+    assert headline['xnor_conv2d_planes'] == 8
+    # The producer's row is the main path's (k = 1); the headline phase's
+    # k = 2 run stands beside it.
+    pack = next(k for k in kernels if k['name'] == 'pack_sign_planes')
+    assert pack['model_phase']['phase'] == chip_smoke.MODEL_PHASES[0][0]
+    assert pack['model_phase']['launches'] == headline['pack_sign_planes']
+    assert {'ms', 'plain_ms', 'bound_ms', 'bound_by'} <= set(
+        pack['model_phase'])
+    for name, *_ in chip_smoke.MODEL_PHASES:
+        assert any(ln.startswith(f'{name}: ') and 'img/s' in ln
+                   for ln in lines), name
+    assert any(ln.startswith('serving resnet18_xnor_lsT_ls1: ')
+               for ln in lines)
     assert any(ln.startswith('16 captured convs') for ln in lines)
     assert "'torch.bfloat16': [2, 4, 8, 16], 'torch.float32': [4, 8, 16]" \
         in next(ln for ln in lines if ln.startswith('pool routes checked'))
@@ -85,3 +132,10 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys):
     assert add['bandwidth']['shape'] == [64, 36]
     assert {'ms', 'library_ms', 'bound_ms'} <= set(add['bandwidth'])
     assert add['empty_launch_ms'] == 1.0
+    # A phase that serves other scales than its recipe says so.
+    phases = {p['name']: p for p in json.loads(report.read_text())[
+        'model_phases']}
+    for name, build, *_ in chip_smoke.MODEL_PHASES:
+        assert phases[name].get('recipe_changes') == \
+            chip_smoke.RECIPE_CHANGES.get(build), name
+    assert set(chip_smoke.RECIPE_CHANGES) == {'resnet50', 'lenet'}

@@ -235,15 +235,19 @@ def test_fold_requires_ema_mode_and_packed(jax_side):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match='Slice B'):
-        QResNet(**{**CONFIG, 'block': 'regular'}, device='cpu')
-    ls2 = dict(LAYER, x_quant='ls-2')
-    with pytest.raises(NotImplementedError, match='Slice B'):
-        QResNet(**{**CONFIG, 'layer3': ls2}, device='cpu')
-    with pytest.raises(NotImplementedError, match='Slice C'):
-        QResNet(**CONFIG, inference_mode='dense', device='cpu')
-    with pytest.raises(NotImplementedError, match='Slice B'):
-        QuantConv2d(8, 4, 3, sign_compute='bf16')
+    """Every family, scheme and route serves; what stays unported needs
+    training code: an ls-2 or ls-T model with per-batch eval scales
+    (moving_average_mode 'off') solves them with opt_v1 (Slice C). A
+    block family or route that does not exist raises."""
+    for scheme in ('ls-2', 'ls-T'):
+        model = QResNet(**{**CONFIG, 'layer3': dict(LAYER, x_quant=scheme),
+                           'moving_average_mode': 'off'}, device='cpu')
+        with pytest.raises(NotImplementedError, match='Slice C'):
+            model(torch.zeros(1, 32, 32, 3))
+    with pytest.raises(ValueError, match='not supported'):
+        QResNet(**{**CONFIG, 'block': 'bogus'}, device='cpu')
+    with pytest.raises(ValueError, match='sign_compute'):
+        QuantConv2d(8, 4, 3, sign_compute='fp8')
 
 
 def test_from_jax_variables_checks_leaves(jax_side):

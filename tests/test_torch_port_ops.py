@@ -21,6 +21,7 @@ from quant_tpu.ops.pool import max_pool_3x3_s2_p1 as j_pool
 from quant_tpu.ops.quantize import get_clamp_fn as j_clamp
 from quant_tpu.ops.ste import binary_sign as j_sign
 from quant_tpu_torch import _build
+from quant_tpu_torch.nn.layers import ActivationQuantizer
 from quant_tpu_torch.ops import binary_gemm as TG
 from quant_tpu_torch.ops import binary_infer as TB
 from quant_tpu_torch.ops.conv import max_pool2d
@@ -205,9 +206,10 @@ def test_producer_words_match_jax(rng, tdtype, c):
         jx, 'ls-1', vs, jnp.asarray(thresh), jnp.asarray(flip), None,
         dtype=jnp.float32)
     want = np.asarray(j_pack_signs(planes[0]))
-    got = TB.pack_threshold_signs(tx, torch.from_numpy(thresh),
-                                  torch.from_numpy(flip))
-    assert got.shape == (2, 5, 6, -(-c // 32))
+    got = TB.pack_sign_planes(tx, 1, None, torch.from_numpy(thresh),
+                              torch.from_numpy(flip))
+    assert got.shape == (1, 2, 5, 6, -(-c // 32))
+    got = got[0]
     np.testing.assert_array_equal(got.numpy(), want)
     tplanes, _ = TB.threshold_sign_planes(
         tx, 'ls-1', torch.ones(1, 2), torch.from_numpy(thresh),
@@ -218,11 +220,15 @@ def test_producer_words_match_jax(rng, tdtype, c):
     jplanes, _ = JB.activation_sign_planes(jx, 'ls-1', vs, jnp.float32)
     np.testing.assert_array_equal(aplanes[0].numpy(), np.asarray(jplanes[0]))
     assert ascales[0].shape == (2,)
-    # t = 0, flip = +1 packs plain signs.
+    # t = 0, flip = +1 packs plain signs, as the unfolded k = 1 does.
     zeros, ones = torch.zeros(c), torch.ones(c)
+    signs = np.asarray(j_pack_signs(j_sign(jx)))
     np.testing.assert_array_equal(
-        TB.pack_threshold_signs(tx, zeros, ones).numpy(),
-        np.asarray(j_pack_signs(j_sign(jx))))
+        TB.pack_sign_planes(tx, 1, None, zeros, ones)[0].numpy(), signs)
+    np.testing.assert_array_equal(TB.pack_sign_planes(tx, 1)[0].numpy(),
+                                  signs)
+    with pytest.raises(ValueError, match='scale rows'):
+        TB.pack_sign_planes(tx, 2)
     if tdtype == torch.bfloat16:
         naive = pack_signs(torch.from_numpy(flip) * binary_sign(
             tx.float() - torch.from_numpy(thresh)))
@@ -271,7 +277,8 @@ def test_quant_conv2d_infer_matches_jax(rng, route, tdtype, c, stride):
                out_dtype=JDT[tdtype], compute_dtype=jnp.int8)
     tkw = dict(common, x_vs=torch.from_numpy(x_vs),
                w_vs=torch.from_numpy(w_vs), w_packed=packed,
-               bias=torch.from_numpy(bias), out_dtype=tdtype)
+               bias=torch.from_numpy(bias), out_dtype=tdtype,
+               compute_dtype='int8')
     if route == 'threshold':
         fold = (thresh, flip, np.ones((1, c), np.float32))
         jkw.update(zip(('x_thresh', 'x_flip', 'x_va'),
@@ -288,14 +295,18 @@ def test_quant_conv2d_infer_matches_jax(rng, route, tdtype, c, stride):
 
 
 def test_unported_schemes_raise():
+    """Every scheme serves; what stays unported is the ls-2 and ls-T scale
+    solve of a batch (opt_v1, Slice C), which per-batch eval scales need,
+    and a compute dtype that names no route raises."""
     x = torch.zeros(1, 4, 4, 8)
     packed = torch.zeros(1, 3, 3, 1, 4, dtype=torch.int32)
     kw = dict(x_vs=torch.ones(1, 1), w_packed=packed, w_vs=torch.ones(1, 4),
               in_channels=8)
-    with pytest.raises(NotImplementedError, match='Slice B'):
-        TB.quant_conv2d_infer(x, x_scheme='ls-2', **kw)
-    with pytest.raises(NotImplementedError, match='Slice B'):
-        TB.quant_conv2d_infer(x, x_scheme='ls-1', compute_dtype='bf16', **kw)
+    for scheme in ('ls-2', 'ls-T'):
+        with pytest.raises(NotImplementedError, match='Slice C'):
+            ActivationQuantizer(scheme)(x)
+    with pytest.raises(ValueError, match='compute_dtype'):
+        TB.quant_conv2d_infer(x, x_scheme='ls-1', compute_dtype='fp8', **kw)
 
 
 def test_wrappers_reject_other_devices_and_cpu_runs_no_kernel():
@@ -308,7 +319,7 @@ def test_wrappers_reject_other_devices_and_cpu_runs_no_kernel():
     with pytest.raises(ValueError, match='CPU or CUDA'):
         max_pool_3x3_s2_p1(meta)
     with pytest.raises(ValueError, match='CPU or CUDA'):
-        TB.pack_threshold_signs(meta, torch.zeros(8), torch.ones(8))
+        TB.pack_sign_planes(meta, 1, None, torch.zeros(8), torch.ones(8))
     with pytest.raises(ValueError, match='do not hold'):
         TB.xnor_conv2d(words, torch.zeros(3, 3, 2, 4, dtype=torch.int32),
                        torch.ones(1), torch.ones(4), None, in_channels=8)
