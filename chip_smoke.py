@@ -38,7 +38,15 @@ the chip-probe path:
    the forward's images per second back to back (host included) and
    behind a head start sized from the back-to-back time (the card
    alone; not measured where the host still fell behind);
-6. runs the model phases (MODEL_PHASES), each with the launch counts
+6. runs the serving stack (ResNet-18 of the main path, 224 px, 1000
+   classes): (a) an in-process ServingFrontend over two InferenceEngines
+   of the main-path model, 64 requests against predict, its launch counts
+   read around it; (b) two engine worker processes of the spec
+   WORKER_SPEC (spawn_engine_workers, an RPC secret) behind a frontend,
+   64 requests against an in-process engine of the same spec, each
+   worker's launch counts read from its stats; (c) one worker killed: it
+   is evicted and the survivor serves the later requests;
+7. runs the model phases (MODEL_PHASES), each with the launch counts
    zeroed just before its forward and checked just after, its fp32
    chain held against the CPU's and its forwards timed: ResNet-18 XNOR
    with ls-T x ls-1 (the int8 route through the multi-plane kernels,
@@ -47,10 +55,17 @@ the chip-probe path:
    bf16 bake) and under sign_compute='int8', gf-2 x ls-1; the regular
    ls-1 ResNet-18 with the BN folded into the epilogue; the dense fp32
    twins of both (TF32 off); the regular_bottleneck ResNet-50 of
-   cifar100_resnet50_ls2_tpu.yaml (ls-2 x ls-1, 32 px, 100 classes);
-   LeNet-5 ls-2 x ls-1 at 28 px (these two serve EMA scales where their
-   recipes solve per batch: RECIPE_CHANGES, in their records);
-7. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+   cifar100_resnet50_ls2_tpu.yaml (ls-2 x ls-1, 32 px, 100 classes) and
+   LeNet-5 ls-2 x ls-1 at 28 px, both as their recipes say, with
+   per-batch scales (moving_average_mode 'off', opt_v1 exact); and
+   ResNet-18 XNOR ls-2 x ls-1 'off' on the int8 route (OFF_PHASE: the
+   multi-plane kernels under per-sample solved scales, held against
+   their twins on its captured inputs, its solves timed and held to the
+   CPU's);
+8. calibrates the two recipe models (RECIPE_PHASES): EMA scales from
+   four seeded batches on the card and on the CPU (held to
+   CALIBRATION_REL_TOL), then folded, stripped and served;
+9. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
@@ -67,6 +82,7 @@ import argparse
 import copy
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -178,7 +194,10 @@ PHASE_MODELS = {
 # 'auto', ls-T x ls-1 takes the int8 route through the multi-plane
 # kernels (this slice's headline: the first phase); ls-2 and gf-2
 # activations take the bf16 bake, no kernel of the port; regular ls-1
-# the single-plane kernels.
+# the single-plane kernels. Activation scales are EMA ('eval_only')
+# unless the options say 'off': the two recipes' models, as written, and
+# OFF_PHASE solve every sample's scales per batch (the fp32 twins have
+# no activation scales).
 MODEL_PHASES = (
     ('resnet18_xnor_lsT_ls1', 'resnet18', 'ls-T', 'ls-1', {},
      {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1}),
@@ -193,30 +212,55 @@ MODEL_PHASES = (
      {'inference_mode': 'dense'}, {}),
     ('resnet18_regular_fp32', 'resnet18_regular', 'fp', 'fp',
      {'inference_mode': 'dense'}, {}),
-    ('resnet50_regular_bottleneck_ls2_ls1', 'resnet50', 'ls-2', 'ls-1', {},
-     {}),
-    ('lenet5_ls2_ls1', 'lenet', 'ls-2', 'ls-1', {}, {}),
+    ('resnet50_regular_bottleneck_ls2_ls1', 'resnet50', 'ls-2', 'ls-1',
+     {'moving_average_mode': 'off'}, {}),
+    ('lenet5_ls2_ls1', 'lenet', 'ls-2', 'ls-1',
+     {'moving_average_mode': 'off'}, {}),
+    ('resnet18_xnor_ls2_ls1_int8_off', 'resnet18', 'ls-2', 'ls-1',
+     {'sign_compute': 'int8', 'moving_average_mode': 'off'},
+     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1}),
 )
-# What a phase changes of the published recipe it takes its shapes from,
-# by PHASE_MODELS key. Both recipes solve ls-2's activation scales per
-# batch (moving_average_mode 'off'), which needs opt_v1 (Slice C); their
-# phases serve EMA scales instead.
-_EMA_FOR_OFF = {'moving_average_mode': {
-    'recipe': 'off', 'served': 'eval_only',
-    'why': 'the per-batch ls-2 solve needs opt_v1 (Slice C)'}}
-RECIPE_CHANGES = {
-    'resnet50': {'recipe': 'examples/cifar100/cifar100_resnet50_ls2_tpu.yaml',
-                 **_EMA_FOR_OFF},
-    'lenet': {'recipe': 'examples/mnist/mnist_ls1_weight_ls2_activation.yaml',
-              **_EMA_FOR_OFF},
-}
-
 # fp32 chain, card vs CPU: the binary convs, producers and pool are exact
 # on both; the stem conv, BN, 1x1 shortcuts and head round differently
 # (cuDNN vs CPU kernels, rsqrt), and an activation sitting within that
 # rounding of its threshold flips its sign, moving the dots it feeds by
-# 2. Held to 2% of the logits' spread.
+# 2; under per-batch scales ('off') such roundings also move the solved
+# scales (see CALIBRATION_REL_TOL). Held to 2% of the logits' spread.
 FP32_REL_TOL = 2e-2
+# The model phase whose multi-plane kernels run under per-sample solved
+# scales (the unfolded producer): held on its captured inputs, its solves
+# timed and compared with the CPU's.
+OFF_PHASE = 'resnet18_xnor_ls2_ls1_int8_off'
+# The recipes' models, calibrated after the model phases: (PHASE_MODELS
+# key, x_quant, w_quant, the recipe).
+RECIPE_PHASES = (
+    ('resnet50', 'ls-2', 'ls-1',
+     'examples/cifar100/cifar100_resnet50_ls2_tpu.yaml'),
+    ('lenet', 'ls-2', 'ls-1',
+     'examples/mnist/mnist_ls1_weight_ls2_activation.yaml'),
+)
+CALIBRATION_BATCHES, CALIBRATION_BATCH = 4, 8
+# Calibrated EMA, card vs CPU, relative. A per-sample solve takes the
+# argmin of float32 closed-form costs, which are flat near the optimum
+# to within their rounding, so an input a few ulps off (the card's cuDNN
+# convs and reductions against the CPU's) moves v1 by far more than
+# ulps (solve_phase measures the shift one ulp causes), and later layers
+# see the flipped signs. The scales are statistics of that 'off' chain,
+# whose logits are held to FP32_REL_TOL of their spread: the EMA is held
+# to the same share.
+CALIBRATION_REL_TOL = FP32_REL_TOL
+# opt_v1 on the card against the CPU on the same rows: v1 within a few
+# float32 ulps (the tests' tolerance against JAX), else a cost no higher
+# than the CPU's v1's within 1e-5 of the row's norm.
+SOLVE_TOL = dict(rtol=1e-5, atol=1e-6)
+SOLVE_COST_TOL = 1e-5
+SOLVE_CHECK_ROWS = 8  # samples of each conv input solved on both
+# The serving stack: requests a phase sends, and the worker spec
+# (ResNet-18, 224 px, 1000 classes; the seed and device are added).
+SERVING_REQUESTS = 64
+WORKER_SPEC = {'model': 'resnet18_random', 'max_batch': 32,
+               'input_shape': [224, 224, 3]}
+
 
 
 def card_line() -> str:
@@ -278,6 +322,14 @@ def plant_specials(x: torch.Tensor, seed: int) -> torch.Tensor:
         :k].to(x.device, x.dtype)
     x[:, :2, :2, 0] = float('-inf')
     return x
+
+
+def launch_counts() -> dict[str, int]:
+    """This process's kernel launch counts, as _build counts them (the
+    CPU rehearsal stands in its own: a CPU tensor launches no kernel)."""
+    from quant_tpu_torch import _build
+
+    return _build.launch_counts()
 
 
 def pool_route(x: torch.Tensor, out: torch.Tensor) -> int:
@@ -620,7 +672,7 @@ def probe_phase() -> tuple[list[dict], dict[str, int]]:
     for fn, kw in probes:
         fn(device=DEVICE, **kw)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = launch_counts()
     records = list(common.RECORDS)
     missing = [k for k in PROBE_KERNELS if launches[k] == 0]
     if missing:
@@ -852,8 +904,9 @@ def model_phase(name: str, build: str, x_quant: str, w_quant: str,
     make, hwc, n_convs, pools = PHASE_MODELS[build]
     dense = options.get('inference_mode') == 'dense'
     cpu_model = models.seeded_model(
-        make, x_quant, w_quant, 'cpu', seed,
-        moving_average_mode='off' if dense else 'eval_only', **options)
+        make, x_quant, w_quant, 'cpu', seed, **{
+            'moving_average_mode': 'off' if dense else 'eval_only',
+            **options})
     convs = sum(isinstance(m, QuantConv2d) for m in cpu_model.modules())
     if convs != n_convs:
         raise AssertionError(f'{name}: {convs} QuantConv2d, not {n_convs}')
@@ -874,7 +927,7 @@ def model_phase(name: str, build: str, x_quant: str, w_quant: str,
         with torch.inference_mode():
             logits = model(x)
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = launch_counts()
     for h in hooks:
         h.remove()
     if launches != want:
@@ -894,8 +947,6 @@ def model_phase(name: str, build: str, x_quant: str, w_quant: str,
                   ms_per_forward_card=ms_card, card_alone_calls=card_calls,
                   fp32_max_abs_err=err,
                   fp32_spread=spread, **options)
-    if build in RECIPE_CHANGES:
-        record['recipe_changes'] = RECIPE_CHANGES[build]
     print(f'{name}: {ms} ms/forward, {batch / ms * 1e3} img/s (card alone '
           f'{_ms_or_not(ms_card, card_calls)}); launches '
           f'{record["launches"]}; fp32 vs CPU {err} (spread {spread})',
@@ -903,17 +954,30 @@ def model_phase(name: str, build: str, x_quant: str, w_quant: str,
     return record, model, seen
 
 
+def _producer_args(conv: torch.nn.Module, xin: torch.Tensor
+                   ) -> tuple[torch.Tensor, tuple]:
+    """The producer's input and (scales, thresh, flip) as the int8 route
+    takes them for a conv's captured input: folded, the raw input with
+    the per-channel va and thresholds; unfolded, clamp(x) with the
+    batch's per-sample scales (solved here again under 'off')."""
+    if conv.x_thresh is not None:
+        return xin, (conv.x_va, conv.x_thresh, conv.x_flip)
+    xc = conv.clamp_fn()(xin).contiguous()
+    return xc, (conv.x_quantizer(xc),)
+
+
 def planes_captured(seen: list) -> dict[str, float]:
     """The multi-plane producer and conv against their twins on every
-    conv input a folded multi-plane forward captured, the conv in bf16
-    and f32 out; returns {kernel: max abs error}."""
+    conv input a multi-plane forward captured (folded, or unfolded with
+    per-sample scales), the conv in bf16 and f32 out; returns {kernel:
+    max abs error}."""
     from quant_tpu_torch.ops import binary_infer as B
 
     pack_err = conv_err = 0.0
     for i, (conv, xin) in enumerate(seen):
         k = B.sign_planes(conv.x_quant)
-        args = (conv.x_va, conv.x_thresh, conv.x_flip)
-        for x in (xin, xin.float()):
+        xp, args = _producer_args(conv, xin)
+        for x in (xp, xp.float()):
             pack_err = max(pack_err, check_equal(
                 f'pack_sign_planes captured {i} {x.dtype}',
                 B.pack_sign_planes(x, k, *args),
@@ -930,17 +994,17 @@ def planes_captured(seen: list) -> dict[str, float]:
 
 def _planes_conv_args(conv: torch.nn.Module, xin: torch.Tensor
                       ) -> tuple[tuple, dict]:
-    """The multi-plane conv's arguments for a folded conv's input, as the
-    int8 route builds them (the words from the plain producer)."""
+    """The multi-plane conv's arguments for a conv's captured input, as
+    the int8 route builds them (the words from the plain producer)."""
     from quant_tpu_torch.ops import binary_infer as B
 
     k = B.sign_planes(conv.x_quant)
     xg = 2 if conv.x_quant == 'ls-T' else 1
     wp = conv.w_packed.contiguous()
     wg = 2 if conv.w_quant == 'ls-T' and wp.shape[0] == 2 else 1
-    words = B.pack_sign_planes_plain(xin, k, conv.x_va, conv.x_thresh,
-                                     conv.x_flip)
-    vx = conv.x_quantizer(xin)[:k // xg]
+    xp, args = _producer_args(conv, xin)
+    words = B.pack_sign_planes_plain(xp, k, *args)
+    vx = conv.x_quantizer(xp)[:k // xg]
     vw = conv.w_scales[:wp.shape[0] // wg]
     return ((words, wp, vx, vw, conv.bias),
             dict(in_channels=xin.shape[-1], x_group=xg, w_group=wg,
@@ -1023,6 +1087,343 @@ def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
             rows['pack_sign_planes'])
 
 
+def _v1_cost(rows: np.ndarray, v1: np.ndarray, ternary: bool) -> np.ndarray:
+    """The least-squares cost of each row's v1, in float64."""
+    rows = rows.astype(np.float64)
+    v1 = v1.astype(np.float64)[:, None]
+    s2 = rows - v1 * np.where(rows < 0, -1.0, 1.0)
+    v2 = v1 if ternary else np.abs(s2).mean(axis=1, keepdims=True)
+    return np.linalg.norm(s2 - v2 * np.where(s2 < 0, -1.0, 1.0), axis=1)
+
+
+def _solve_rows(seen: list) -> dict:
+    """On the first SOLVE_CHECK_ROWS samples of every captured conv input
+    (clamped, float32): the card's opt_v1 against the CPU's (SOLVE_TOL,
+    else the card's v1 may cost no more than the CPU's), and how far v1
+    moves on the card when every element moves one ulp away from zero."""
+    from quant_tpu_torch.ops.optimal import opt_v1
+
+    rel = shift = 0.0
+    off_tol = 0
+    for conv, xin in seen:
+        quant = conv.x_quantizer
+        ternary = quant.scheme == 'ls-T'
+        xc = conv.clamp_fn()(xin)
+        rows = xc.reshape(xc.shape[0], -1)[:SOLVE_CHECK_ROWS].float()
+        got = opt_v1(rows, ternary, quant.skip, quant.solver_mode)
+        up = opt_v1(torch.nextafter(rows, rows.sign() * float('inf')),
+                    ternary, quant.skip, quant.solver_mode)
+        shift = max(shift, ((up - got).abs() / got.abs().clamp_min(
+            1e-30)).max().item())
+        cpu_rows = rows.cpu()
+        got = got.cpu().numpy()
+        want = opt_v1(cpu_rows, ternary, quant.skip,
+                      quant.solver_mode).numpy()
+        rel = max(rel, float((np.abs(got - want) / np.maximum(
+            np.abs(want), 1e-30)).max()))
+        far = ~np.isclose(got, want, **SOLVE_TOL)
+        if far.any():
+            sub = cpu_rows.numpy()[far][:, ::quant.skip]
+            norms = np.linalg.norm(sub.astype(np.float64), axis=1)
+            if not (_v1_cost(sub, got[far], ternary)
+                    <= _v1_cost(sub, want[far], ternary)
+                    + SOLVE_COST_TOL * norms).all():
+                raise AssertionError('opt_v1 on the card costs more than '
+                                     'on the CPU')
+            off_tol += int(far.sum())
+    return dict(v1_max_rel_err=rel, rows_past_tol=off_tol,
+                v1_max_rel_shift_one_ulp=shift)
+
+
+def solve_phase(seen: list, seen32: list, iters: int) -> dict:
+    """The per-sample activation solves of an 'off' model: card ms summed
+    over the convs of its bf16 forward (the whole batch), and _solve_rows
+    on the inputs of that forward (bf16 values) and of its float32 chain
+    (seen32). Returns the record."""
+    ms = 0.0
+    for conv, xin in seen:
+        xc = conv.clamp_fn()(xin)
+        ms += card_ms(lambda: conv.x_quantizer.solve(xc), iters)
+    return dict(solve_ms=ms, convs=len(seen), bf16_rows=_solve_rows(seen),
+                f32_rows=_solve_rows(seen32))
+
+
+def _timed_futures(submit: Callable, images: np.ndarray
+                   ) -> tuple[list, list]:
+    """Submit every image; returns the futures and, per request, [submit
+    time, done time] as the caller's clock reads them."""
+    futures, times = [], []
+    for img in images:
+        t = [time.perf_counter(), None]
+        fut = submit(img)
+        fut.add_done_callback(
+            lambda f, t=t: t.__setitem__(1, time.perf_counter()))
+        futures.append(fut)
+        times.append(t)
+    return futures, times
+
+
+def _client_latency(times: list) -> dict:
+    lats = np.asarray([b - a for a, b in times]) * 1e3
+    return {'p50': float(np.percentile(lats, 50)),
+            'p99': float(np.percentile(lats, 99)),
+            'max': float(lats.max())}
+
+
+def _warm_round(frontend: Any, images: np.ndarray) -> dict:
+    """The same requests again through a running frontend, sent as fast
+    as submit returns: the engines' threads have served before (PyTorch
+    keeps cuDNN and cuBLAS handles per thread, made at a thread's first
+    forward). Returns the logits, the client latency and the seconds."""
+    t0 = time.perf_counter()
+    futures, times = _timed_futures(frontend.submit, images)
+    logits = np.stack([f.result(timeout=300) for f in futures])
+    return dict(logits=logits, latency_ms=_client_latency(times),
+                s=time.perf_counter() - t0)
+
+
+def _serving_images(seed: int, shape: tuple = (224, 224, 3)) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal(
+        (SERVING_REQUESTS,) + tuple(shape)).astype(np.float32)
+
+
+def frontend_phase(model: torch.nn.Module, seed: int) -> dict:
+    """(a) An in-process ServingFrontend over two InferenceEngines of the
+    main-path model on the card. The 64 requests are queued before the
+    engines start, so least-loaded dispatch alternates and each engine
+    serves one batch of 32, the bucket predict() runs; the launch counts
+    are zeroed just before the engines start and read just after. Then
+    the same requests again, through the running engines (_warm_round),
+    held to FP32_REL_TOL of the spread (other batch sizes)."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.serving.engine import (
+        InferenceEngine, ServingFrontend,
+    )
+
+    images = _serving_images(seed)
+    half = SERVING_REQUESTS // 2
+    engines = [InferenceEngine(model, (224, 224, 3), max_batch=half,
+                               max_wait_ms=5.0, device=DEVICE)
+               for _ in range(2)]
+    for e in engines:
+        e.warmup([half])
+    frontend = ServingFrontend(engines)
+    futures, times = _timed_futures(frontend.submit, images)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    frontend.start()
+    try:
+        got = np.stack([f.result(timeout=300) for f in futures])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        stats = frontend.stats
+        warm = _warm_round(frontend, images)
+    finally:
+        frontend.stop()
+    batches = stats['batches']
+    want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
+    want.update(xnor_conv2d=16 * batches, pack_sign_planes=16 * batches,
+                max_pool_3x3_s2_p1=batches)
+    if launches != want:
+        raise AssertionError(f'frontend: launches {launches}, expected '
+                             f'{want}')
+    if ([s['requests'] for s in stats['engines']] != [half, half]
+            or batches != 2 or stats['requests'] != SERVING_REQUESTS
+            or stats['latency_ms']['window'] != SERVING_REQUESTS):
+        raise AssertionError(f'frontend stats do not aggregate both '
+                             f'engines: {stats}')
+    ref = engines[0].predict(images)
+    if not np.isfinite(got).all() or got.shape[0] != SERVING_REQUESTS:
+        raise AssertionError(f'frontend logits bad: {got.shape}')
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    warm_err = float(np.abs(warm['logits'] - ref).max())
+    if not warm_err <= FP32_REL_TOL * float(ref.max() - ref.min()):
+        raise AssertionError(f'frontend second round: max abs err '
+                             f'{warm_err}')
+    return dict(requests=SERVING_REQUESTS, batches=batches,
+                launches={k: v for k, v in launches.items() if v},
+                latency_ms=stats['latency_ms'],
+                client_latency_ms=_client_latency(times),
+                bitwise_equal=bool(np.array_equal(got, ref)),
+                max_abs_err=float(np.abs(got - ref).max()),
+                second_round=dict(client_latency_ms=warm['latency_ms'],
+                                  s=warm['s'], max_abs_err=warm_err))
+
+
+def _worker_launches(before: dict, after: dict) -> dict[str, int]:
+    """A worker's launches between two of its stats, checked against its
+    batches: 16 xnor_conv2d, 16 pack_sign_planes and 1 pool each."""
+    got = {k: after['kernel_launches'][k] - before['kernel_launches'][k]
+           for k in after['kernel_launches']}
+    n = after['batches'] - before['batches']
+    want = {k: 0 for k in got}
+    want.update(xnor_conv2d=16 * n, pack_sign_planes=16 * n,
+                max_pool_3x3_s2_p1=n)
+    if got != want:
+        raise AssertionError(f'worker launches {got}, expected {want}')
+    return got
+
+
+def worker_phase(seed: int) -> dict:
+    """(b) Two worker processes of WORKER_SPEC on the card, behind a
+    frontend with an RPC secret: 64 requests against an in-process engine
+    of the same spec, each worker's launches read from its stats around
+    them, then the same requests again (_warm_round); (c) worker 0
+    killed: the requests routed to it fail with transport errors until
+    it is evicted, then the survivor serves every later request. Every
+    worker process is stopped before this returns."""
+    from quant_tpu_torch.serving.engine import ServingFrontend
+    from quant_tpu_torch.serving.worker import (
+        build_engine_from_spec, spawn_engine_workers,
+    )
+
+    spec = dict(WORKER_SPEC, seed=seed, device=DEVICE)
+    images = _serving_images(seed + 1, spec['input_shape'])
+    t0 = time.perf_counter()
+    procs, clients = spawn_engine_workers(2, spec, secret=os.urandom(32),
+                                          timeout=600)
+    startup_s = time.perf_counter() - t0
+    frontend = ServingFrontend(clients, max_failures=2).start()
+    try:
+        before = [c.stats for c in clients]
+        futures, times = _timed_futures(frontend.submit, images)
+        got = np.stack([f.result(timeout=300) for f in futures])
+        stats = frontend.stats
+        launches = [_worker_launches(b, s)
+                    for b, s in zip(before, stats['engines'])]
+        if stats['requests'] - sum(b['requests'] for b in before) \
+                != SERVING_REQUESTS or min(
+                    s['requests'] for s in stats['engines']) == 0:
+            raise AssertionError(f'worker stats: {stats}')
+        reference = build_engine_from_spec(spec)
+        want = reference.predict(images)
+        spread = float(want.max() - want.min())
+        err = float(np.abs(got - want).max())
+        if not np.isfinite(got).all() or not err <= FP32_REL_TOL * spread:
+            raise AssertionError(f'worker logits vs in-process: max abs '
+                                 f'err {err}, spread {spread}')
+        equal_rows = int((got == want).all(axis=1).sum())
+        warm = _warm_round(frontend, images)
+        warm_err = float(np.abs(warm['logits'] - want).max())
+        if not warm_err <= FP32_REL_TOL * spread:
+            raise AssertionError(f'workers second round: max abs err '
+                                 f'{warm_err}')
+
+        procs[0].kill()
+        procs[0].wait(timeout=60)
+        failed = 0
+        deadline = time.monotonic() + 120
+        while frontend.alive != [False, True]:
+            if time.monotonic() > deadline:
+                raise AssertionError('killed worker never evicted')
+            exc = frontend.submit(images[0]).exception(timeout=300)
+            if exc is not None and not isinstance(
+                    exc, ServingFrontend._TRANSPORT_ERRORS):
+                raise AssertionError(f'failover: {exc!r}')
+            failed += exc is not None
+            time.sleep(0.05)  # the eviction is recorded in a callback
+        served_before = clients[1].stats['requests']
+        n_later = min(16, SERVING_REQUESTS)
+        later = np.stack([frontend.submit(img).result(timeout=300)
+                          for img in images[:n_later]])
+        if clients[1].stats['requests'] - served_before != n_later:
+            raise AssertionError('the survivor did not serve every later '
+                                 'request')
+        later_err = float(np.abs(later - want[:n_later]).max())
+        if not later_err <= FP32_REL_TOL * spread:
+            raise AssertionError(f'survivor logits: max abs err '
+                                 f'{later_err}')
+        dead_stats = frontend.stats['engines'][0]
+        if 'error' not in dead_stats:
+            raise AssertionError('the dead worker answered stats')
+    finally:
+        frontend._health_stop.set()
+        for c, p in zip(clients, procs):
+            if p.poll() is None:
+                c.shutdown_server()
+        frontend.stop()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=60)
+    return dict(workers=2, spec=spec, startup_s=startup_s,
+                requests=SERVING_REQUESTS, batches=stats['batches'],
+                launches=launches, latency_ms=stats['latency_ms'],
+                client_latency_ms=_client_latency(times),
+                max_abs_err=err, spread=spread,
+                bitwise_equal_rows=equal_rows,
+                second_round=dict(client_latency_ms=warm['latency_ms'],
+                                  s=warm['s'], max_abs_err=warm_err,
+                                  bitwise_equal_rows=int(
+                                      (warm['logits'] == want).all(
+                                          axis=1).sum())),
+                failover=dict(failed_requests=failed, later_requests=n_later,
+                              later_max_abs_err=later_err,
+                              alive=frontend.alive,
+                              dead_stats=dead_stats['error']),
+                exit_codes=[p.returncode for p in procs])
+
+
+def _ema_leaves(model: torch.nn.Module) -> list:
+    from quant_tpu_torch.nn.layers import ActivationQuantizer
+
+    return [(name, m.ema.cpu(), int(m.ema_count))
+            for name, m in model.named_modules()
+            if isinstance(m, ActivationQuantizer) and m.ema is not None]
+
+
+def recipe_phase(build: str, x_quant: str, w_quant: str, recipe: str,
+                 seed: int) -> dict:
+    """A recipe's model as written (moving_average_mode 'off'), seeded,
+    calibrated by calibrate_ema_scales on CALIBRATION_BATCHES seeded
+    batches in float32 on the card and on the CPU (the EMA held to
+    CALIBRATION_REL_TOL), then folded, stripped and served from the card
+    with a bf16 chain."""
+    from quant_tpu_torch.nn import export
+
+    make, hwc, _, _ = PHASE_MODELS[build]
+    cpu_model = models.seeded_model(make, x_quant, w_quant, 'cpu', seed,
+                                    prepare=False, moving_average_mode='off')
+    gen = torch.Generator().manual_seed(seed)
+    batches = [torch.randn((CALIBRATION_BATCH,) + hwc, generator=gen)
+               for _ in range(CALIBRATION_BATCHES)]
+    t0 = time.perf_counter()
+    card = export.calibrate_ema_scales(
+        copy.deepcopy(cpu_model).to(DEVICE), [b.to(DEVICE) for b in batches])
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    cpu = export.calibrate_ema_scales(cpu_model, batches)
+    got, want = _ema_leaves(card), _ema_leaves(cpu)
+    if [n for n, *_ in got] != [n for n, *_ in want] or not got:
+        raise AssertionError(f'{build}: calibrated quantizers differ')
+    rels = []
+    for (name, g, gc), (_, w, wc) in zip(got, want):
+        if gc != wc or gc != CALIBRATION_BATCHES:
+            raise AssertionError(f'{build} {name}: ema_count {gc} vs {wc}')
+        rels.append(((g - w).abs() / w.abs()).max().item())
+    rel = max(rels)
+    worst = got[int(np.argmax(rels))][0]
+    if not rel <= CALIBRATION_REL_TOL:
+        raise AssertionError(f'{build}: calibrated EMA card vs CPU, max '
+                             f'relative err {rel} ({worst})')
+    models.prepare_for_serving(card)
+    if not card.bn_fold:
+        raise AssertionError(f'{build}: the calibrated model did not fold')
+    card.eval_dtype = torch.bfloat16
+    head = card.fc2 if build == 'lenet' else card.fc
+    served = serve(card, seed, hwc, head.kernel.shape[1])
+    return dict(model=build, recipe=recipe, x_quant=x_quant,
+                w_quant=w_quant, moving_average_mode='off',
+                calibration_batches=CALIBRATION_BATCHES,
+                calibration_batch=CALIBRATION_BATCH,
+                calibrate_s=calibrate_s, ema_max_rel_err=rel,
+                ema_worst_quantizer=worst,
+                ema_median_rel_err=float(np.median(rels)),
+                quantizers=len(got), serving=served)
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
@@ -1069,7 +1470,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     with torch.inference_mode():
         logits = model(x)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = launch_counts()
     for h in hooks:
         h.remove()
     want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
@@ -1116,6 +1517,16 @@ def main(argv: Optional[list[str]] = None) -> int:
           f'{img_s} img/s (card alone {_ms_or_not(ms_fwd_card, card_calls)}'
           f'); stem conv+BN+ReLU {stem_ms} ms', flush=True)
 
+    # The serving stack over the main-path model: in process, then two
+    # worker processes, then a worker killed.
+    t0 = time.perf_counter()
+    stack = dict(frontend=frontend_phase(model, args.seed))
+    print(f'serving frontend, 2 engines: {stack["frontend"]}', flush=True)
+    stack['workers'] = worker_phase(args.seed)
+    stack['s'] = time.perf_counter() - t0
+    print(f'serving workers: {stack["workers"]} ({stack["s"]:.1f} s)',
+          flush=True)
+
     # The model phases; the first, ls-T x ls-1, is this path's headline:
     # the multi-plane kernels are held against their twins on its
     # captured inputs, timed there, and it serves 16 requests.
@@ -1146,6 +1557,26 @@ def main(argv: Optional[list[str]] = None) -> int:
                                       tuple(record['input']),
                                       record['classes'])
             print(f'serving {name}: {record["serving"]}', flush=True)
+        if name == OFF_PHASE:
+            # The float32 chain's conv inputs, at batch 4.
+            seen32, hooks = capture_conv_inputs(phase_model)
+            phase_model.eval_dtype = None
+            x4 = torch.randn((4,) + tuple(record['input']),
+                             generator=torch.Generator().manual_seed(
+                                 args.seed + i)).to(DEVICE)
+            with torch.inference_mode():
+                phase_model(x4)
+            phase_model.eval_dtype = torch.bfloat16
+            for h in hooks:
+                h.remove()
+            with torch.inference_mode():
+                captured = planes_captured(phase_seen)
+                record['solves'] = solve_phase(phase_seen, seen32,
+                                               args.iters)
+            for kname, err in captured.items():
+                errs[kname] = max(errs[kname], err)
+            print(f'{len(phase_seen)} captured {name} convs vs plain twins: '
+                  f'{captured}; solves {record["solves"]}', flush=True)
         phases.append(record)
         del phase_model, phase_seen
     phases_s = time.perf_counter() - t0
@@ -1153,6 +1584,13 @@ def main(argv: Optional[list[str]] = None) -> int:
         'xnor_conv2d_planes', 0)
     want['xnor_conv2d_planes'] = launches['xnor_conv2d_planes']
     print(f'model phases: {phases_s:.1f} s', flush=True)
+
+    t0 = time.perf_counter()
+    recipes = []
+    for i, (build, xq, wq, recipe) in enumerate(RECIPE_PHASES):
+        recipes.append(recipe_phase(build, xq, wq, recipe, args.seed + i))
+        print(f'recipe {build} calibrated: {recipes[-1]}', flush=True)
+    recipes_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
@@ -1195,7 +1633,9 @@ def main(argv: Optional[list[str]] = None) -> int:
                            card_alone_calls=card_calls,
                            fp32_max_abs_err=fp32_err, fp32_spread=spread,
                            serving=served, kernels=rows,
+                           serving_stack=stack,
                            model_phases=phases, model_phases_s=phases_s,
+                           recipes=recipes, recipes_s=recipes_s,
                            probes=records, probe_s=probe_s,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f, indent=1)

@@ -1,2 +1,2 @@
-"""Modules of the port: eval-form layers, the xnor QResNet and the
-serving preparation (export, fold, strip)."""
+"""Modules of the port: eval-form layers, the QResNet families, QLeNet5
+and the serving preparation (export, calibrate, fold, strip)."""

@@ -1,5 +1,5 @@
-"""Serving preparation: pack, fold, strip (port of quant_tpu/nn/export.py:
-24-134, 145-370).
+"""Serving preparation: pack, calibrate, fold, strip (port of
+quant_tpu/nn/export.py).
 
 The JAX functions map variable trees to variable trees; here the state
 lives in the modules, so each function updates a QResNet or QLeNet5 in
@@ -7,13 +7,16 @@ place and returns it. `packed_params_tree` reads the result back in the
 JAX tree's shape.
 """
 
+import copy
 import logging
+from typing import Iterable
 
 import numpy as np
 import torch
 
-from quant_tpu_torch.nn.layers import QuantConv2d
+from quant_tpu_torch.nn.layers import ActivationQuantizer, QuantConv2d
 from quant_tpu_torch.nn.lenet import QLeNet5
+from quant_tpu_torch.ops.quantize import scheme_num_scales
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +68,63 @@ def fold_bn_into_packed(model: torch.nn.Module,
                 b = b + a * conv.bias
             conv.b_fold = b
     return model
+
+
+def _eval_only_twin(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of the model with moving_average_mode 'eval_only' (JAX's
+    model.clone(moving_average_mode='eval_only')): every state carried
+    over, EMA state created (zero, untracked) where the model had none."""
+    twin = copy.deepcopy(model)
+    dev = next(twin.parameters()).device
+    for m in twin.modules():
+        if hasattr(m, 'moving_average_mode'):
+            m.moving_average_mode = 'eval_only'
+        if isinstance(m, ActivationQuantizer) and m.scheme != 'fp' \
+                and m.ema is None:
+            k = scheme_num_scales(m.scheme)
+            m.ema = torch.zeros(k, dtype=torch.float32, device=dev)
+            m.ema_count = torch.zeros((), dtype=torch.int32, device=dev)
+    return twin
+
+
+def calibrate_ema_scales(model: torch.nn.Module,
+                         batches: Iterable) -> torch.nn.Module:
+    """Post-training EMA calibration (the observer pass of
+    quant_tpu/nn/export.py:106-142).
+
+    A model trained with moving_average_mode 'off' solves its activation
+    scales per batch, so it cannot serve threshold-folded. This runs eval
+    forwards (BN on running statistics, as EMA serving sees them) of the
+    model's 'eval_only' twin with every activation quantizer in observer
+    mode, blending each batch's solved scales into the EMA.
+
+    Args:
+        model: a QResNet or QLeNet5 (any moving_average_mode); unchanged.
+        batches: iterable of NHWC input batches (tensors or arrays).
+
+    Returns:
+        the 'eval_only' twin carrying the calibrated EMA scales, its
+        quantizers out of observer mode; fold_for_serving folds it as any
+        EMA model.
+    """
+    twin = _eval_only_twin(model)
+    dev = next(twin.parameters()).device
+    quants = [m for m in twin.modules() if isinstance(m, ActivationQuantizer)]
+    n = 0
+    try:
+        for q in quants:
+            q.calibrate = True
+        with torch.inference_mode():
+            for batch in batches:
+                twin(torch.as_tensor(batch, device=dev))
+                n += 1
+    finally:
+        for q in quants:
+            q.calibrate = False
+    if n == 0:
+        raise ValueError('calibrate_ema_scales got an empty batch '
+                         'iterable — EMA state would stay untracked.')
+    return twin
 
 
 def _clamp_box_check(label: str, scheme: str, clamp: dict,

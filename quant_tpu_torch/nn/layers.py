@@ -4,10 +4,11 @@ Modules keep the JAX layouts (HWIO kernels, (in, out) dense kernels,
 NHWC activations) and the JAX tree's leaf names where PyTorch has no
 idiom of its own, so `utils.jax_import.from_jax_variables` maps one
 exported variable tree onto them. Everything here is inference: the
-quantizers read cached or EMA scales (or solve a batch's where no
-least-squares optimum is needed), and QuantConv2d runs the packed
-serving conv or the dense eval conv. Training, EMA updates and the
-train_dtype path are queued for Slice C.
+weight quantizers read cached scales, the activation quantizers EMA
+scales or the batch's own solve ('off'), and, in observer mode
+(`calibrate`), blend each batch's solve into the EMA; QuantConv2d runs
+the packed serving conv or the dense eval conv. Training (quantizers in
+train mode, BN statistics, the STE, train_dtype) is not ported yet.
 """
 
 import math
@@ -19,7 +20,8 @@ from torch import nn
 from quant_tpu_torch.ops import binary_infer as BI
 from quant_tpu_torch.ops.conv import _pair, conv2d, stem_conv_s2d
 from quant_tpu_torch.ops.quantize import (
-    get_clamp_fn, quantize_with_scheme, scheme_num_scales, validate_scheme,
+    get_clamp_fn, quantize_with_scheme, scheme_num_scales, solve_scales,
+    validate_scheme,
 )
 
 IntOr2 = Union[int, Sequence[int]]
@@ -122,7 +124,7 @@ class BatchNorm(nn.Module):
     (`affine=False`, LeNet-5's) has no weight and no bias.
 
     eps 1e-5 as the JAX BatchNorm; its training-time running-stat update
-    (torch momentum convention) is Slice C.
+    (torch momentum convention) comes with train mode.
     """
 
     def __init__(self, num_features: int, epsilon: float = 1e-5,
@@ -160,13 +162,22 @@ class BatchNorm(nn.Module):
 
 
 class ActivationQuantizer(nn.Module):
-    """Per-sample activation scales in eval: the EMA broadcast over the
-    batch when an EMA mode tracks one, else the batch's own solve (ls-1
-    and gf-k; the ls-2 and ls-T solves need opt_v1, Slice C). fp has no
-    scales and no state.
+    """Per-sample activation scales in eval (quant_tpu/nn/layers.py:
+    123-218, eval branches): the EMA broadcast over the batch when an EMA
+    mode tracks one, else the batch's own solve (ls-2 and ls-T by opt_v1
+    over every `skip`-th element, `solver_mode`). fp has no scales and no
+    state.
+
+    With `calibrate` (the observer pass of nn.export.calibrate_ema_scales)
+    each forward also solves the batch's scales and blends their batch
+    mean into `ema`: the first batch copies, later ones take momentum*old
+    + (1-momentum)*new, and `ema_count` counts them. It then returns the
+    blended scales, so later layers see what EMA serving will feed them.
     """
 
-    def __init__(self, scheme: str, moving_average_mode: str = 'off'):
+    def __init__(self, scheme: str, moving_average_mode: str = 'off',
+                 moving_average_momentum: float = 0.99, skip: int = 3,
+                 solver_mode: str = 'exact', calibrate: bool = False):
         super().__init__()
         validate_scheme(scheme)
         if moving_average_mode not in ('off',) + _EMA_MODES:
@@ -174,6 +185,9 @@ class ActivationQuantizer(nn.Module):
                 f'Invalid moving average mode {moving_average_mode}.')
         self.scheme = scheme
         self.moving_average_mode = moving_average_mode
+        self.moving_average_momentum = moving_average_momentum
+        self.skip, self.solver_mode = skip, solver_mode
+        self.calibrate = calibrate
         use_ema = moving_average_mode != 'off' and scheme != 'fp'
         k = scheme_num_scales(scheme)
         self.register_buffer(
@@ -182,13 +196,29 @@ class ActivationQuantizer(nn.Module):
             'ema_count',
             torch.zeros((), dtype=torch.int32) if use_ema else None)
 
+    def solve(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The (k, N) scales this batch solves to (None for fp)."""
+        return solve_scales(self.scheme, x, self.skip, self.solver_mode)
+
     def forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """(k, N) scales for x (N leading); None for fp."""
         if self.scheme == 'fp':
             return None
+        if self.calibrate:
+            if self.ema is None:
+                raise ValueError(
+                    "calibrate=True needs an EMA moving_average_mode "
+                    "('eval_only'/'train_and_eval') so there is EMA "
+                    'state to calibrate.')
+            new = self.solve(x).mean(dim=1)
+            m = self.moving_average_momentum
+            blended = torch.where(self.ema_count > 0,
+                                  m * self.ema + (1.0 - m) * new, new)
+            self.ema.copy_(blended)
+            self.ema_count.add_(1)
         if self.ema is not None:
             return self.ema[:, None].expand(self.ema.shape[0], x.shape[0])
-        return quantize_with_scheme(self.scheme, x, None)[0]
+        return self.solve(x)
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """x_q = sum_i v_i * b_i with this batch's scales (x for fp)."""
@@ -214,6 +244,9 @@ class QuantConv2d(nn.Module):
 
     inference_mode 'dense' (and an fp w_quant) runs the conv of the
     quantized tensors in float32, as JAX's eval forward does.
+
+    `solver_mode` and `calibrate` reach the activation quantizer; its
+    solves take every 3rd element of a row, as JAX's quantizers.
     """
 
     def __init__(self, in_channels: int, features: int,
@@ -222,6 +255,7 @@ class QuantConv2d(nn.Module):
                  clamp: Optional[dict[str, Any]] = None,
                  stride: IntOr2 = 1, padding: IntOr2 = 0,
                  use_bias: bool = True, moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
@@ -249,7 +283,9 @@ class QuantConv2d(nn.Module):
         self.register_buffer(
             'w_vs', torch.zeros(k_w, features, dtype=torch.float32)
             if w_quant != 'fp' else None)
-        self.x_quantizer = ActivationQuantizer(x_quant, moving_average_mode)
+        self.x_quantizer = ActivationQuantizer(
+            x_quant, moving_average_mode, solver_mode=solver_mode,
+            calibrate=calibrate)
         for name in ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va',
                      'b_fold'):
             self.register_buffer(name, None)

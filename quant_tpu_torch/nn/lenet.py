@@ -24,8 +24,9 @@ _BN_EPS = 1e-4
 
 
 class QLeNet5(nn.Module):
-    """LeNet-5 with a quantized second conv; `eval_dtype` and `bn_fold`
-    are plain attributes, as on QResNet. Builds on `device` ('cuda' by
+    """LeNet-5 with a quantized second conv; `solver_mode` and `calibrate`
+    reach its activation quantizer and `eval_dtype` and `bn_fold` are
+    plain attributes, as on QResNet. Builds on `device` ('cuda' by
     default; raises if CUDA is missing)."""
 
     def __init__(self, conv1_filters: int = 20, conv2_filters: int = 50,
@@ -33,6 +34,7 @@ class QLeNet5(nn.Module):
                  w_quant: str = 'fp',
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed',
                  eval_dtype: DtypeLike = None, pass_fusion: bool = True,
                  sign_compute: str = 'auto', bn_fold: bool = False,
@@ -52,6 +54,7 @@ class QLeNet5(nn.Module):
             conv1_filters, conv2_filters, 5, x_quant=x_quant,
             w_quant=w_quant, clamp=clamp,
             moving_average_mode=moving_average_mode,
+            solver_mode=solver_mode, calibrate=calibrate,
             inference_mode=inference_mode, pass_fusion=pass_fusion,
             sign_compute=sign_compute, generator=generator)
         # 28 px in: conv1 24, pool 12, conv2 8, pool 4.

@@ -62,8 +62,9 @@ class _Block(nn.Module):
 
     def __init__(self, x_quant: str, w_quant: str, nonlins: Sequence[str],
                  clamp: Optional[dict[str, Any]], moving_average_mode: str,
-                 inference_mode: str, pass_fusion: bool, sign_compute: str,
-                 use_bias: bool, generator: Optional[torch.Generator]):
+                 solver_mode: str, calibrate: bool, inference_mode: str,
+                 pass_fusion: bool, sign_compute: str, use_bias: bool,
+                 generator: Optional[torch.Generator]):
         super().__init__()
         if len(nonlins) != 2:
             raise ValueError('There should be 2 non-linearities.')
@@ -71,6 +72,7 @@ class _Block(nn.Module):
         self.inference_mode = inference_mode
         self.qconv = dict(x_quant=x_quant, w_quant=w_quant, clamp=clamp,
                           moving_average_mode=moving_average_mode,
+                          solver_mode=solver_mode, calibrate=calibrate,
                           inference_mode=inference_mode,
                           pass_fusion=pass_fusion, sign_compute=sign_compute,
                           use_bias=use_bias, generator=generator)
@@ -96,12 +98,13 @@ class RegularBasicBlock(_Block):
                  w_quant: str, nonlins: Sequence[str], stride: int = 1,
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
         super().__init__(x_quant, w_quant, nonlins, clamp,
-                         moving_average_mode, inference_mode, pass_fusion,
-                         sign_compute, False, generator)
+                         moving_average_mode, solver_mode, calibrate,
+                         inference_mode, pass_fusion, sign_compute, False, generator)
         self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride,
                                  padding=1, **self.qconv)
         self.bn1 = BatchNorm(planes)
@@ -135,12 +138,13 @@ class XnorBasicBlock(_Block):
                  double_shortcut: bool = False,
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
         super().__init__(x_quant, w_quant, nonlins, clamp,
-                         moving_average_mode, inference_mode, pass_fusion,
-                         sign_compute, True, generator)
+                         moving_average_mode, solver_mode, calibrate,
+                         inference_mode, pass_fusion, sign_compute, True, generator)
         self.double_shortcut = double_shortcut
         self.bn1 = BatchNorm(in_planes)
         self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride,
@@ -177,12 +181,13 @@ class RegularBottleneckBlock(_Block):
                  w_quant: str, nonlins: Sequence[str], stride: int = 1,
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
         super().__init__(x_quant, w_quant, nonlins, clamp,
-                         moving_average_mode, inference_mode, pass_fusion,
-                         sign_compute, False, generator)
+                         moving_average_mode, solver_mode, calibrate,
+                         inference_mode, pass_fusion, sign_compute, False, generator)
         out_planes = planes * self.expansion
         self.conv1 = QuantConv2d(in_planes, planes, 1, **self.qconv)
         self.bn1 = BatchNorm(planes)
@@ -226,6 +231,7 @@ class XnorBottleneckBlock(_Block):
                  double_shortcut: bool = False,
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
                  generator: Optional[torch.Generator] = None):
@@ -234,8 +240,8 @@ class XnorBottleneckBlock(_Block):
                 'double_shortcut is only defined for basic blocks '
                 '(channel counts change inside a bottleneck).')
         super().__init__(x_quant, w_quant, nonlins, clamp,
-                         moving_average_mode, inference_mode, pass_fusion,
-                         sign_compute, True, generator)
+                         moving_average_mode, solver_mode, calibrate,
+                         inference_mode, pass_fusion, sign_compute, True, generator)
         out_planes = planes * self.expansion
         self.bn1 = BatchNorm(in_planes)
         self.conv1 = QuantConv2d(in_planes, planes, 1, **self.qconv)
@@ -281,10 +287,13 @@ class QResNet(nn.Module):
     `block` is one of BLOCKS (with num_blocks [3, 4, 6, 3],
     'regular_bottleneck' is ResNet-50). `inference_mode` 'packed' serves
     the binary convs packed, 'dense' runs every conv as a float32 conv of
-    the quantized tensors (the fp32 twin: schemes 'fp'). `eval_dtype`
-    (e.g. torch.bfloat16) is the feature-map chain's dtype and `bn_fold`
-    serves convs that an export fold prepared; both are plain attributes
-    that may be changed between forwards. `stem_s2d` runs the stem conv
+    the quantized tensors (the fp32 twin: schemes 'fp'). `solver_mode` is
+    the opt_v1 mode of the activation solves under moving_average_mode
+    'off'; `calibrate` builds the activation quantizers in observer mode
+    (nn.export.calibrate_ema_scales). `eval_dtype` (e.g.
+    torch.bfloat16) is the feature-map chain's dtype and `bn_fold` serves
+    convs that an export fold prepared; both are plain attributes that
+    may be changed between forwards. `stem_s2d` runs the stem conv
     in its exact space-to-depth form (`conv1.s2d`; JAX resnet.py:386,409),
     with the same parameters. Parameters start from torch's default init
     drawn from `generator`, or come from a JAX tree via
@@ -298,6 +307,7 @@ class QResNet(nn.Module):
                  layer3: dict[str, Any], layer4: Optional[dict[str, Any]],
                  nonlins: Sequence[str], num_blocks: Sequence[int],
                  output_classes: int, moving_average_mode: str = 'off',
+                 solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed',
                  eval_dtype: DtypeLike = None, pass_fusion: bool = True,
                  sign_compute: str = 'auto', bn_fold: bool = False,
@@ -337,6 +347,7 @@ class QResNet(nn.Module):
                           w_quant=cfg.pop('w_quant'),
                           clamp=cfg.pop('clamp', None), nonlins=nonlins,
                           moving_average_mode=moving_average_mode,
+                          solver_mode=solver_mode, calibrate=calibrate,
                           inference_mode=inference_mode,
                           pass_fusion=pass_fusion, sign_compute=sign_compute,
                           generator=generator, **cfg)

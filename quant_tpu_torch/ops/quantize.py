@@ -4,11 +4,12 @@ quant_tpu/nn/layers.py:34-66).
 
 Scales are solved in float32 over a row view (rows = out-channels for
 weights, samples for activations); x_q keeps x's dtype, each scale cast
-to it first. Each quantizer returns ((k, rows) scales, x_q). With the
-scales given, every scheme runs; solving them needs, for ls-1 and gf-k,
-only means. The ls-2 and ls-T solves call the least-squares optimum
-`opt_v1` (quant_tpu/ops/optimal.py), which is ported with the training
-code in Slice C: those solves raise NotImplementedError.
+to it first. Each quantizer returns ((k, rows) scales, x_q) and solves
+its scales when none are given: ls-1 and gf-k by means, ls-2 and ls-T
+by the least-squares optimum `ops.optimal.opt_v1` over every `skip`-th
+element of a row (mode 'exact', 'reference' or 'lloyd'). `solve_scales`
+gives the scales alone, as JAX's jitted forwards compute them where x_q
+is dead.
 """
 
 import re
@@ -17,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from quant_tpu_torch.ops.optimal import opt_v1
 from quant_tpu_torch.ops.ste import binary_sign
 
 _LS_SCALES = {'fp': 0, 'ls-1': 1, 'ls-2': 2, 'ls-T': 1}
@@ -58,19 +60,13 @@ def scheme_num_scales(scheme: str) -> int:
 
 
 def _rows32(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(x.shape[0], -1).to(torch.float32)
+    """Detached float32 row view: the solver operand."""
+    return x.detach().reshape(x.shape[0], -1).to(torch.float32)
 
 
 def _per_row(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A (rows,) scale vector against x's trailing dims, in x's dtype."""
     return v.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
-
-
-def _needs_opt_v1(scheme: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'solving {scheme} scales needs the least-squares optimum opt_v1 '
-        '(quant_tpu/ops/optimal.py), queued for Slice C; pass cached '
-        'scales (vs) or use an EMA moving_average_mode.')
 
 
 def quantizer_fp(x: torch.Tensor, vs: Optional[torch.Tensor] = None
@@ -93,12 +89,25 @@ def quantizer_ls_1(x: torch.Tensor, v1: Optional[torch.Tensor] = None
     return v1[None, :], _per_row(v1, x) * binary_sign(x)
 
 
-def quantizer_ls_2(x: torch.Tensor, vs: Optional[torch.Tensor] = None
+def _solve_ls_2(x: torch.Tensor, skip: int, mode: str) -> torch.Tensor:
+    """(2, rows): v1 = opt_v1 of the rows, v2 = mean |residual|, both
+    over the float32 rows."""
+    xd = _rows32(x)
+    v1 = opt_v1(xd, ternary=False, skip=skip, mode=mode)
+    residual = xd - v1[:, None] * binary_sign(xd)
+    return torch.stack([v1, residual.abs().mean(dim=-1)])
+
+
+def quantizer_ls_2(x: torch.Tensor, vs: Optional[torch.Tensor] = None,
+                   skip: int = 3, mode: str = 'exact'
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """2-bit least-squares quantization with given (2, rows) scales:
-    x_q = v1*b1 + v2*sign(x - v1*b1)."""
+    """2-bit least-squares quantization: x_q = v1*b1 + v2*sign(x - v1*b1).
+
+    v1 is the per-row least-squares optimum (opt_v1 over every skip-th
+    element), v2 the mean absolute residual, unless vs gives (2, rows).
+    """
     if vs is None:
-        raise _needs_opt_v1('ls-2')
+        vs = _solve_ls_2(x, skip, mode)
     v1, v2 = vs[0].reshape(-1), vs[1].reshape(-1)
     b1 = binary_sign(x)
     v1b = _per_row(v1, x)
@@ -106,13 +115,14 @@ def quantizer_ls_2(x: torch.Tensor, vs: Optional[torch.Tensor] = None
     return torch.stack([v1, v2]), x_q
 
 
-def quantizer_ls_ternary(x: torch.Tensor, vs: Optional[torch.Tensor] = None
+def quantizer_ls_ternary(x: torch.Tensor, vs: Optional[torch.Tensor] = None,
+                         skip: int = 3, mode: str = 'exact'
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Ternary least-squares quantization with a given (1, rows) scale:
-    x_q = v1*(b1 + sign(x - v1*b1)), values in {-2v1, 0, +2v1}."""
-    if vs is None:
-        raise _needs_opt_v1('ls-T')
-    v1 = vs[0].reshape(-1)
+    """Ternary least-squares quantization: x_q = v1*(b1 + sign(x -
+    v1*b1)), values in {-2v1, 0, +2v1}; v1 the per-row ternary optimum
+    (opt_v1) unless vs gives (1, rows)."""
+    v1 = (opt_v1(_rows32(x), ternary=True, skip=skip, mode=mode)
+          if vs is None else vs[0].reshape(-1))
     b1 = binary_sign(x)
     v1b = _per_row(v1, x)
     return v1[None, :], v1b * (b1 + binary_sign(x - v1b * b1))
@@ -123,29 +133,57 @@ def quantizer_gf(x: torch.Tensor, k: int, vs: Optional[torch.Tensor] = None
     """Greedy-foldable k-bit quantization: pass i takes v_i = mean
     |residual| (float32, over the row) unless vs gives it, and adds
     v_i * sign(x - result) to the result."""
-    residual = _rows32(x)
+    if vs is None:
+        vs = _solve_gf(x, k)
     result = torch.zeros_like(x)
     saved = []
     for i in range(k):
-        v = (vs[i].reshape(-1) if vs is not None
-             else residual.abs().mean(dim=-1))
+        v = vs[i].reshape(-1)
         saved.append(v)
-        residual = residual - v[:, None] * binary_sign(residual)
         result = result + _per_row(v, x) * binary_sign(x - result)
     return torch.stack(saved), result
 
 
+def _solve_gf(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(k, rows): v_i = mean |residual| of the float32 rows, greedily."""
+    residual = _rows32(x)
+    saved = []
+    for _ in range(k):
+        v = residual.abs().mean(dim=-1)
+        saved.append(v)
+        residual = residual - v[:, None] * binary_sign(residual)
+    return torch.stack(saved)
+
+
+def solve_scales(scheme: str, x: torch.Tensor, skip: int = 3,
+                 mode: str = 'exact') -> Optional[torch.Tensor]:
+    """The (k, rows) scales the quantizer of `scheme` solves for x, without
+    x_q (None for fp): the same float32 ops as the quantizers'."""
+    validate_scheme(scheme)
+    if scheme == 'fp':
+        return None
+    if scheme == 'ls-1':
+        return _rows32(x).abs().mean(dim=-1)[None, :]
+    if scheme == 'ls-2':
+        return _solve_ls_2(x, skip, mode)
+    if scheme == 'ls-T':
+        return opt_v1(_rows32(x), ternary=True, skip=skip, mode=mode)[None]
+    return _solve_gf(x, scheme_num_scales(scheme))
+
+
 def quantize_with_scheme(scheme: str, x: torch.Tensor,
-                         vs: Optional[torch.Tensor]
+                         vs: Optional[torch.Tensor], skip: int = 3,
+                         mode: str = 'exact'
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch to the quantizer of `scheme`: ((k, rows) scales, x_q)."""
+    """Dispatch to the quantizer of `scheme`: ((k, rows) scales, x_q);
+    skip and mode reach the ls-2 and ls-T solves."""
     validate_scheme(scheme)
     if scheme == 'fp':
         return quantizer_fp(x, vs)
     if scheme == 'ls-1':
         return quantizer_ls_1(x, vs[0] if vs is not None else None)
     if scheme == 'ls-2':
-        return quantizer_ls_2(x, vs)
+        return quantizer_ls_2(x, vs, skip, mode)
     if scheme == 'ls-T':
-        return quantizer_ls_ternary(x, vs)
+        return quantizer_ls_ternary(x, vs, skip, mode)
     return quantizer_gf(x, scheme_num_scales(scheme), vs)

@@ -4,8 +4,9 @@
 `resnet50_cifar` the ResNet-50 of
 examples/cifar100/cifar100_resnet50_ls2_tpu.yaml and `lenet5` the
 LeNet-5 of examples/mnist/*.yaml. `seed_state` gives a built model the
-state training leaves (BN affines and statistics, cached weight scales,
-EMA activation scales, each plane with a scale of its own), and
+state training leaves (BN affines and statistics, cached weight scales
+of the weight quantizer's solve, EMA activation scales, each plane with
+a scale of its own), and
 `seeded_model` builds, seeds and prepares one for serving with the
 port's own export, fold and strip. `seeded_serving_resnet18` is the
 bench's headline model, which the smoke run and the batch-sweep probe
@@ -21,8 +22,7 @@ from quant_tpu_torch.nn import export
 from quant_tpu_torch.nn.layers import BatchNorm, QuantConv2d
 from quant_tpu_torch.nn.lenet import QLeNet5
 from quant_tpu_torch.nn.resnet import QResNet
-from quant_tpu_torch.ops.quantize import quantizer_gf, quantizer_ls_1
-from quant_tpu_torch.ops.ste import binary_sign
+from quant_tpu_torch.ops.quantize import solve_scales
 
 # EMA activation scales per plane, as a trained model's fall: distinct,
 # so that a swapped plane or scale shows, and with prefix sums (0.9,
@@ -106,21 +106,12 @@ def build(family: str, config: dict, **kwargs: Any) -> torch.nn.Module:
 
 
 def _weight_scales(conv: QuantConv2d) -> torch.Tensor:
-    """Cached weight scales as training leaves them, per out-channel:
-    ls-1 and gf-k their greedy means; ls-2 and ls-T take mean |w| as v1
-    in place of the least-squares optimum (opt_v1, not ported), and
-    ls-2's v2 is the mean |residual|."""
+    """Cached weight scales as training leaves them, per out-channel: the
+    weight quantizer's own solve (quant_tpu/nn/layers.py:97-120): means
+    for ls-1 and gf-k, the least-squares optimum (opt_v1, exact, every
+    3rd element) for ls-2 and ls-T."""
     w_oi = torch.movedim(conv.kernel, -1, 0)
-    if conv.w_quant == 'ls-1':
-        return quantizer_ls_1(w_oi)[0]
-    if conv.w_quant.startswith('gf-'):
-        return quantizer_gf(w_oi, conv.w_vs.shape[0])[0]
-    rows = w_oi.reshape(w_oi.shape[0], -1)
-    v1 = rows.abs().mean(dim=-1)
-    if conv.w_quant == 'ls-T':
-        return v1[None]
-    v2 = (rows - v1[:, None] * binary_sign(rows)).abs().mean(dim=-1)
-    return torch.stack([v1, v2])
+    return solve_scales(conv.w_quant, w_oi, skip=3, mode='exact')
 
 
 @torch.no_grad()
@@ -151,22 +142,33 @@ def seed_state(model: torch.nn.Module, gen: torch.Generator) -> None:
                 m.x_quantizer.ema_count.fill_(1)
 
 
+def prepare_for_serving(model: torch.nn.Module) -> torch.nn.Module:
+    """Export, fold with the family's fold and strip a packed model with
+    binary weights, in place (others are returned as they are). A fold
+    must apply, except where per-batch scales (moving_average_mode 'off')
+    rule out the threshold fold: such a model serves unfolded."""
+    convs = [m for m in model.modules() if isinstance(m, QuantConv2d)]
+    if not any(c.packed for c in convs):
+        return model
+    export.export_packed_variables(model)
+    folded = export.fold_for_serving(model)[1]
+    if not folded and model.moving_average_mode != 'off':
+        raise RuntimeError('no fold applied to the seeded model')
+    return export.strip_for_deployment(model)
+
+
 def seeded_model(make: Callable[..., torch.nn.Module], x_quant: str,
                  w_quant: str, device: DeviceLike, seed: int,
-                 **kwargs: Any) -> torch.nn.Module:
+                 prepare: bool = True, **kwargs: Any) -> torch.nn.Module:
     """make(x_quant, w_quant, **kwargs) on the CPU from one
-    torch.Generator (weights by torch's default init, then seed_state);
-    a packed model with binary weights is then exported, folded with its
-    family's fold (raises if none applies) and stripped. Moved to
-    `device`."""
+    torch.Generator (weights by torch's default init, then seed_state),
+    prepared for serving (prepare_for_serving) unless `prepare` is False,
+    as a model is before calibrate_ema_scales. Moved to `device`."""
     gen = torch.Generator().manual_seed(seed)
     model = make(x_quant, w_quant, device='cpu', generator=gen, **kwargs)
     seed_state(model, gen)
-    if w_quant != 'fp' and kwargs.get('inference_mode', 'packed') == 'packed':
-        export.export_packed_variables(model)
-        if not export.fold_for_serving(model)[1]:
-            raise RuntimeError('no fold applied to the seeded model')
-        export.strip_for_deployment(model)
+    if prepare:
+        prepare_for_serving(model)
     return model.to(device)
 
 

@@ -1,16 +1,21 @@
-"""Inference engine with continuous batching (port of
-quant_tpu/serving/engine.py:38-214).
+"""Inference engine with continuous batching, and a load balancer over
+engines (port of quant_tpu/serving/engine.py).
 
-Requests (single NHWC images) enter a queue; a scheduler thread drains
-up to `max_batch` of them (waiting at most `max_wait_ms` once one is
-pending), pads the batch to the smallest fitting bucket, runs the model
-and resolves each request's Future with its logits. PyTorch runs
-eagerly, so buckets only bound the padding; `warmup` runs each bucket
-once so first requests do not pay the kernels' build. ServingFrontend,
-rpc and the worker are queued for Slice D.
+`InferenceEngine`: requests (single NHWC images) enter a queue; a
+scheduler thread drains up to `max_batch` of them (waiting at most
+`max_wait_ms` once one is pending), pads the batch to the smallest
+fitting bucket, runs the model and resolves each request's Future with
+its logits. PyTorch runs eagerly, so buckets only bound the padding;
+`warmup` runs each bucket once so first requests do not pay the
+kernels' build.
+
+`ServingFrontend` dispatches requests over backends with the engine's
+surface: in-process engines, or `serving.rpc.RemoteEngineClient`s of
+engines in worker processes (`serving.worker`).
 """
 
 import collections
+import logging
 import queue
 import threading
 import time
@@ -20,10 +25,28 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from quant_tpu_torch import _build
 from quant_tpu_torch.device import DeviceLike, resolve_device
+
+logger = logging.getLogger(__name__)
 
 # Ring-buffer depth for latency percentiles: recent-window stats, O(1) mem.
 _LATENCY_WINDOW = 2048
+
+
+def _latency_stats(windows: list[np.ndarray]) -> dict:
+    """{'latency_ms': p50, p99, max, window} over the union of latency
+    windows (seconds); {} when they are empty."""
+    lats = np.concatenate([np.asarray(w, np.float64).ravel()
+                           for w in windows] or [np.empty(0)])
+    if not lats.size:
+        return {}
+    return {'latency_ms': {
+        'p50': float(np.percentile(lats, 50) * 1e3),
+        'p99': float(np.percentile(lats, 99) * 1e3),
+        'max': float(lats.max() * 1e3),
+        'window': int(lats.size),
+    }}
 
 
 class InferenceEngine:
@@ -111,17 +134,30 @@ class InferenceEngine:
         return np.concatenate(outs) if outs else np.empty((0,))
 
     @property
+    def load(self) -> int:
+        """Pending request count (least-loaded dispatch key)."""
+        return self._queue.qsize()
+
+    def ping(self) -> bool:
+        """Liveness probe: the scheduler thread runs and was not stopped."""
+        return self._thread.is_alive() and not self._stop.is_set()
+
+    def latency_window(self) -> np.ndarray:
+        """Recent request latencies in seconds, copied under the lock."""
+        with self._lock:
+            return np.asarray(self._latencies)
+
+    @property
     def stats(self) -> dict:
+        """Request, batch and padding counts, the latency percentiles of
+        the recent window and, under 'kernel_launches', the launch counts
+        of the port's kernels in this process (a worker process serves
+        one engine, so they are its engine's)."""
         with self._lock:
             out = dict(self._stats)
             lats = np.asarray(self._latencies)
-        if lats.size:
-            out['latency_ms'] = {
-                'p50': float(np.percentile(lats, 50) * 1e3),
-                'p99': float(np.percentile(lats, 99) * 1e3),
-                'max': float(lats.max() * 1e3),
-                'window': int(lats.size),
-            }
+        out.update(_latency_stats([lats]))
+        out['kernel_launches'] = _build.launch_counts()
         return out
 
     # -- internals -------------------------------------------------------
@@ -172,3 +208,178 @@ class InferenceEngine:
                 self._stats['batches'] += 1
                 self._stats['padded'] += bucket - n
                 self._latencies.extend(done - t0 for _, _, t0 in items)
+
+
+class ServingFrontend:
+    """Load balancer over serving backends.
+
+    A backend is anything with the engine surface: start(), stop(),
+    submit(image) -> Future, load, stats and latency_window(), and
+    optionally ping(): an in-process `InferenceEngine` or a
+    `serving.rpc.RemoteEngineClient` of an engine in another process.
+    Every backend serves the same variables. Rules, as JAX's:
+
+    * `submit` goes to the least-loaded live backend (pending requests),
+      ties broken round-robin;
+    * only a transport error (`_TRANSPORT_ERRORS`: the backend is
+      unreachable) counts toward eviction, and `max_failures` consecutive
+      ones evict it; a backend that answered with an error stays live,
+      so a malformed request cannot take the fleet down;
+    * a daemon thread pings evicted backends every `reprobe_interval`
+      seconds and re-admits those that answer; when every backend is
+      evicted, `submit` re-probes once before it raises;
+    * `stats` reports a backend whose stats fail inline, and aggregates
+      request and batch counts and the latency percentiles over the
+      union of the backends' windows.
+    """
+
+    # The backend is unreachable (a health event), against an error the
+    # backend reported while alive (a remote ValueError comes back over
+    # the RPC as RuntimeError).
+    _TRANSPORT_ERRORS = (ConnectionError, OSError, EOFError, TimeoutError)
+
+    def __init__(self, engines: Sequence, max_failures: int = 2,
+                 reprobe_interval: float = 0.5):
+        if not engines:
+            raise ValueError('ServingFrontend needs at least one engine')
+        self.engines = list(engines)
+        self._rr = 0
+        self._lock = threading.Lock()
+        self._alive = [True] * len(self.engines)
+        self._fails = [0] * len(self.engines)
+        self._max_failures = max_failures
+        self._reprobe_interval = reprobe_interval
+        self._health_stop = threading.Event()
+        self._health_thread: Optional[threading.Thread] = None
+
+    def start(self) -> 'ServingFrontend':
+        for e in self.engines:
+            e.start()
+        self._health_thread = threading.Thread(target=self._health_loop,
+                                               daemon=True)
+        self._health_thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._health_stop.set()
+        if self._health_thread is not None:
+            self._health_thread.join(timeout=5)
+        for e in self.engines:
+            e.stop()
+
+    # -- health ----------------------------------------------------------
+
+    @staticmethod
+    def _ping(engine: object) -> bool:
+        probe = getattr(engine, 'ping', None)
+        if probe is None:
+            return True  # no probe surface: assume live
+        try:
+            return bool(probe())
+        except Exception:  # noqa: BLE001 — liveness is boolean
+            return False
+
+    def _health_loop(self) -> None:
+        while not self._health_stop.wait(self._reprobe_interval):
+            self._reprobe_dead()
+
+    def _reprobe_dead(self) -> None:
+        with self._lock:
+            dead = [i for i, a in enumerate(self._alive) if not a]
+        for i in dead:
+            if self._ping(self.engines[i]):
+                with self._lock:
+                    self._alive[i] = True
+                    self._fails[i] = 0
+                logger.info('serving frontend: backend %d rejoined', i)
+
+    def _record_outcome(self, idx: int, ok: bool) -> None:
+        with self._lock:
+            if ok:
+                self._fails[idx] = 0
+                return
+            self._fails[idx] += 1
+            if self._fails[idx] >= self._max_failures and self._alive[idx]:
+                self._alive[idx] = False
+                logger.warning('serving frontend: backend %d evicted after '
+                               '%d consecutive failures', idx,
+                               self._fails[idx])
+
+    def _record_from_future(self, idx: int, fut: Future) -> None:
+        exc = fut.exception()
+        if exc is None:
+            self._record_outcome(idx, ok=True)
+        elif isinstance(exc, self._TRANSPORT_ERRORS):
+            self._record_outcome(idx, ok=False)
+        # else the backend answered with an error: it is alive, and the
+        # caller sees the error through the future.
+
+    @property
+    def alive(self) -> list[bool]:
+        with self._lock:
+            return list(self._alive)
+
+    # -- dispatch --------------------------------------------------------
+
+    def _pick(self) -> int:
+        with self._lock:
+            candidates = [i for i, a in enumerate(self._alive) if a]
+        if not candidates:
+            # Every backend evicted: a restarted worker may be back.
+            self._reprobe_dead()
+            with self._lock:
+                candidates = [i for i, a in enumerate(self._alive) if a]
+            if not candidates:
+                raise RuntimeError('serving frontend: no live backends')
+        with self._lock:
+            loads = {i: self.engines[i].load for i in candidates}
+            lo = min(loads.values())
+            n = len(self.engines)
+            for off in range(n):
+                i = (self._rr + off) % n
+                if loads.get(i) == lo:
+                    self._rr = (i + 1) % n
+                    return i
+        raise AssertionError('unreachable: a least-loaded candidate exists')
+
+    def submit(self, image: np.ndarray) -> Future:
+        last_exc: Optional[Exception] = None
+        for _ in range(len(self.engines)):
+            idx = self._pick()
+            try:
+                fut = self.engines[idx].submit(image)
+            except self._TRANSPORT_ERRORS as e:
+                self._record_outcome(idx, ok=False)
+                last_exc = e
+                continue
+            fut.add_done_callback(
+                lambda f, i=idx: self._record_from_future(i, f))
+            return fut
+        raise RuntimeError(f'serving frontend: submit failed on every '
+                           f'backend (last: {last_exc})')
+
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        """Scatter rows over the backends through submit, gather in
+        order."""
+        futs = [self.submit(img) for img in images]
+        return np.stack([f.result(timeout=60) for f in futs])
+
+    @property
+    def stats(self) -> dict:
+        per, windows = [], []
+        for e in self.engines:
+            # A dead backend must not take the monitoring surface down.
+            try:
+                per.append(e.stats)
+            except Exception as err:  # noqa: BLE001 — report, don't die
+                per.append({'requests': 0, 'batches': 0,
+                            'error': f'{type(err).__name__}: {err}'})
+            try:
+                windows.append(e.latency_window())
+            except Exception:  # noqa: BLE001 — reported through stats
+                pass
+        out = {'engines': per, 'alive': self.alive,
+               'requests': sum(s['requests'] for s in per),
+               'batches': sum(s['batches'] for s in per)}
+        out.update(_latency_stats(windows))
+        return out

@@ -3,10 +3,12 @@
 chip_smoke.py runs only on a CUDA card. Here it runs end to end with the
 device set to the CPU, where every kernel wrapper takes its plain twin:
 nvcc, the card's name, CUDA events and the launch counters (which only
-a CUDA launch bumps) are stood in for, and the probe path is cut to
-toy sizes. That catches Python-level breakage of the script (arguments,
-shapes, the phases' control flow, the report's keys) before a run on
-the card.
+a CUDA launch bumps) are stood in for, the probe path is cut to toy
+sizes, the serving stack to 4 requests with its worker processes
+serving the 'lenet_random' spec on the CPU, and the model and recipe
+phases to small models. That catches Python-level breakage of the
+script (arguments, shapes, the phases' control flow, the report's keys)
+before a run on the card.
 """
 
 import json
@@ -44,6 +46,18 @@ def phase_counts() -> list[dict]:
         out.append(want)
     return out
 
+
+
+def worker_launches(before: dict, after: dict) -> dict:
+    """The CPU workers launch no kernel: their counts stay as they were."""
+    got = {k: after['kernel_launches'][k] - before['kernel_launches'][k]
+           for k in after['kernel_launches']}
+    assert {'xnor_conv2d', 'pack_sign_planes', 'max_pool_3x3_s2_p1'} <= set(
+        got)
+    assert not any(got.values()), got
+    return got
+
+
 KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                'library_ms'}
@@ -57,7 +71,10 @@ def rehearsal(monkeypatch):
     main.update(xnor_conv2d=16, pack_sign_planes=16,
                 max_pool_3x3_s2_p1=1)
     probe = dict(main, **{k: 1 for k in chip_smoke.PROBE_KERNELS})
-    counts = iter([main, *phase_counts(), probe])
+    # The in-process frontend serves its 4 requests as 2 batches of 2.
+    frontend = dict(main, xnor_conv2d=32, pack_sign_planes=32,
+                    max_pool_3x3_s2_p1=2)
+    counts = iter([main, frontend, *phase_counts(), probe])
     monkeypatch.setattr(chip_smoke, 'PHASE_MODELS', SMALL_MODELS)
     monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
     monkeypatch.setattr(chip_smoke, 'card_ms',
@@ -78,8 +95,12 @@ def rehearsal(monkeypatch):
         ('probe_r3', 'pallas_matmul_bf16_v2', {'n': 128, 'inner': 1}),
         ('probe_r3', 'batch_sweep_model', {'batches': (2,), 'iters': 1}),
     ))
+    monkeypatch.setattr(chip_smoke, 'SERVING_REQUESTS', 4)
+    monkeypatch.setattr(chip_smoke, 'WORKER_SPEC', {
+        'model': 'lenet_random', 'max_batch': 4, 'input_shape': [28, 28, 1]})
+    monkeypatch.setattr(chip_smoke, '_worker_launches', worker_launches)
     monkeypatch.setattr(_build, 'build', lambda verbose=False: {})
-    monkeypatch.setattr(_build, 'launch_counts', lambda: next(counts))
+    monkeypatch.setattr(chip_smoke, 'launch_counts', lambda: next(counts))
     for name, value in (('synchronize', lambda *a: None),
                         ('is_available', lambda: True),
                         ('get_device_name', lambda *a: 'cpu'),
@@ -132,10 +153,32 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     assert add['bandwidth']['shape'] == [64, 36]
     assert {'ms', 'library_ms', 'bound_ms'} <= set(add['bandwidth'])
     assert add['empty_launch_ms'] == 1.0
-    # A phase that serves other scales than its recipe says so.
-    phases = {p['name']: p for p in json.loads(report.read_text())[
-        'model_phases']}
-    for name, build, *_ in chip_smoke.MODEL_PHASES:
-        assert phases[name].get('recipe_changes') == \
-            chip_smoke.RECIPE_CHANGES.get(build), name
-    assert set(chip_smoke.RECIPE_CHANGES) == {'resnet50', 'lenet'}
+    report = json.loads(report.read_text())
+    phases = {p['name']: p for p in report['model_phases']}
+    # The recipes' models serve per-batch scales as written, then
+    # calibrated EMA scales, card and CPU alike (here both the CPU).
+    assert not hasattr(chip_smoke, 'RECIPE_CHANGES')
+    for name in ('resnet50_regular_bottleneck_ls2_ls1', 'lenet5_ls2_ls1',
+                 chip_smoke.OFF_PHASE):
+        assert phases[name]['moving_average_mode'] == 'off', name
+    solves = phases[chip_smoke.OFF_PHASE]['solves']
+    assert solves['convs'] == 8
+    for rows in ('bf16_rows', 'f32_rows'):
+        assert solves[rows]['v1_max_rel_err'] == 0.0
+        assert solves[rows]['rows_past_tol'] == 0
+    assert [r['model'] for r in report['recipes']] == ['resnet50', 'lenet']
+    for r in report['recipes']:
+        assert r['ema_max_rel_err'] == 0.0 and r['quantizers'] > 0
+        assert r['serving']['requests'] == 16
+    stack = report['serving_stack']
+    assert stack['frontend']['batches'] == 2
+    assert stack['frontend']['launches'] == {
+        'xnor_conv2d': 32, 'pack_sign_planes': 32, 'max_pool_3x3_s2_p1': 2}
+    workers = stack['workers']
+    assert workers['requests'] == 4 and workers['startup_s'] > 0
+    assert workers['failover']['alive'] == [False, True]
+    assert workers['failover']['failed_requests'] >= 2
+    assert workers['exit_codes'] == [-9, 0]
+    for key in ('latency_ms', 'client_latency_ms'):
+        assert {'p50', 'p99'} <= set(workers[key])
+        assert {'p50', 'p99'} <= set(stack['frontend'][key])

@@ -234,16 +234,28 @@ def test_fold_requires_ema_mode_and_packed(jax_side):
         conv(torch.zeros(1, 4, 4, 8), bn_folded=True)
 
 
-def test_unported_families_raise():
-    """Every family, scheme and route serves; what stays unported needs
-    training code: an ls-2 or ls-T model with per-batch eval scales
-    (moving_average_mode 'off') solves them with opt_v1 (Slice C). A
-    block family or route that does not exist raises."""
-    for scheme in ('ls-2', 'ls-T'):
-        model = QResNet(**{**CONFIG, 'layer3': dict(LAYER, x_quant=scheme),
-                           'moving_average_mode': 'off'}, device='cpu')
-        with pytest.raises(NotImplementedError, match='Slice C'):
-            model(torch.zeros(1, 32, 32, 3))
+def test_per_batch_least_squares_scales_serve_as_jax(jax_side):
+    """moving_average_mode 'off' with ls-2 (layer2) and ls-T (layer3)
+    activations: every sample's scales solved with opt_v1 on both sides,
+    the packed unfolded forward within FP32_TOL of JAX's."""
+    cfg = {**CONFIG, 'layer2': dict(LAYER, x_quant='ls-2'),
+           'layer3': dict(LAYER, x_quant='ls-T'),
+           'moving_average_mode': 'off'}
+    tree = jax.tree.map(np.copy, jax_side['variables'])
+    for node in tree['quant_state'].values():
+        for conv in node.values():
+            conv.pop('x_quantizer')  # no EMA state in mode 'off'
+    packed = JQResNet(**cfg).clone(inference_mode='packed')
+    want = jax.jit(lambda v, a: packed.apply(v, a, False))(
+        tree, jnp.asarray(jax_side['x']))
+    model = from_jax_variables(QResNet(**cfg, device='cpu'), tree)
+    np.testing.assert_allclose(_logits(model, jax_side['x']),
+                               np.asarray(want), **FP32_TOL)
+
+
+def test_unknown_block_and_route_raise():
+    """A block family or a sign_compute route that does not exist
+    raises."""
     with pytest.raises(ValueError, match='not supported'):
         QResNet(**{**CONFIG, 'block': 'bogus'}, device='cpu')
     with pytest.raises(ValueError, match='sign_compute'):

@@ -7,12 +7,14 @@ packed words, integer dots and max pools must be equal; each float
 tolerance is stated where it is used.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from quant_tpu.nn.layers import ActivationQuantizer as JActivationQuantizer
 from quant_tpu.ops import binary_gemm as JG
 from quant_tpu.ops import binary_infer as JB
 from quant_tpu.ops.packing import pack_signs as j_pack_signs
@@ -294,17 +296,29 @@ def test_quant_conv2d_infer_matches_jax(rng, route, tdtype, c, stride):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
-def test_unported_schemes_raise():
-    """Every scheme serves; what stays unported is the ls-2 and ls-T scale
-    solve of a batch (opt_v1, Slice C), which per-batch eval scales need,
-    and a compute dtype that names no route raises."""
+@pytest.mark.parametrize('scheme', ['ls-2', 'ls-T'])
+def test_per_batch_least_squares_scales_match_jax(scheme):
+    """moving_average_mode 'off': the activation quantizer solves each
+    sample's scales with opt_v1 (skip 3, exact), as JAX's eval forward;
+    v1 within a few float32 ulps of JAX's (rtol 1e-5)."""
+    x = np.random.default_rng(4).standard_normal((3, 4, 4, 8)).astype(
+        np.float32) * 1.5
+    quant = JActivationQuantizer(scheme)
+    jx = jnp.asarray(x)
+    state = quant.init(jax.random.key(0), jx, False)
+    _, want = quant.apply(state, jx, False, return_scales=True)
+    got = ActivationQuantizer(scheme)(torch.from_numpy(x))
+    assert got.shape == want.shape == (2 if scheme == 'ls-2' else 1, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_unknown_compute_dtype_raises():
+    """A compute dtype that names no route raises."""
     x = torch.zeros(1, 4, 4, 8)
     packed = torch.zeros(1, 3, 3, 1, 4, dtype=torch.int32)
     kw = dict(x_vs=torch.ones(1, 1), w_packed=packed, w_vs=torch.ones(1, 4),
               in_channels=8)
-    for scheme in ('ls-2', 'ls-T'):
-        with pytest.raises(NotImplementedError, match='Slice C'):
-            ActivationQuantizer(scheme)(x)
     with pytest.raises(ValueError, match='compute_dtype'):
         TB.quant_conv2d_infer(x, x_scheme='ls-1', compute_dtype='fp8', **kw)
 

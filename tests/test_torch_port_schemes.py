@@ -20,8 +20,7 @@ from quant_tpu.ops import binary_infer as JB
 from quant_tpu.ops.quantize import get_clamp_fn as j_clamp
 from quant_tpu_torch.ops import binary_infer as TB
 from quant_tpu_torch.ops.quantize import (
-    get_clamp_fn, quantize_with_scheme, quantizer_ls_2, quantizer_ls_ternary,
-    scheme_num_scales, validate_scheme,
+    get_clamp_fn, quantize_with_scheme, scheme_num_scales, validate_scheme,
 )
 
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -94,11 +93,22 @@ def test_mean_solves_match_jax(rng, scheme, tdtype):
     np.testing.assert_allclose(_np(tq), _np(jq), rtol=1e-2, atol=1e-2)
 
 
-def test_least_squares_solves_wait_for_slice_c():
-    x = torch.zeros(2, 3)
-    for quantizer in (quantizer_ls_2, quantizer_ls_ternary):
-        with pytest.raises(NotImplementedError, match='opt_v1.*Slice C'):
-            quantizer(x)
+@pytest.mark.parametrize('skip', [1, 3])
+@pytest.mark.parametrize('tdtype', DTYPES)
+@pytest.mark.parametrize('scheme', ['ls-2', 'ls-T'])
+def test_least_squares_solves_match_jax(rng, scheme, tdtype, skip):
+    """The batch solves that need the least-squares optimum (opt_v1, the
+    stride `skip` over each sample's NHWC row): v1 within a few float32
+    ulps of JAX's (its cumsum sums in another order; rtol 1e-5, as
+    tests/test_torch_port_optimal.py), x_q as the mean solves'."""
+    x = rng.standard_normal((4, 3, 3, 5)).astype(np.float32) * 2
+    jx, tx = _both(x, tdtype)
+    jvs, jq = j_quantize(scheme, jx, None, skip, 'exact')
+    tvs, tq = quantize_with_scheme(scheme, tx, None, skip, 'exact')
+    assert tq.dtype == tdtype and tvs.shape == jvs.shape
+    np.testing.assert_allclose(tvs.numpy(), np.asarray(jvs), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(_np(tq), _np(jq), rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize('scheme', SCHEMES)
