@@ -11,7 +11,8 @@ the chip-probe path:
    serving kernels at the serving path's shapes and xnor_conv2d at the
    ragged CONV_CHECK_SHAPES; its multi-plane form (xnor_conv2d_planes)
    for every scheme pair of PLANE_X_SCHEMES x PLANE_W_SCHEMES at
-   PLANES_CHECK_SHAPES (LeNet-5's conv2 added), in bf16 and f32 out; the
+   PLANES_CHECK_SHAPES (LeNet-5's conv2 added) and for every plane
+   layout at PLANES_TILE_SHAPE, in bf16 and f32 out; the
    producer (pack_sign_planes) folded and unfolded, k = 1 to 4, at
    PLANES_PACK_SHAPES (PACK_CHECK_SHAPES and LeNet-5's conv2 input) with
    NaN and +-inf planted, offset views too;
@@ -49,19 +50,21 @@ the chip-probe path:
 7. runs the model phases (MODEL_PHASES), each with the launch counts
    zeroed just before its forward and checked just after, its fp32
    chain held against the CPU's and its forwards timed: ResNet-18 XNOR
-   with ls-T x ls-1 (the int8 route through the multi-plane kernels,
-   whose twins are held on its captured inputs and which are timed
-   there; it also serves 16 requests), ls-2 x ls-1 under 'auto' (the
-   bf16 bake) and under sign_compute='int8', gf-2 x ls-1; the regular
+   with ls-T x ls-1 (the int8 route through the multi-plane kernels;
+   it also serves 16 requests), ls-2 x ls-1 under 'auto' (the bf16
+   bake) and under sign_compute='int8', gf-2 x ls-1; the regular
    ls-1 ResNet-18 with the BN folded into the epilogue; the dense fp32
    twins of both (TF32 off); the regular_bottleneck ResNet-50 of
    cifar100_resnet50_ls2_tpu.yaml (ls-2 x ls-1, 32 px, 100 classes) and
    LeNet-5 ls-2 x ls-1 at 28 px, both as their recipes say, with
    per-batch scales (moving_average_mode 'off', opt_v1 exact); and
    ResNet-18 XNOR ls-2 x ls-1 'off' on the int8 route (OFF_PHASE: the
-   multi-plane kernels under per-sample solved scales, held against
-   their twins on its captured inputs, its solves timed and held to the
-   CPU's);
+   multi-plane kernels under per-sample solved scales, its solves timed
+   and held to the CPU's). Each phase that launches the multi-plane conv
+   (ls-T, ls-2 int8, and OFF_PHASE) holds it and the producer against
+   their twins on its captured inputs and times them there: one kernels
+   row a phase, with the registers and blocks an SM of the instance it
+   takes;
 8. calibrates the two recipe models (RECIPE_PHASES): EMA scales from
    four seeded batches on the card and on the CPU (held to
    CALIBRATION_REL_TOL), then folded, stripped and served;
@@ -83,6 +86,7 @@ import copy
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -147,6 +151,18 @@ PACK_CHECK_SHAPES = ((2, 9, 9, 32), (2, 9, 9, 33), (2, 8, 7, 40),
 PLANES_CHECK_SHAPES = CONV_CHECK_SHAPES + ((3, 12, 12, 20, 50, 5, 1, 0),)
 PLANE_X_SCHEMES = ('ls-1', 'ls-2', 'ls-T', 'gf-2', 'gf-3')
 PLANE_W_SCHEMES = ('ls-1', 'ls-2', 'ls-T')
+# The multi-plane kernel's tiles: 128, 64 and 32 pixels for 1, 2 and 3
+# activation groups a pass, 64 channels. This shape fills several of each
+# in M (338 pixels: 3, 6 and 11 tiles) and N (136 channels: 3), ragged
+# at both edges, over Wc = 3. It runs every plane layout (planes, and
+# planes a scale covers: `plane_layout`) against every weight scheme of
+# PLANE_W_SCHEMES: activations of ls-1, ls-T, ls-2, gf-3, gf-4 (2 groups
+# a pass, two passes) and gf-5 (3 a pass, the second with an idle group)
+# against weights of ls-1, ls-T with a shared scale, and ls-2 (two
+# planes with their own scales, as ls-T without w_planes_share_scale:
+# two passes, the running sum between them).
+PLANES_TILE_SHAPE = (2, 13, 13, 96, 136, 3, 1, 1)
+PLANES_TILE_X_SCHEMES = ('ls-1', 'ls-T', 'ls-2', 'gf-3', 'gf-4', 'gf-5')
 # Producer cases beside PACK_CHECK_SHAPES: LeNet-5's conv2 input.
 PLANES_PACK_SHAPES = PACK_CHECK_SHAPES + ((3, 12, 12, 20),)
 # Pool cases (N, H, W, C) held against the twin beside the serving map,
@@ -269,6 +285,48 @@ def card_line() -> str:
          '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel in one namespace as ptxas names it (`_ZN<ns><name>...`),
+    demangled to its name and template arguments (`name<bf16,1,2,1>`)."""
+    m = re.match(r'_ZN(\d+)', mangled)
+    if m is None:
+        return mangled
+    at = m.end() + int(m.group(1))
+    n = re.match(r'\d+', mangled[at:])
+    if n is None:
+        return mangled
+    at += n.end()
+    name, rest = mangled[at:at + int(n.group())], mangled[at + int(n.group()):]
+    if not rest.startswith('I'):
+        return name
+    spell = {'f': 'f32', '13__nv_bfloat16': 'bf16'}
+    args = re.findall(r'13__nv_bfloat16|L[ib]\d+E|f',
+                      rest[1:rest.find('EE') + 1])
+    return f'{name}<{",".join(spell.get(a, a[2:-1]) for a in args)}>'
+
+
+def kernel_resources(log: str) -> dict[str, dict[str, int]]:
+    """{kernel: registers, spill stores and loads in bytes} from nvcc's
+    -Xptxas -v report."""
+    out: dict[str, dict[str, int]] = {}
+    func = None
+    for line in log.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            func = kernel_name(m.group(1))
+            out[func] = {}
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and func:
+            out[func].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and func:
+            out[func]['registers'] = int(m.group(1))
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float
@@ -472,10 +530,20 @@ def kernel_phases(batch: int, gen: torch.Generator) -> dict[str, float]:
     return errs
 
 
+def plane_layout(scheme: str) -> tuple[int, int]:
+    """(sign planes, planes a scale covers) of a scheme, as the int8
+    route passes them to the multi-plane conv: ls-T's two planes share
+    one scale (weights with w_planes_share_scale)."""
+    from quant_tpu_torch.ops import binary_infer as B
+
+    return B.sign_planes(scheme), 2 if scheme == 'ls-T' else 1
+
+
 def planes_kernel_phases(gen: torch.Generator) -> dict[str, float]:
     """The multi-plane producer and conv against their plain twins:
     every scheme pair of PLANE_X_SCHEMES x PLANE_W_SCHEMES at
-    PLANES_CHECK_SHAPES, in bf16 and f32 out, with a scale of its own
+    PLANES_CHECK_SHAPES and of PLANES_TILE_X_SCHEMES x PLANE_W_SCHEMES
+    at PLANES_TILE_SHAPE, in bf16 and f32 out, with a scale of its own
     for every plane group (a swapped plane or scale shows); the producer
     folded and unfolded, k = 1 to 4 (each plane count of the wide
     kernel's instances), bf16 and f32 input, NaN and +-inf planted, as
@@ -493,29 +561,30 @@ def planes_kernel_phases(gen: torch.Generator) -> dict[str, float]:
         return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
                              dtype=torch.int32).to(dev)
 
+    cases = [(xs, ws, shape) for xs in PLANE_X_SCHEMES
+             for ws in PLANE_W_SCHEMES for shape in PLANES_CHECK_SHAPES]
+    cases += [(xs, ws, PLANES_TILE_SHAPE) for xs in PLANES_TILE_X_SCHEMES
+              for ws in PLANE_W_SCHEMES]
     conv_err = 0.0
-    for xs in PLANE_X_SCHEMES:
-        for ws in PLANE_W_SCHEMES:
-            if xs == ws == 'ls-1':
-                continue
-            k_a, k_w = B.sign_planes(xs), B.sign_planes(ws)
-            xg, wg = (2 if xs == 'ls-T' else 1), (2 if ws == 'ls-T' else 1)
-            for n, h, w_, c, o, k, s, p in PLANES_CHECK_SHAPES:
-                wc = -(-c // 32)
-                x, w = words(k_a, n, h, w_, wc), words(k_w, k, k, wc, o)
-                vx = rand(k_a // xg, n).abs() + 0.1
-                vw = rand(k_w // wg, o).abs() * 0.05 + 0.01
-                bias = rand(o)
-                kw = dict(in_channels=c, x_group=xg, w_group=wg, stride=s,
-                          padding=p)
-                for dt in (torch.bfloat16, torch.float32):
-                    conv_err = max(conv_err, check_equal(
-                        f'xnor_conv2d_planes {xs} x {ws} '
-                        f'{(n, h, w_, c, o, k, s, p)} {dt}',
-                        B.xnor_conv2d_planes(x, w, vx, vw, bias,
-                                             out_dtype=dt, **kw),
-                        B.xnor_conv2d_planes_plain(x, w, vx, vw, bias,
-                                                   out_dtype=dt, **kw)))
+    for xs, ws, (n, h, w_, c, o, k, s, p) in cases:
+        if xs == ws == 'ls-1':
+            continue
+        (k_a, xg), (k_w, wg) = plane_layout(xs), plane_layout(ws)
+        wc = -(-c // 32)
+        x, w = words(k_a, n, h, w_, wc), words(k_w, k, k, wc, o)
+        vx = rand(k_a // xg, n).abs() + 0.1
+        vw = rand(k_w // wg, o).abs() * 0.05 + 0.01
+        bias = rand(o)
+        kw = dict(in_channels=c, x_group=xg, w_group=wg, stride=s,
+                  padding=p)
+        for dt in (torch.bfloat16, torch.float32):
+            conv_err = max(conv_err, check_equal(
+                f'xnor_conv2d_planes {xs} x {ws} '
+                f'{(n, h, w_, c, o, k, s, p)} {dt}',
+                B.xnor_conv2d_planes(x, w, vx, vw, bias, out_dtype=dt,
+                                     **kw),
+                B.xnor_conv2d_planes_plain(x, w, vx, vw, bias,
+                                           out_dtype=dt, **kw)))
     pack_err = 0.0
     for i, shape in enumerate(PLANES_PACK_SHAPES):
         n, c = shape[0], shape[-1]
@@ -1011,13 +1080,27 @@ def _planes_conv_args(conv: torch.nn.Module, xin: torch.Tensor
                  stride=conv.stride, padding=conv.padding))
 
 
+def occupancy(out_dtype: torch.dtype, *layout: int) -> dict[str, int]:
+    """Registers a thread and blocks an SM of the conv kernel that the
+    plane layout (ga, pa, gw, pw) launches (none: the ls-1 conv), from
+    the card's occupancy query."""
+    from quant_tpu_torch.ops import binary_infer as B
+
+    regs, blocks = B.conv_occupancy(out_dtype, *layout)
+    return dict(registers=regs, blocks_per_sm=blocks)
+
+
 def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
-    """The multi-plane conv and the producer (k planes) summed over the
+    """The multi-plane conv and the producer of k planes summed over the
     launches of one forward at the captured inputs (bf16 out): card ms,
-    plain twin ms, a library yardstick for the conv (F.conv2d bf16 on
-    the merged {-2, 0, 2} / {-1, 1} operands, channels-last) and the
-    bound, max of bytes / HBM rate and 2*MACs*scale-group pairs / the
-    int8 peak. Returns (the conv's kernel row, the producer's timings)."""
+    plain twin ms, the bound, max of bytes / HBM rate and 2*MACs*scale-
+    group pairs / the int8 peak, and the conv kernel's registers and
+    blocks an SM. Where the scheme pair has one
+    pair of scale groups (ls-T x ls-1), F.conv2d bf16 on the merged
+    {-2, 0, 2} / {-1, 1} operands, channels-last, computes the same dots
+    in one call and is the library yardstick; with more (ls-2), no one
+    PyTorch call computes the sum of scaled terms and library_ms is None.
+    Returns (the conv's kernel row, the producer's timings)."""
     from quant_tpu_torch.ops import binary_infer as B
     from quant_tpu_torch.ops.packing import unpack_signs
 
@@ -1031,50 +1114,50 @@ def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
         row['shape_ms'].append(t)
         row['call_ms'] += card_ms(fn, iters, head_start_ms=0)
 
+    pairs = layout = None
     for conv, xin in seen:
         n, h, w, c = xin.shape
         k = B.sign_planes(conv.x_quant)
-        fold = (conv.x_va, conv.x_thresh, conv.x_flip)
+        xp, args = _producer_args(conv, xin)
         r = rows['pack_sign_planes']
-        kernel(r, lambda: B.pack_sign_planes(xin, k, *fold))
+        kernel(r, lambda: B.pack_sign_planes(xp, k, *args))
         r['plain_ms'] += card_ms(
-            lambda: B.pack_sign_planes_plain(xin, k, *fold), iters)
-        words = B.pack_sign_planes(xin, k, *fold)
-        nb = (xin.numel() * xin.element_size() + 4 * c * (2 + k)
-              + words.numel() * 4)
+            lambda: B.pack_sign_planes_plain(xp, k, *args), iters)
+        words = B.pack_sign_planes(xp, k, *args)
+        nb = (xp.numel() * xp.element_size()
+              + 4 * sum(a.numel() for a in args) + words.numel() * 4)
         r['bytes'] += nb
-        r['bound_ms'] += bound_ms(nb, 2 * k * xin.numel(),
-                                  FP32_OPS_PER_S)[0]
+        r['bound_ms'] += bound_ms(nb, 2 * k * xp.numel(), FP32_OPS_PER_S)[0]
 
-        (_, wp, vx, vw, bias), kw = _planes_conv_args(conv, xin)
-        args = (words, wp, vx, vw, bias)
-        out = B.xnor_conv2d_planes(*args, out_dtype=torch.bfloat16, **kw)
+        (words, wp, vx, vw, bias), kw = _planes_conv_args(conv, xin)
+        args_c = (words, wp, vx, vw, bias)
+        out = B.xnor_conv2d_planes(*args_c, out_dtype=torch.bfloat16, **kw)
         r = rows['xnor_conv2d_planes']
         kernel(r, lambda: B.xnor_conv2d_planes(
-            *args, out_dtype=torch.bfloat16, **kw))
+            *args_c, out_dtype=torch.bfloat16, **kw))
         r['plain_ms'] += card_ms(lambda: B.xnor_conv2d_planes_plain(
-            *args, out_dtype=torch.bfloat16, **kw), iters)
-        # The library conv on JAX's merged operands (one scale a group).
-        xs = sum(unpack_signs(p, c, dtype=torch.bfloat16) for p in words)
-        ws = sum(B.unpack_weights_int8(p, c) for p in wp)
-        xs = xs.permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        ws = ws.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        s, p = conv.stride, conv.padding
-        r['library_ms'] += card_ms(
-            lambda: F.conv2d(xs, ws, stride=s, padding=p), iters)
-        oh, ow, o = out.shape[1:]
-        kk = wp.shape[1]
-        macs = n * o * c * valid_taps(h, oh, s, p, kk) * valid_taps(
-            w, ow, s, p, kk)
+            *args_c, out_dtype=torch.bfloat16, **kw), iters)
         # The function needs one int8 pass a pair of scale groups: planes
         # that share a scale merge into one {-2, 0, 2} operand, as JAX's
-        # int8 route and the library yardstick above convolve them. The
-        # kernel runs a group's planes as more K instead, twice the MACs
-        # for ls-T; the bound does not count that choice.
-        pairs = (k // kw['x_group']) * (wp.shape[0] // kw['w_group'])
-        nb = (words.numel() + wp.numel()) * 4 + 4 * (n + 2 * o) \
+        # int8 route, the kernel and the library yardstick convolve them.
+        ga, gw = k // kw['x_group'], wp.shape[0] // kw['w_group']
+        pairs, layout = ga * gw, (ga, kw['x_group'], gw, kw['w_group'])
+        if pairs == 1:
+            xs = sum(unpack_signs(p, c, dtype=torch.bfloat16) for p in words)
+            ws = sum(B.unpack_weights_int8(p, c) for p in wp)
+            xs = xs.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            ws = ws.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            s, p = conv.stride, conv.padding
+            r['library_ms'] += card_ms(
+                lambda: F.conv2d(xs, ws, stride=s, padding=p), iters)
+        oh, ow, o = out.shape[1:]
+        kk, s, p = wp.shape[1], conv.stride, conv.padding
+        macs = n * o * c * valid_taps(h, oh, s, p, kk) * valid_taps(
+            w, ow, s, p, kk)
+        nb = (words.numel() + wp.numel()) * 4 + 4 * (n * ga + gw * o) \
+            + (0 if bias is None else bias.numel() * 2) \
             + out.numel() * out.element_size()
         r['bytes'] += nb
         r['ops'] += 2 * macs * pairs
@@ -1082,9 +1165,14 @@ def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
     for r in rows.values():
         r['bound_by'] = ('bytes' if r['bytes'] / HBM_BYTES_PER_S
                          >= r['ops'] / INT8_OPS_PER_S else 'operations')
+    conv_row = rows['xnor_conv2d_planes']
+    if pairs != 1:
+        conv_row['library_ms'] = None
+    conv_row.update(scale_group_pairs=pairs, layout=list(layout),
+                    **occupancy(torch.bfloat16, *layout))
     rows['pack_sign_planes']['library_ms'] = None
-    return (dict(name='xnor_conv2d_planes', **rows['xnor_conv2d_planes']),
-            rows['pack_sign_planes'])
+    return dict(name='xnor_conv2d_planes', **conv_row), rows[
+        'pack_sign_planes']
 
 
 def _v1_cost(rows: np.ndarray, v1: np.ndarray, ternary: bool) -> np.ndarray:
@@ -1446,10 +1534,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     logs = _build.build(verbose=True)
     build_s = time.perf_counter() - t0
     print(f'build: {build_s:.3f} s ({", ".join(logs) or "cached"})')
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'  {name}: {line.strip()}')
+    resources = {name: kernel_resources(log) for name, log in logs.items()}
+    for name, funcs in resources.items():
+        for func, res in funcs.items():
+            print(f'  {name}: {func}: {res}')
 
     gen = torch.Generator().manual_seed(args.seed)
     errs = kernel_phases(args.batch, gen)
@@ -1513,6 +1601,8 @@ def main(argv: Optional[list[str]] = None) -> int:
             model.conv1(x.to(torch.bfloat16), torch.bfloat16),
             torch.bfloat16)), args.iters)
     rows = time_kernels(model, x, seen, args.iters)
+    next(r for r in rows if r['name'] == 'xnor_conv2d').update(
+        occupancy(torch.bfloat16))
     print(f'main path bf16 batch {args.batch}: {ms_fwd} ms/forward, '
           f'{img_s} img/s (card alone {_ms_or_not(ms_fwd_card, card_calls)}'
           f'); stem conv+BN+ReLU {stem_ms} ms', flush=True)
@@ -1527,9 +1617,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     print(f'serving workers: {stack["workers"]} ({stack["s"]:.1f} s)',
           flush=True)
 
-    # The model phases; the first, ls-T x ls-1, is this path's headline:
-    # the multi-plane kernels are held against their twins on its
-    # captured inputs, timed there, and it serves 16 requests.
+    # The model phases; the first, ls-T x ls-1, is this path's headline
+    # and serves 16 requests. Each phase that launches the multi-plane
+    # conv holds it (and the producer) against the twins on its captured
+    # inputs and times it there: one kernel row a phase.
     t0 = time.perf_counter()
     phases, planes_launches = [], {}
     for i, (name, build, xq, wq, options, per_conv) in enumerate(
@@ -1537,22 +1628,27 @@ def main(argv: Optional[list[str]] = None) -> int:
         record, phase_model, phase_seen = model_phase(
             name, build, xq, wq, options, per_conv, args.batch, args.iters,
             args.seed + i)
-        if i == 0:
-            planes_launches = record['launches']
+        if 'xnor_conv2d_planes' in per_conv:
             with torch.inference_mode():
                 captured = planes_captured(phase_seen)
                 conv_row, pack_row = time_planes_kernels(phase_seen,
                                                          args.iters)
-            # The producer's row is the main path's (k = 1); its k = 2
-            # run in this phase goes beside it.
+            conv_row.update(phase=name, launches=record['launches'].get(
+                'xnor_conv2d_planes', 0))
             rows.append(conv_row)
-            next(r for r in rows if r['name'] == 'pack_sign_planes')[
-                'model_phase'] = dict(phase=name, launches=record[
-                    'launches'].get('pack_sign_planes', 0), **pack_row)
             for kname, err in captured.items():
                 errs[kname] = max(errs[kname], err)
             print(f'{len(phase_seen)} captured {name} convs vs plain twins: '
-                  f'{captured}', flush=True)
+                  f'{captured}; xnor_conv2d_planes {conv_row["ms"]} ms '
+                  f'({conv_row["registers"]} registers, '
+                  f'{conv_row["blocks_per_sm"]} blocks an SM)', flush=True)
+        if i == 0:
+            planes_launches = record['launches']
+            # The producer's row is the main path's (k = 1); its k = 2
+            # run in this phase goes beside it.
+            next(r for r in rows if r['name'] == 'pack_sign_planes')[
+                'model_phase'] = dict(phase=name, launches=record[
+                    'launches'].get('pack_sign_planes', 0), **pack_row)
             record['serving'] = serve(phase_model, args.seed,
                                       tuple(record['input']),
                                       record['classes'])
@@ -1570,13 +1666,9 @@ def main(argv: Optional[list[str]] = None) -> int:
             for h in hooks:
                 h.remove()
             with torch.inference_mode():
-                captured = planes_captured(phase_seen)
                 record['solves'] = solve_phase(phase_seen, seen32,
                                                args.iters)
-            for kname, err in captured.items():
-                errs[kname] = max(errs[kname], err)
-            print(f'{len(phase_seen)} captured {name} convs vs plain twins: '
-                  f'{captured}; solves {record["solves"]}', flush=True)
+            print(f'{name} solves {record["solves"]}', flush=True)
         phases.append(record)
         del phase_model, phase_seen
     phases_s = time.perf_counter() - t0
@@ -1614,15 +1706,18 @@ def main(argv: Optional[list[str]] = None) -> int:
                 'add_f32': 'tools/probe_r2.py:408',
                 'tiled_matmul_bf16': 'tools/probe_r2.py:429',
                 'tiled_matmul_int8': 'tools/probe_r3.py:304'}
+    # A multi-plane row carries its phase's launches.
     kernels = [dict(name=r['name'], route='cuda', source=sources[r['name']],
                     replaces=replaces[r['name']],
-                    launches=launches[r['name']],
+                    launches=r.get('launches', launches[r['name']]),
                     on_main_path=want[r['name']] > 0,
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
-                    **{k: r[k] for k in ('bandwidth', 'empty_launch_ms',
-                                         'model_phase') if k in r})
+                    **{k: r[k] for k in ('phase', 'registers',
+                                         'blocks_per_sm', 'bandwidth',
+                                         'empty_launch_ms', 'model_phase')
+                       if k in r})
                for r in rows]
     if args.report:
         with open(args.report, 'w') as f:
@@ -1637,6 +1732,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            model_phases=phases, model_phases_s=phases_s,
                            recipes=recipes, recipes_s=recipes_s,
                            probes=records, probe_s=probe_s,
+                           build_resources=resources,
                            torch=torch.__version__,
                            cuda=torch.version.cuda), f, indent=1)
     print(json.dumps({'kernels': kernels}))

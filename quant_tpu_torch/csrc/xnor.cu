@@ -72,17 +72,26 @@
 //   pass loop (binary_infer.py:280-324, fused=False) over k_a activation
 //   and k_w weight planes (ls-2, ls-T, gf-k), bit for bit. Planes that
 //   share a scale form a group (ls-T's two, whose JAX operand is b1 + b2;
-//   ls-T weights with w_planes_share_scale). Bound by operations, as the
-//   ls-1 conv, times the plane pairs. Design: the ls-1 kernel's template
-//   with Multi = true. One CTA loops over the group pairs (weight groups
-//   outer); a group pair's plane pairs run through the same pipeline as
-//   more K, each padded to whole stages and its cursor rewound, so their
-//   integer dots add in the accumulators (the registers of the ls-1
-//   tile). Each group pair's term is rounded to the out dtype, added to
-//   the running sum that the same thread stored in `out` for the group
-//   before (rounded again), and the bias follows the last. One launch,
-//   not k_a * k_w launches and an add: the host's launch time already
-//   shows at batch 128.
+//   ls-T weights with w_planes_share_scale). Bound by operations: 2 *
+//   MACs per pair of scale groups on the int8 tensor cores. A kernel of
+//   its own beside the ls-1 conv's, sharing its gather loader, valid
+//   bits, B loader, pad mask, expansion and epilogue helpers. Design:
+//   (1) a group's two planes come into the ring under one valid mask and
+//   expand as one operand (expand_pair: +32, 0 or -32 a byte), so one MMA
+//   a k-step serves the group, as JAX's b1 + b2 does; (2) one walk over
+//   K serves up to 3 activation groups: each stage gathers every group's
+//   A rows (they share the taps), its B words are expanded once into
+//   shared memory for all warps (expand_b; the ls-1 conv's warps expand
+//   their own B fragments), and each k-step issues every group's MMAs
+//   into its own accumulators against the same B fragments; the warp
+//   tile shrinks with the group count (PlanesTile) so the accumulators
+//   stay at the ls-1 conv's 64 a thread; weight groups (and activation
+//   groups past 3) are further passes; (3) the running sum
+//   of the terms, each rounded to the out dtype and added in JAX's order,
+//   stays in registers within a pass and in shared memory between passes,
+//   and `out` is written once, with the bias. One launch, not k_a * k_w
+//   launches and an add: the host's launch time already shows at batch
+//   128.
 //
 // qtt_pack_sign_planes_* -- the producer, no TPU kernel (XLA fused
 //   binary_infer.py:149-206 with packing.py:27-43): one pass over the
@@ -288,6 +297,22 @@ __device__ __forceinline__ __nv_bfloat16 epilogue<__nv_bfloat16>(
   return v;
 }
 
+// One group pair's term before its rounding to the out dtype: float(dot)
+// * (vx * vw), each product rounded in float32 (binary_infer.py:313-317).
+// The accumulator is 256 times the dot (see expand_word).
+__device__ __forceinline__ float scaled(int acc, float sx, float sw) {
+  return __fmul_rn(static_cast<float>(acc >> 8), __fmul_rn(sx, sw));
+}
+
+// a + b rounded to T, as `acc + term` in T does.
+__device__ __forceinline__ float add_round(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat16 add_round(__nv_bfloat16 a,
+                                                   __nv_bfloat16 b) {
+  return from_float<__nv_bfloat16>(__fadd_rn(to_float(a), to_float(b)));
+}
+
 // Two neighbouring outputs in one store (dst is aligned to the pair).
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
@@ -364,6 +389,41 @@ __device__ __forceinline__ void expand_word(uint32_t word, int t,
   hi = (v & 0x10101010u & keep) * 0x0Eu + base;
 }
 
+// Two planes that share a scale as one operand, their bytes added: 16 *
+// (s_a + s_b) with s = +1 for a clear bit and -1 for a set one, i.e. +32
+// (0x20, both clear), 0 (one of each) or -32 (0xE0, both set); channels
+// as in expand_word. Against a +-16 or merged byte every product is
+// still 256 times the product of the merged operands, so the dot stays
+// the accumulator >> 8 (|acc| <= 1024 * 32 * K words < 2^31 for K < 2^16
+// words). Both-set and both-clear are exclusive, so each multiply puts at
+// most 0xE0 in a byte and nothing carries; keep = 0 gives 0.
+__device__ __forceinline__ void expand_pair(uint32_t wa, uint32_t wb, int t,
+                                            uint32_t keep, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t a = wa >> t, b = wb >> t;
+  const uint32_t mlo = 0x01010101u & keep, mhi = 0x10101010u & keep;
+  lo = (a & b & mlo) * 0xE0u + (~(a | b) & mlo) * 0x20u;
+  hi = (a & b & mhi) * 0x0Eu + (~(a | b) & mhi) * 0x02u;
+}
+
+// P planes' words of one row or column as one operand: word 0 at p[0],
+// word 1 (P = 2) a plane further, `plane` words on.
+template <int P>
+__device__ __forceinline__ void expand_planes(const uint32_t* p, int plane,
+                                              int t, uint32_t keep,
+                                              uint32_t& lo, uint32_t& hi) {
+  if constexpr (P == 1) {
+    expand_word(p[0], t, keep, lo, hi);
+  } else {
+    expand_pair(p[0], p[plane], t, keep, lo, hi);
+  }
+}
+
+// All ones where bit kk of a row's valid bits is set, else 0.
+__device__ __forceinline__ uint32_t keep_bit(uint32_t valid, int kk) {
+  return static_cast<uint32_t>(static_cast<int>(valid << (31 - kk)) >> 31);
+}
+
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
                                        const uint32_t* b) {
   asm volatile(
@@ -380,40 +440,150 @@ __device__ __forceinline__ int a_slot(int row, int kk) {
   return row * kKS + (kk ^ (((row >> 2) & 1) << 2));
 }
 
-// The multi-plane form's extra shape: ga activation groups of pa planes
-// and gw weight groups of pw planes (pa, pw = 2 where a scale covers two
-// planes, as ls-T's), the planes' strides in words, and the batch.
-struct PlaneShape {
-  int ga, pa, gw, pw, n;
-  long long x_plane, w_plane;
+// The A loader's row: its image (as its first pixel), its top-left input
+// pixel and a cursor (tap ti, tj; word kq; depth kidx) that walks K in
+// the order the stages are loaded. A row that is not `live` loads
+// nothing.
+struct RowCursor {
+  long long img;
+  int iy0, ix0;
+  bool ok;
+  int ti, tj, kq, kidx;
 };
 
-// a + b rounded to T, as `acc + term` in T does.
-__device__ __forceinline__ float add_round(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ __nv_bfloat16 add_round(__nv_bfloat16 a,
-                                                   __nv_bfloat16 b) {
-  return from_float<__nv_bfloat16>(__fadd_rn(to_float(a), to_float(b)));
+__device__ __forceinline__ RowCursor row_cursor(long long m, bool live,
+                                                const ConvShape& s) {
+  RowCursor c{0, 0, 0, live && m < s.m, 0, 0, 0, 0};
+  if (c.ok) {
+    int ox = static_cast<int>(m % s.ow);
+    long long r = m / s.ow;
+    int oy = static_cast<int>(r % s.oh);
+    c.img = (r / s.oh) * s.h * s.w;
+    c.iy0 = oy * s.stride - s.pad;
+    c.ix0 = ox * s.stride - s.pad;
+  }
+  return c;
 }
 
-// Multi = false: one activation plane against one weight plane, the
-// serving path's ls-1 conv. Multi = true: JAX's int8 pass loop over
-// plane groups (weight groups outer, activation groups inner). Each group
-// pair runs the whole pipeline with its plane pairs as more K (plane p's
-// words against weight plane q's, K padded to whole stages per pair),
-// so the integer dots of planes that share a scale add before the
-// epilogue; then its term is rounded to OutT and, from the second group
-// pair on, added to the partial sum in `out` in OutT's rounding (each
-// thread reads back only what it stored itself), the bias after the last.
-template <typename OutT, bool Multi>
+// The next stage of row `row` of the A tile: kKS words of each of P
+// planes (plane p's from src + p * src_plane into dst + p * dst_plane),
+// gathered tap by tap in pieces of s.va words. Returns the row's valid
+// bits, one per word, set only for a tap inside the image (and k and the
+// row inside the GEMM): a clear bit expands every plane's word to 0
+// bytes, since the +-1 image is padded with zeros and a word holds none
+// (an all-clear word is 32 x -1), so cp.async's zero fill does not pad.
+template <int P>
+__device__ __forceinline__ uint32_t gather_row(RowCursor& c,
+                                               const ConvShape& s,
+                                               uint32_t* dst, int dst_plane,
+                                               const uint32_t* src,
+                                               long long src_plane,
+                                               int row) {
+  uint32_t valid = 0;
+  for (int j = 0; j < kKS; j += s.va) {
+    int iy = c.iy0 + c.ti, ix = c.ix0 + c.tj;
+    if (c.ok && c.kidx < s.ktot && iy >= 0 && iy < s.h && ix >= 0 &&
+        ix < s.w) {
+      const long long at =
+          (c.img + static_cast<long long>(iy) * s.w + ix) * s.wc + c.kq;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        cp_async_words(dst + p * dst_plane + a_slot(row, j),
+                       src + p * src_plane + at, s.va);
+      }
+      valid |= ((1u << s.va) - 1u) << j;
+    }
+    c.kidx += s.va;
+    c.kq += s.va;
+    if (c.kq == s.wc) {
+      c.kq = 0;
+      if (++c.tj == s.kw) {
+        c.tj = 0;
+        ++c.ti;
+      }
+    }
+  }
+  return valid;
+}
+
+// Words k0.. (kKS rows) of the block's kConvBN columns of B into a
+// stage, each row in pieces of 2^b_lg words (2^b_row_lg pieces a row).
+// Rows past K and columns past O stay unloaded: a stage's k-steps stop at
+// K, and columns past O are never stored.
+__device__ __forceinline__ void load_b(uint32_t* dst, const uint32_t* w,
+                                       int k0, int n0, const ConvShape& s,
+                                       int b_lg, int b_row_lg, int tid) {
+  for (int p = tid; p < (kKS << b_row_lg); p += kConvThreads) {
+    int kr = p >> b_row_lg;
+    int col = (p & ((1 << b_row_lg) - 1)) << b_lg;
+    if (k0 + kr < s.ktot && n0 + col < s.o) {
+      cp_async_words(dst + kr * kConvBN + col,
+                     w + static_cast<long long>(k0 + kr) * s.o + n0 + col,
+                     s.vb);
+    }
+  }
+}
+
+// Pad channels of a tap's last word: bytes of channels >= cr are zeroed
+// in B (see expand_word for the channel each byte holds), so stray pad
+// bits in either operand add nothing.
+__device__ __forceinline__ void pad_masks(int cr, int t, uint32_t& lo,
+                                          uint32_t& hi) {
+  lo = hi = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (t + 8 * i < cr) lo |= 0xFFu << (8 * i);
+    if (t + 4 + 8 * i < cr) hi |= 0xFFu << (8 * i);
+  }
+}
+
+// Bit kk set where word kt * kKS + kk is the last of its tap.
+__device__ __forceinline__ uint32_t last_words(const ConvShape& s, int kt) {
+  uint32_t last = 0;
+  if (s.cr < 32) {
+    for (int j = s.wc - 1 - (kt * kKS) % s.wc; j < kKS; j += s.wc)
+      last |= 1u << j;
+  }
+  return last;
+}
+
+// Stores a warp's staged 16 x kCols piece of outputs (row pitch kCols
+// plus one 16-byte chunk, so the pair writes meet no bank conflict) at
+// rows mt0.. and columns col0.. of out, in 16-byte chunks where O keeps
+// them on 16 bytes; rows past M and columns past O are not stored.
+template <typename OutT, int kCols>
+__device__ __forceinline__ void store_staged(const OutT* tile, OutT* out,
+                                             long long mt0, int col0,
+                                             const ConvShape& s, int lane) {
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(OutT));
+  constexpr int kPitch = kCols + kChunk;
+  constexpr int kRow = kCols / kChunk;  // chunks a row
+  const bool vec = s.o % kChunk == 0;   // whole chunks lie on 16 B
+  for (int c = lane; c < 16 * kRow; c += 32) {
+    int r = c / kRow;
+    int cc = (c % kRow) * kChunk;
+    long long m = mt0 + r;
+    if (m >= s.m || col0 + cc >= s.o) continue;
+    const OutT* src = tile + r * kPitch + cc;
+    OutT* o = out + m * s.o + col0 + cc;
+    if (vec) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < kChunk && col0 + cc + e < s.o; ++e) o[e] = src[e];
+    }
+  }
+}
+
+// The serving path's ls-1 conv: one activation plane against one weight
+// plane.
+template <typename OutT>
 __global__ void __launch_bounds__(kConvThreads)
     xnor_conv2d_kernel(const uint32_t* __restrict__ x,
                        const uint32_t* __restrict__ wt,
                        const float* __restrict__ vx,
                        const float* __restrict__ vw,
                        const OutT* __restrict__ bias, OutT* __restrict__ out,
-                       ConvShape s, PlaneShape pl) {
+                       ConvShape s) {
   __shared__ __align__(16) uint32_t sa[kConvStages][kConvBM * kKS];
   __shared__ __align__(16) uint32_t sb[kConvStages][kKS * kConvBN];
   __shared__ uint32_t sv[kConvStages][kConvBM];  // valid bit per row, word
@@ -427,99 +597,287 @@ __global__ void __launch_bounds__(kConvThreads)
   const long long m0 = static_cast<long long>(blockIdx.x) * kConvBM;
   const int n0 = blockIdx.y * kConvBN;
 
-  // The A loader's row (one per thread): its image, its top-left input
-  // pixel and a cursor (tap ti, tj; word kq; depth kidx) that walks K in
-  // the order the stages are loaded.
-  const long long my_m = m0 + tid;
-  const bool row_ok = my_m < s.m;
-  int iy0 = 0, ix0 = 0;
-  long long img = 0;
-  if (row_ok) {
-    int ox = static_cast<int>(my_m % s.ow);
-    long long r = my_m / s.ow;
-    int oy = static_cast<int>(r % s.oh);
-    img = (r / s.oh) * s.h * s.w;
-    iy0 = oy * s.stride - s.pad;
-    ix0 = ox * s.stride - s.pad;
-  }
+  RowCursor cur = row_cursor(m0 + tid, true, s);  // this thread's A row
   const int b_lg = s.vb == 4 ? 2 : s.vb - 1;       // log2 of vb
   const int b_row_lg = 6 - b_lg;                   // pieces per B row
   static_assert(kConvBN == 64, "b_row_lg assumes 64 columns");
-  const int spp = (s.ktot + kKS - 1) / kKS;  // stages per plane pair
-  const int groups = Multi ? pl.ga * pl.gw : 1;
-
-  // Pad channels of a tap's last word: bytes of channels >= cr are zeroed
-  // in B (see expand_word for the channel each byte holds).
-  uint32_t pad_lo = 0, pad_hi = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (t + 8 * i < s.cr) pad_lo |= 0xFFu << (8 * i);
-    if (t + 4 + 8 * i < s.cr) pad_hi |= 0xFFu << (8 * i);
-  }
+  uint32_t pad_lo, pad_hi;
+  pad_masks(s.cr, t, pad_lo, pad_hi);
   const int swz = ((g >> 2) & 1) << 2;  // a_slot's flip for this lane's rows
 
-  for (int gp = 0; gp < groups; ++gp) {
-    const int gi = Multi ? gp % pl.ga : 0;  // activation group
-    const int gj = Multi ? gp / pl.ga : 0;  // weight group
-    int ti = 0, tj = 0, kq = 0, kidx = 0;
-    const uint32_t* xp = x;
-    const uint32_t* wp = wt;
+  auto load_stage = [&](int slot, int st) {
+    sv[slot][tid] = gather_row<1>(cur, s, sa[slot], 0, x, 0, tid);
+    load_b(sb[slot], wt, st * kKS, n0, s, b_lg, b_row_lg, tid);
+  };
 
-    // Stage st of this group pair: words k0.. of its plane pair.
-    auto load_stage = [&](int slot, int st) {
-      int k0 = st * kKS;
-      if constexpr (Multi) {
-        const int pair = st / spp, ls = st - pair * spp;
-        if (ls == 0) {  // a new plane pair: rewind the cursor
-          ti = tj = kq = kidx = 0;
-          xp = x + (gi * pl.pa + pair % pl.pa) * pl.x_plane;
-          wp = wt + (gj * pl.pw + pair / pl.pa) * pl.w_plane;
-        }
-        k0 = ls * kKS;
-      }
-      uint32_t valid = 0;
-      for (int j = 0; j < kKS; j += s.va) {
-        int iy = iy0 + ti, ix = ix0 + tj;
-        if (row_ok && kidx < s.ktot && iy >= 0 && iy < s.h && ix >= 0 &&
-            ix < s.w) {
-          cp_async_words(sa[slot] + a_slot(tid, j),
-                         xp + (img + static_cast<long long>(iy) * s.w + ix) *
-                                  s.wc + kq,
-                         s.va);
-          valid |= ((1u << s.va) - 1u) << j;
-        }
-        kidx += s.va;
-        kq += s.va;
-        if (kq == s.wc) {
-          kq = 0;
-          if (++tj == s.kw) {
-            tj = 0;
-            ++ti;
-          }
-        }
-      }
-      sv[slot][tid] = valid;
-      for (int p = tid; p < (kKS << b_row_lg); p += kConvThreads) {
-        int kr = p >> b_row_lg;
-        int col = (p & ((1 << b_row_lg) - 1)) << b_lg;
-        if (k0 + kr < s.ktot && n0 + col < s.o) {
-          cp_async_words(sb[slot] + kr * kConvBN + col,
-                         wp + static_cast<long long>(k0 + kr) * s.o + n0 +
-                             col,
-                         s.vb);
-        }
-      }
-    };
+  int acc[kConvMT][kConvNT][4];
+#pragma unroll
+  for (int i = 0; i < kConvMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kConvNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-    int acc[kConvMT][kConvNT][4];
+  const int stages = (s.ktot + kKS - 1) / kKS;
+#pragma unroll
+  for (int st = 0; st < kConvStages - 1; ++st) {
+    if (st < stages) load_stage(st, st);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < stages; ++kt) {
+    // Stage kt has landed; every warp is done with stage kt - 1, whose
+    // buffers the next load reuses.
+    cp_async_wait<kConvStages - 2>();
+    __syncthreads();
+    int next = kt + kConvStages - 1;
+    if (next < stages) load_stage(next % kConvStages, next);
+    cp_async_commit();
+
+    const int slot = kt % kConvStages;
+    const uint32_t* A = sa[slot];
+    const uint32_t* B = sb[slot] + wn * 32 + g;
+    uint32_t vm[kConvMT][2];
 #pragma unroll
     for (int i = 0; i < kConvMT; ++i)
 #pragma unroll
-      for (int j = 0; j < kConvNT; ++j)
+      for (int hh = 0; hh < 2; ++hh)
+        vm[i][hh] = sv[slot][wm * 64 + i * 16 + hh * 8 + g];
+    const uint32_t last = last_words(s, kt);
+    const int depth = min(kKS, s.ktot - kt * kKS);  // k-steps in the stage
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    for (int kk = 0; kk < kKS; ++kk) {
+      if (kk >= depth) break;
+      uint32_t bf[kConvNT][2];
+#pragma unroll
+      for (int j = 0; j < kConvNT; ++j) {
+        expand_word(B[kk * kConvBN + j * 8], t, ~0u, bf[j][0], bf[j][1]);
+      }
+      if ((last >> kk) & 1u) {
+#pragma unroll
+        for (int j = 0; j < kConvNT; ++j) {
+          bf[j][0] &= pad_lo;
+          bf[j][1] &= pad_hi;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kConvMT; ++i) {
+        uint32_t af[4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          int row = wm * 64 + i * 16 + hh * 8 + g;
+          // All ones if the word is a valid tap of a valid row, else 0.
+          uint32_t keep = keep_bit(vm[i][hh], kk);
+          expand_word(A[row * kKS + (kk ^ swz)], t, keep, af[hh],
+                      af[2 + hh]);
+        }
+#pragma unroll
+        for (int j = 0; j < kConvNT; ++j) mma_s8(acc[i][j], af, bf[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it stages the epilogue
 
-    const int stages = Multi ? spp * pl.pa * pl.pw : spp;
+  // Epilogue: c[0], c[1] are row g, columns 2t, 2t+1; c[2], c[3] row
+  // g+8. Each warp writes one 16x32 m-tile of outputs to shared memory,
+  // then stores it row by row in 16-byte chunks.
+  const bool has_bias = bias != nullptr;
+  float cw[kConvNT][2], cb[kConvNT][2];  // this lane's columns, loaded once
+#pragma unroll
+  for (int j = 0; j < kConvNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      int oc = n0 + wn * 32 + j * 8 + 2 * t + e;
+      cw[j][e] = oc < s.o ? vw[oc] : 0.0f;
+      cb[j][e] = oc < s.o && has_bias ? to_float(bias[oc]) : 0.0f;
+    }
+  }
+  constexpr int kPitch = 32 + 16 / static_cast<int>(sizeof(OutT));
+  static_assert(4 * 16 * kPitch * sizeof(OutT) <= sizeof(sa), "staging");
+  OutT* tile = reinterpret_cast<OutT*>(&sa[0][0]) + (tid >> 5) * 16 * kPitch;
+  const long long pix = static_cast<long long>(s.oh) * s.ow;
+  const bool narrow = s.m <= 0xFFFFFFFFLL;  // 32-bit division suffices
+  const int col0 = n0 + wn * 32;
+#pragma unroll
+  for (int i = 0; i < kConvMT; ++i) {
+    const long long mt0 = m0 + wm * 64 + i * 16;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      long long m = mt0 + hh * 8 + g;
+      if (m >= s.m) m = s.m - 1;  // any image: the row is not stored
+      float sx = vx[narrow ? static_cast<unsigned>(m) /
+                                 static_cast<unsigned>(pix)
+                           : m / pix];
+#pragma unroll
+      for (int j = 0; j < kConvNT; ++j) {
+        store_pair(tile + (hh * 8 + g) * kPitch + j * 8 + 2 * t,
+                   epilogue<OutT>(scaled(acc[i][j][2 * hh], sx, cw[j][0]),
+                                  has_bias, cb[j][0]),
+                   epilogue<OutT>(scaled(acc[i][j][2 * hh + 1], sx, cw[j][1]),
+                                  has_bias, cb[j][1]));
+      }
+    }
+    __syncwarp();
+    store_staged<OutT, 32>(tile, out, mt0, col0, s, lane);
+    __syncwarp();
+  }
+}
+
+// The multi-plane form's extra shape: ga activation groups of pa planes
+// and gw weight groups of pw planes (pa, pw = 2 where a scale covers two
+// planes, as ls-T's), the planes' strides in words, and the batch.
+struct PlaneShape {
+  int ga, pa, gw, pw, n;
+  long long x_plane, w_plane;
+};
+
+// The multi-plane conv's tile for GA activation groups a pass. Each warp
+// holds kMT m16 tiles of every group against kNT n8 tiles: GA * kMT * kNT
+// MMAs a k-step against one set of expanded B fragments, and 64
+// accumulators a thread (48 at GA = 3), as many as the ls-1 conv's. At GA
+// <= 2 a warp spans all 64 columns (4 x 1 warps), so each A fragment is
+// expanded by one warp only; B comes expanded (expand_b).
+template <int GA>
+struct PlanesTile {
+  static constexpr int kMT = GA == 1 ? 2 : 1;
+  static constexpr int kNT = GA == 3 ? 4 : 8;
+  static constexpr int kWN = kConvBN / (8 * kNT);  // warps across N
+  static constexpr int kWM = 4 / kWN;              // warps across M
+  static constexpr int kBM = kWM * 16 * kMT;       // pixels a block
+  static constexpr int kRows = GA * kBM;           // A tile rows: group-major
+  static constexpr int kAcc = kMT * kNT * 4;       // accumulators a group
+  static_assert(kRows <= kConvThreads, "one A row a thread");
+};
+
+// Blocks an SM the multi-plane kernel's registers must allow (ptxas caps
+// them at 168 a thread), as the ls-1 conv's 150 do.
+constexpr int kPlanesBlocks = 3;
+
+// Dynamic shared memory of a multi-plane block: the ring, each stage PA
+// A planes (kConvThreads rows of kKS words), PW B planes and the rows'
+// valid bits; the stage's B expanded (kEB words: 32 bytes a word, see
+// expand_b); then, where the block runs more than one pass, the running
+// sum (kAcc floats a thread).
+template <int GA, int PA, int PW>
+struct PlanesSmem {
+  static constexpr int kA = kConvThreads * kKS;  // words of an A plane
+  static constexpr int kB = kKS * kConvBN;       // words of a B plane
+  static constexpr int kStage = PA * kA + PW * kB + kConvThreads;
+  static constexpr int kEB = kB * 8;             // words of expanded B
+  static constexpr int kRing = (kConvStages * kStage + kEB) * 4;  // bytes
+  static constexpr int kSum = PlanesTile<GA>::kAcc * kConvThreads * 4;
+};
+
+// A stage's B words (PW planes, merged) expanded once for every warp:
+// word (kk, col) becomes the 32 bytes at (kk * kConvBN + col) * 32, lane
+// t's two fragment registers (expand_word's lo, hi) at byte 8t, so a
+// lane reads its pair with one 8-byte load and a warp's 32 loads of an
+// n8 tile are 256 contiguous bytes. Pad channels of a tap's last word
+// are zeroed here. Each thread expands kB / kConvThreads words.
+template <int PW>
+__device__ __forceinline__ void expand_b(uint4* eb, const uint32_t* b,
+                                         int plane, uint32_t last,
+                                         const ConvShape& s, int tid) {
+#pragma unroll
+  for (int q = 0; q < kKS * kConvBN / kConvThreads; ++q) {
+    const int w = q * kConvThreads + tid;  // kk * kConvBN + col
+    uint32_t r[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      expand_planes<PW>(b + w, plane, t, ~0u, r[2 * t], r[2 * t + 1]);
+    }
+    if ((last >> (w / kConvBN)) & 1u) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        uint32_t lo, hi;
+        pad_masks(s.cr, t, lo, hi);
+        r[2 * t] &= lo;
+        r[2 * t + 1] &= hi;
+      }
+    }
+    eb[2 * w] = make_uint4(r[0], r[1], r[2], r[3]);
+    eb[2 * w + 1] = make_uint4(r[4], r[5], r[6], r[7]);
+  }
+}
+
+// JAX's int8 pass loop (weight groups outer, activation groups inner)
+// over plane groups, in passes: a pass takes weight group gj against GA
+// activation groups at once (ga0..ga0 + gn - 1), one walk over K. Planes
+// that share a scale come in as one merged operand (expand_pair). Each
+// stage gathers the A rows of every group, which share the tap geometry
+// and the valid bits, and its B is expanded once into shared memory for
+// every warp and group (expand_b): a warp loads each B fragment with one
+// 8-byte load and expands only its A fragments. The epilogue adds the
+// pass's terms, each rounded to OutT, to the running sum in JAX's order,
+// rounded after every add; the sum stays in registers within a pass and
+// in shared memory between passes, and `out` is stored once, with the
+// bias, after the last.
+template <typename OutT, int GA, int PA, int PW>
+__global__ void __launch_bounds__(kConvThreads, kPlanesBlocks)
+    xnor_conv2d_planes_kernel(const uint32_t* __restrict__ x,
+                              const uint32_t* __restrict__ wt,
+                              const float* __restrict__ vx,
+                              const float* __restrict__ vw,
+                              const OutT* __restrict__ bias,
+                              OutT* __restrict__ out, ConvShape s,
+                              PlaneShape pl) {
+  using T = PlanesTile<GA>;
+  using S = PlanesSmem<GA, PA, PW>;
+  extern __shared__ __align__(16) uint32_t planes_smem[];
+  uint32_t* const smem = planes_smem;
+  uint4* const eb = reinterpret_cast<uint4*>(smem + kConvStages * S::kStage);
+  float* sum = reinterpret_cast<float*>(smem) + S::kRing / 4;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;        // fragment row / column group
+  const int t = lane & 3;         // k-byte group
+  const int wm = (tid >> 5) / T::kWN;
+  const int wn = (tid >> 5) % T::kWN;
+  const long long m0 = static_cast<long long>(blockIdx.x) * T::kBM;
+  const int n0 = blockIdx.y * kConvBN;
+  const int grp = tid / T::kBM;   // this thread's A row: group grp's pixel
+  const long long my_m = m0 + tid % T::kBM;
+
+  const int b_lg = s.vb == 4 ? 2 : s.vb - 1;
+  const int b_row_lg = 6 - b_lg;
+  const int swz = ((g >> 2) & 1) << 2;
+  const int stages = (s.ktot + kKS - 1) / kKS;
+  const int chunks = (pl.ga + GA - 1) / GA;
+  const int passes = chunks * pl.gw;
+  auto ring = [&](int slot) { return smem + slot * S::kStage; };
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const int gj = pass / chunks;            // weight group
+    const int ga0 = (pass % chunks) * GA;    // first activation group
+    const int gn = min(GA, pl.ga - ga0);     // groups live in this pass
+    RowCursor cur = row_cursor(my_m, tid < T::kRows && grp < gn, s);
+    const uint32_t* xp = x + static_cast<long long>(ga0 + grp) * PA *
+                                 pl.x_plane;
+    const uint32_t* wp = wt + static_cast<long long>(gj) * PW * pl.w_plane;
+
+    auto load_stage = [&](int slot, int st) {
+      uint32_t* base = ring(slot);
+      base[PA * S::kA + PW * S::kB + tid] =
+          gather_row<PA>(cur, s, base, S::kA, xp, pl.x_plane, tid);
+#pragma unroll
+      for (int q = 0; q < PW; ++q) {
+        load_b(base + PA * S::kA + q * S::kB, wp + q * pl.w_plane,
+               st * kKS, n0, s, b_lg, b_row_lg, tid);
+      }
+    };
+
+    int acc[GA][T::kMT][T::kNT][4];
+#pragma unroll
+    for (int a = 0; a < GA; ++a)
+#pragma unroll
+      for (int i = 0; i < T::kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][i][j][e] = 0;
+
 #pragma unroll
     for (int st = 0; st < kConvStages - 1; ++st) {
       if (st < stages) load_stage(st, st);
@@ -527,161 +885,136 @@ __global__ void __launch_bounds__(kConvThreads)
     }
 
     for (int kt = 0; kt < stages; ++kt) {
-      // Stage kt has landed; every warp is done with stage kt - 1, whose
-      // buffers the next load reuses.
+      // Stage kt has landed; every warp is done with stage kt - 1 and
+      // with the expanded B, which stage kt's now replaces.
       cp_async_wait<kConvStages - 2>();
       __syncthreads();
       int next = kt + kConvStages - 1;
       if (next < stages) load_stage(next % kConvStages, next);
       cp_async_commit();
 
-      const int slot = kt % kConvStages;
-      const int ls = Multi ? kt % spp : kt;  // the stage within its pair
-      const uint32_t* A = sa[slot];
-      const uint32_t* B = sb[slot] + wn * 32 + g;
-      uint32_t vm[kConvMT][2];
+      const uint32_t* A = ring(kt % kConvStages);
+      expand_b<PW>(eb, A + PA * S::kA, S::kB, last_words(s, kt), s, tid);
+      __syncthreads();
+      const uint2* B = reinterpret_cast<const uint2*>(eb) +
+                       (wn * (8 * T::kNT) + g) * 4 + t;
+      const uint32_t* V = A + PA * S::kA + PW * S::kB;
+      uint32_t vm[GA][T::kMT][2];
 #pragma unroll
-      for (int i = 0; i < kConvMT; ++i)
+      for (int a = 0; a < GA; ++a)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          vm[i][hh] = sv[slot][wm * 64 + i * 16 + hh * 8 + g];
-      // Bit kk set where word ls*kKS + kk is the last of its tap.
-      uint32_t last = 0;
-      if (s.cr < 32) {
-        for (int j = s.wc - 1 - (ls * kKS) % s.wc; j < kKS; j += s.wc)
-          last |= 1u << j;
-      }
-      const int depth = min(kKS, s.ktot - ls * kKS);  // k-steps in the stage
+        for (int i = 0; i < T::kMT; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            vm[a][i][hh] =
+                V[a * T::kBM + (wm * T::kMT + i) * 16 + hh * 8 + g];
+      const int depth = min(kKS, s.ktot - kt * kKS);
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
         if (kk >= depth) break;
-        uint32_t bf[kConvNT][2];
+        uint32_t bf[T::kNT][2];
 #pragma unroll
-        for (int j = 0; j < kConvNT; ++j) {
-          expand_word(B[kk * kConvBN + j * 8], t, ~0u, bf[j][0], bf[j][1]);
-        }
-        if ((last >> kk) & 1u) {
-#pragma unroll
-          for (int j = 0; j < kConvNT; ++j) {
-            bf[j][0] &= pad_lo;
-            bf[j][1] &= pad_hi;
-          }
+        for (int j = 0; j < T::kNT; ++j) {
+          const uint2 v = B[(kk * kConvBN + j * 8) * 4];
+          bf[j][0] = v.x;
+          bf[j][1] = v.y;
         }
 #pragma unroll
-        for (int i = 0; i < kConvMT; ++i) {
-          uint32_t af[4];
+        for (int a = 0; a < GA; ++a) {
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            int row = wm * 64 + i * 16 + hh * 8 + g;
-            // All ones if the word is a valid tap of a valid row, else 0.
-            uint32_t keep = static_cast<uint32_t>(
-                static_cast<int>(vm[i][hh] << (31 - kk)) >> 31);
-            expand_word(A[row * kKS + (kk ^ swz)], t, keep, af[hh],
-                      af[2 + hh]);
+          for (int i = 0; i < T::kMT; ++i) {
+            uint32_t af[4];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              int row = a * T::kBM + (wm * T::kMT + i) * 16 + hh * 8 + g;
+              expand_planes<PA>(A + row * kKS + (kk ^ swz), S::kA, t,
+                                keep_bit(vm[a][i][hh], kk), af[hh],
+                                af[2 + hh]);
+            }
+#pragma unroll
+            for (int j = 0; j < T::kNT; ++j)
+              mma_s8(acc[a][i][j], af, bf[j]);
           }
-#pragma unroll
-          for (int j = 0; j < kConvNT; ++j) mma_s8(acc[i][j], af, bf[j]);
         }
       }
     }
     cp_async_wait<0>();
     __syncthreads();  // the ring is free: it stages the epilogue
 
-    // Epilogue: c[0], c[1] are row g, columns 2t, 2t+1; c[2], c[3] row
-    // g+8. Each warp writes one 16x32 m-tile of outputs to shared memory,
-    // then stores it row by row in 16-byte chunks.
-    const float* vxg = vx + (Multi ? static_cast<long long>(gi) * pl.n : 0);
-    const float* vwg = vw + (Multi ? static_cast<long long>(gj) * s.o : 0);
-    const bool has_bias = !Multi && bias != nullptr;  // Multi: at the store
-    float cw[kConvNT][2], cb[kConvNT][2];  // this lane's columns, loaded once
+    // This pass's terms into the running sum, as in the ls-1 epilogue:
+    // c[0], c[1] are row g, columns 2t, 2t+1; c[2], c[3] row g+8.
+    const bool first = pass == 0, final_pass = pass == passes - 1;
+    float cw[T::kNT][2];  // vw of weight group gj at this lane's columns
+    OutT cb[T::kNT][2];   // the bias, added after the last term
 #pragma unroll
-    for (int j = 0; j < kConvNT; ++j) {
+    for (int j = 0; j < T::kNT; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        int oc = n0 + wn * 32 + j * 8 + 2 * t + e;
-        cw[j][e] = oc < s.o ? vwg[oc] : 0.0f;
-        cb[j][e] = oc < s.o && has_bias ? to_float(bias[oc]) : 0.0f;
+        int oc = n0 + wn * (8 * T::kNT) + j * 8 + 2 * t + e;
+        cw[j][e] = oc < s.o ? vw[static_cast<long long>(gj) * s.o + oc]
+                            : 0.0f;
+        cb[j][e] = oc < s.o && bias != nullptr ? bias[oc]
+                                               : from_float<OutT>(0.0f);
       }
     }
-    constexpr int kChunk = 16 / static_cast<int>(sizeof(OutT));  // per 16 B
-    constexpr int kPitch = 32 + kChunk;  // staged row: 16 B aligned, no bank
-                                         // conflicts for the pair writes
-    static_assert(4 * 16 * kPitch * sizeof(OutT) <= sizeof(sa), "staging");
-    OutT* tile = reinterpret_cast<OutT*>(&sa[0][0]) + (tid >> 5) * 16 * kPitch;
+    constexpr int kCols = 8 * T::kNT;
+    constexpr int kPitch = kCols + 16 / static_cast<int>(sizeof(OutT));
+    static_assert(4 * 16 * kPitch * sizeof(OutT) <= S::kRing, "staging");
+    OutT* tile = reinterpret_cast<OutT*>(smem) + (tid >> 5) * 16 * kPitch;
     const long long pix = static_cast<long long>(s.oh) * s.ow;
-    const bool narrow = s.m <= 0xFFFFFFFFLL;  // 32-bit division suffices
-    const bool vec = s.o % kChunk == 0;       // whole chunks lie on 16 B
-    const int col0 = n0 + wn * 32;
-    const bool first = gp == 0, final_term = gp == groups - 1;
+    const bool narrow = s.m <= 0xFFFFFFFFLL;
 #pragma unroll
-    for (int i = 0; i < kConvMT; ++i) {
-      const long long mt0 = m0 + wm * 64 + i * 16;
+    for (int i = 0; i < T::kMT; ++i) {
+      const long long mt0 = m0 + (wm * T::kMT + i) * 16;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         long long m = mt0 + hh * 8 + g;
         if (m >= s.m) m = s.m - 1;  // any image: the row is not stored
-        float sx = vxg[narrow ? static_cast<unsigned>(m) /
-                                    static_cast<unsigned>(pix)
-                              : m / pix];
+        const long long img = narrow ? static_cast<unsigned>(m) /
+                                           static_cast<unsigned>(pix)
+                                     : m / pix;
+        float sx[GA];
 #pragma unroll
-        for (int j = 0; j < kConvNT; ++j) {
-          store_pair(tile + (hh * 8 + g) * kPitch + j * 8 + 2 * t,
-                     epilogue<OutT>(
-                         __fmul_rn(static_cast<float>(acc[i][j][2 * hh] >> 8),
-                                   __fmul_rn(sx, cw[j][0])),
-                         has_bias, cb[j][0]),
-                     epilogue<OutT>(
-                         __fmul_rn(
-                             static_cast<float>(acc[i][j][2 * hh + 1] >> 8),
-                             __fmul_rn(sx, cw[j][1])),
-                         has_bias, cb[j][1]));
-        }
-      }
-      __syncwarp();
-      for (int c = lane; c < 16 * (32 / kChunk); c += 32) {
-        int r = c / (32 / kChunk);
-        int cc = (c % (32 / kChunk)) * kChunk;
-        long long m = mt0 + r;
-        if (m >= s.m || col0 + cc >= s.o) continue;
-        const OutT* src = tile + r * kPitch + cc;
-        OutT* o = out + m * s.o + col0 + cc;
-        if constexpr (Multi) {
-          // The running sum in OutT: out holds the earlier terms, stored
-          // by this thread; the bias joins after the last term.
-          const int cnt = vec ? kChunk : min(kChunk, s.o - col0 - cc);
-          alignas(16) OutT v[kChunk];
-          if (vec) {
-            *reinterpret_cast<uint4*>(v) =
-                *reinterpret_cast<const uint4*>(src);
-            if (!first) {
-              alignas(16) OutT prev[kChunk];
-              *reinterpret_cast<uint4*>(prev) =
-                  *reinterpret_cast<const uint4*>(o);
+        for (int a = 0; a < GA; ++a)
+          sx[a] = a < gn ? vx[static_cast<long long>(ga0 + a) * pl.n + img]
+                         : 0.0f;
 #pragma unroll
-              for (int e = 0; e < kChunk; ++e) v[e] = add_round(prev[e], v[e]);
+        for (int j = 0; j < T::kNT; ++j) {
+          OutT v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float* held = sum + (((i * T::kNT + j) * 2 + hh) * 2 + e) *
+                                    kConvThreads + tid;
+            OutT r = from_float<OutT>(
+                scaled(acc[0][i][j][2 * hh + e], sx[0], cw[j][e]));
+            if (!first) r = add_round(from_float<OutT>(*held), r);
+#pragma unroll
+            for (int a = 1; a < GA; ++a) {
+              if (a < gn) {
+                r = add_round(r, from_float<OutT>(scaled(
+                                     acc[a][i][j][2 * hh + e], sx[a],
+                                     cw[j][e])));
+              }
             }
-          } else {
-            for (int e = 0; e < cnt; ++e)
-              v[e] = first ? src[e] : add_round(o[e], src[e]);
+            if (!final_pass) {
+              *held = to_float(r);
+            } else if (bias != nullptr) {
+              r = add_round(r, cb[j][e]);
+            }
+            v[e] = r;
           }
-          if (final_term && bias != nullptr) {
-            for (int e = 0; e < cnt; ++e)
-              v[e] = add_round(v[e], bias[col0 + cc + e]);
-          }
-          if (vec) {
-            *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
-          } else {
-            for (int e = 0; e < cnt; ++e) o[e] = v[e];
-          }
-        } else if (vec) {
-          *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
-        } else {
-          for (int e = 0; e < kChunk && col0 + cc + e < s.o; ++e) o[e] = src[e];
+          if (final_pass)
+            store_pair(tile + (hh * 8 + g) * kPitch + j * 8 + 2 * t, v[0],
+                       v[1]);
         }
       }
-      __syncwarp();
+      if (final_pass) {
+        __syncwarp();
+        store_staged<OutT, kCols>(tile, out, mt0, n0 + wn * kCols, s, lane);
+        __syncwarp();
+      }
     }
-    if (Multi) __syncthreads();  // the staging is the next group's ring
+    __syncthreads();  // the staging is the next pass's ring
   }
 }
 
@@ -880,11 +1213,9 @@ int piece_words(int n, const void* base) {
   return 1;
 }
 
-template <typename OutT, bool Multi = false>
-int launch_conv(const void* x, const void* w, const void* vx, const void* vw,
-                const void* bias, void* out, int n, int h, int wd, int wc,
-                int c, int o, int oh, int ow, int kh, int kw, int stride,
-                int pad, void* stream, PlaneShape pl = PlaneShape{}) {
+ConvShape conv_shape(const void* x, const void* w, int n, int h, int wd,
+                     int wc, int c, int o, int oh, int ow, int kh, int kw,
+                     int stride, int pad) {
   ConvShape s;
   s.m = static_cast<long long>(n) * oh * ow;
   s.h = h; s.w = wd; s.wc = wc; s.o = o; s.oh = oh; s.ow = ow;
@@ -893,19 +1224,96 @@ int launch_conv(const void* x, const void* w, const void* vx, const void* vw,
   s.cr = c - (wc - 1) * 32;
   s.va = piece_words(wc, x);
   s.vb = piece_words(o, w);
-  if (s.m > 0 && o > 0) {
+  return s;
+}
+
+template <typename OutT>
+int launch_conv(const void* x, const void* w, const void* vx, const void* vw,
+                const void* bias, void* out, const ConvShape& s,
+                void* stream) {
+  if (s.m > 0 && s.o > 0) {
     dim3 grid(static_cast<unsigned>((s.m + kConvBM - 1) / kConvBM),
-              static_cast<unsigned>((o + kConvBN - 1) / kConvBN));
-    pl.n = n;
-    pl.x_plane = static_cast<long long>(n) * h * wd * wc;
-    pl.w_plane = static_cast<long long>(kh) * kw * wc * o;
-    xnor_conv2d_kernel<OutT, Multi>
+              static_cast<unsigned>((s.o + kConvBN - 1) / kConvBN));
+    xnor_conv2d_kernel<OutT>
         <<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
             static_cast<const float*>(vx), static_cast<const float*>(vw),
-            static_cast<const OutT*>(bias), static_cast<OutT*>(out), s, pl);
+            static_cast<const OutT*>(bias), static_cast<OutT*>(out), s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// A multi-plane conv call: its operands and shapes, or (regs set) a query
+// of the instance it would launch: registers a thread, blocks an SM.
+struct PlanesCall {
+  const void *x, *w, *vx, *vw, *bias;
+  void* out;
+  ConvShape s;
+  PlaneShape pl;
+  cudaStream_t stream;
+  int *regs, *blocks;
+};
+
+// Registers and blocks an SM of `kernel` at `smem` bytes of dynamic
+// shared memory.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int smem, int* regs, int* blocks) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  *regs = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       kConvThreads, smem);
+}
+
+// One instance: its dynamic shared memory is the ring, plus the running
+// sum where a block runs more than one pass.
+template <typename OutT, int GA, int PA, int PW>
+cudaError_t planes_instance(const PlanesCall& c) {
+  using S = PlanesSmem<GA, PA, PW>;
+  const int passes = c.pl.gw * ((c.pl.ga + GA - 1) / GA);
+  const int smem = S::kRing + (passes > 1 ? S::kSum : 0);
+  auto kernel = xnor_conv2d_planes_kernel<OutT, GA, PA, PW>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (c.regs != nullptr) return occupancy(kernel, smem, c.regs, c.blocks);
+  if (c.s.m > 0 && c.s.o > 0) {
+    constexpr int kBM = PlanesTile<GA>::kBM;
+    dim3 grid(static_cast<unsigned>((c.s.m + kBM - 1) / kBM),
+              static_cast<unsigned>((c.s.o + kConvBN - 1) / kConvBN));
+    kernel<<<grid, kConvThreads, smem, c.stream>>>(
+        static_cast<const uint32_t*>(c.x), static_cast<const uint32_t*>(c.w),
+        static_cast<const float*>(c.vx), static_cast<const float*>(c.vw),
+        static_cast<const OutT*>(c.bias), static_cast<OutT*>(c.out), c.s,
+        c.pl);
+  }
+  return cudaGetLastError();
+}
+
+// The instance for a plane layout: merged activation planes (pa = 2) one
+// group a pass; single planes all ga groups in one pass up to 3, beyond
+// that 2 or 3 a pass (2 where ga is even).
+template <typename OutT, int PW>
+cudaError_t planes_by_groups(const PlanesCall& c) {
+  if (c.pl.pa == 2) return planes_instance<OutT, 1, 2, PW>(c);
+  const int ga = c.pl.ga;
+  switch (ga <= 3 ? ga : (ga % 2 == 0 ? 2 : 3)) {
+    case 1:
+      return planes_instance<OutT, 1, 1, PW>(c);
+    case 2:
+      return planes_instance<OutT, 2, 1, PW>(c);
+    default:
+      return planes_instance<OutT, 3, 1, PW>(c);
+  }
+}
+
+template <typename OutT>
+int planes_call(const PlanesCall& c) {
+  return static_cast<int>(c.pl.pw == 2 ? planes_by_groups<OutT, 2>(c)
+                                       : planes_by_groups<OutT, 1>(c));
 }
 
 // Pixels one grid-stride step of a wide producer covers: enough threads
@@ -999,25 +1407,19 @@ extern "C" int qtt_xnor_gemm(const void* a, const void* bt, const void* vx,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qtt_xnor_conv2d_f32(const void* x, const void* w,
-                                   const void* vx, const void* vw,
-                                   const void* bias, void* out, int n, int h,
-                                   int wd, int wc, int c, int o, int oh,
-                                   int ow, int kh, int kw, int stride,
-                                   int pad, void* stream) {
-  return launch_conv<float>(x, w, vx, vw, bias, out, n, h, wd, wc, c, o, oh,
-                            ow, kh, kw, stride, pad, stream);
-}
-
-extern "C" int qtt_xnor_conv2d_bf16(const void* x, const void* w,
-                                    const void* vx, const void* vw,
-                                    const void* bias, void* out, int n, int h,
-                                    int wd, int wc, int c, int o, int oh,
-                                    int ow, int kh, int kw, int stride,
-                                    int pad, void* stream) {
-  return launch_conv<__nv_bfloat16>(x, w, vx, vw, bias, out, n, h, wd, wc, c,
-                                    o, oh, ow, kh, kw, stride, pad, stream);
-}
+#define QTT_CONV(SUFFIX, OUT_T)                                               \
+  extern "C" int qtt_xnor_conv2d_##SUFFIX(                                     \
+      const void* x, const void* w, const void* vx, const void* vw,          \
+      const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
+      int o, int oh, int ow, int kh, int kw, int stride, int pad,            \
+      void* stream) {                                                        \
+    return launch_conv<OUT_T>(                                               \
+        x, w, vx, vw, bias, out,                                             \
+        conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad),   \
+        stream);                                                             \
+  }
+QTT_CONV(f32, float)
+QTT_CONV(bf16, __nv_bfloat16)
 
 #define QTT_CONV_PLANES(SUFFIX, OUT_T)                                        \
   extern "C" int qtt_xnor_conv2d_planes_##SUFFIX(                              \
@@ -1025,17 +1427,32 @@ extern "C" int qtt_xnor_conv2d_bf16(const void* x, const void* w,
       const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
       int o, int oh, int ow, int kh, int kw, int stride, int pad, int ga,    \
       int pa, int gw, int pw, void* stream) {                                \
-    PlaneShape pl{};                                                         \
-    pl.ga = ga;                                                              \
-    pl.pa = pa;                                                              \
-    pl.gw = gw;                                                              \
-    pl.pw = pw;                                                              \
-    return launch_conv<OUT_T, true>(x, w, vx, vw, bias, out, n, h, wd, wc,  \
-                                    c, o, oh, ow, kh, kw, stride, pad,       \
-                                    stream, pl);                             \
+    PlaneShape pl{ga, pa, gw, pw, n, static_cast<long long>(n) * h * wd * wc,  \
+                  static_cast<long long>(kh) * kw * wc * o};                 \
+    return planes_call<OUT_T>(PlanesCall{                                    \
+        x, w, vx, vw, bias, out,                                             \
+        conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad),   \
+        pl, static_cast<cudaStream_t>(stream), nullptr, nullptr});           \
   }
 QTT_CONV_PLANES(f32, float)
 QTT_CONV_PLANES(bf16, __nv_bfloat16)
+
+// Registers a thread and blocks an SM of the conv kernel a launch with
+// these plane groups takes (ga = pa = gw = pw = 1: the ls-1 conv), with
+// f32 (f32 != 0) or bf16 out.
+extern "C" int qtt_xnor_conv2d_occupancy(int f32, int ga, int pa, int gw,
+                                         int pw, int* regs, int* blocks) {
+  if (ga == 1 && pa == 1 && gw == 1 && pw == 1) {
+    return static_cast<int>(
+        f32 ? occupancy(xnor_conv2d_kernel<float>, 0, regs, blocks)
+            : occupancy(xnor_conv2d_kernel<__nv_bfloat16>, 0, regs, blocks));
+  }
+  PlanesCall c{};
+  c.pl = PlaneShape{ga, pa, gw, pw, 0, 0, 0};
+  c.regs = regs;
+  c.blocks = blocks;
+  return f32 ? planes_call<float>(c) : planes_call<__nv_bfloat16>(c);
+}
 
 // thresh and flip null: the unfolded mode (scales per sample).
 #define QTT_PACK_PLANES(SUFFIX, T)                                            \

@@ -58,6 +58,8 @@ _SIGNATURES = {'qtt_xnor_conv2d_f32': _CONV_SIG,
                'qtt_xnor_conv2d_bf16': _CONV_SIG,
                'qtt_xnor_conv2d_planes_f32': _PLANES_CONV_SIG,
                'qtt_xnor_conv2d_planes_bf16': _PLANES_CONV_SIG,
+               'qtt_xnor_conv2d_occupancy': ([ctypes.c_int] * 5
+                                             + [ctypes.c_void_p] * 2),
                'qtt_pack_sign_planes_f32': _PLANES_PACK_SIG,
                'qtt_pack_sign_planes_bf16': _PLANES_PACK_SIG}
 _DTYPE_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
@@ -470,6 +472,23 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
     _build.check(lib, status, 'xnor_conv2d_planes')
     planes_conv_launches.bump()
     return out
+
+
+def conv_occupancy(out_dtype: torch.dtype, ga: int = 1, pa: int = 1,
+                   gw: int = 1, pw: int = 1) -> tuple[int, int]:
+    """(registers a thread, blocks an SM) of the conv kernel that a launch
+    with ga activation groups of pa planes and gw weight groups of pw
+    planes takes (all 1: xnor_conv2d's), from the built library on the
+    current CUDA device."""
+    _build.require(out_dtype in _DTYPE_SUFFIX,
+                   f'unsupported out dtype {out_dtype}')
+    lib = _build.load('xnor', _SIGNATURES)
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    status = lib.qtt_xnor_conv2d_occupancy(
+        int(out_dtype == torch.float32), ga, pa, gw, pw, ctypes.byref(regs),
+        ctypes.byref(blocks))
+    _build.check(lib, status, 'conv_occupancy')
+    return regs.value, blocks.value
 
 
 # ------------------------------------------------------------ the routes

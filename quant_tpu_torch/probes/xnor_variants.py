@@ -16,6 +16,17 @@ records the instruction mix of the conv's unrolled stage and the
 tensor-core opcode counts of every GEMM kernel built (`sass_mix`,
 `gemm_sass`).
 
+The multi-plane conv. `PLANES_VARIANTS` change one choice of
+xnor_conv2d_planes (its register cap: none, or 2, 3 or 4 blocks an SM;
+its warp tiles; its ring depth);
+each computes the right result, is checked equal to the twin and timed
+beside the source on the inputs the 16 convs of a multi-plane ResNet-18
+capture at batch 128 (`PLANES_PHASES`: ls-T x ls-1 and ls-2 x ls-1 on the
+int8 route). The probe records the SASS mix of the ls-T and ls-2
+instances' unrolled stage (`planes_sass`) and the registers and blocks an
+SM of the ls-1 conv and those instances in every library built
+(`conv_occupancy`, from the card's occupancy query).
+
 The bandwidth kernels. `BW_VARIANTS` change one design choice of the
 stem pool (pool.cu: the neighbour's column by shuffle instead of from
 L1, 4 or 16 rows a thread, no vertical carry, registers capped for 6
@@ -38,7 +49,8 @@ qtt_pack_threshold_signs_bf16 where it has one, else
 qtt_pack_sign_planes_bf16 at k = 1) are timed against this tree's on
 the inputs the 16 binary convs of the seeded serving
 ResNet-18 see in one bf16 forward at batch 128 (times summed over the
-16 launches), and its xnor_gemm at the layer4 GEMM; the baseline
+16 launches), its xnor_conv2d_planes on the inputs of each
+`PLANES_PHASES` forward, and its xnor_gemm at the layer4 GEMM; the baseline
 probe.cu's tiled_matmul, bf16 and int8, at 4096^3 and its add at both
 add shapes; the baseline pool.cu's pool at the stem map in bf16 and
 f32. Each in the order baseline, current, current, baseline (the pool
@@ -47,13 +59,14 @@ on two timers: card time behind a head start (`common.card_ms`) and
 back to back, host launch time included (bare launches, no Python
 wrapper). Both libraries' results must equal the plain twins'.
 
-`--parts` picks what runs, of conv (conv knock-outs and SASS), gemm
-(wgmma knock-outs and SASS), pool and add (their variants); a baseline
-is timed for the parts that run.
+`--parts` picks what runs, of conv (conv knock-outs and SASS), planes
+(the multi-plane variants, SASS and occupancy), gemm (wgmma knock-outs
+and SASS), pool and add (their variants); a baseline is timed for the
+parts that run.
 
 Usage: python -m quant_tpu_torch.probes.xnor_variants [--baseline PATH]
            [--baseline-probe PATH] [--baseline-pool PATH]
-           [--parts conv,gemm,pool,add] [--out PATH]
+           [--parts conv,planes,gemm,pool,add] [--out PATH]
 """
 
 import argparse
@@ -89,8 +102,8 @@ KNOCKOUTS: dict[str, tuple[tuple[str, str], ...]] = {
     'half_mma': ((_MMA, _MMA.replace('++j', 'j += 2')),),
     'no_a_expand': ((_A, 'af[hh] = A[row * kKS + (kk ^ swz)];'
                          ' af[2 + hh] = af[hh] ^ keep;'),),
-    'no_a_mask': (('static_cast<int>(vm[i][hh] << (31 - kk)) >> 31);',
-                   '-1);'),),
+    'no_a_mask': (('uint32_t keep = keep_bit(vm[i][hh], kk);',
+                   'uint32_t keep = ~0u;'),),
     'no_b_expand': ((_B, 'bf[j][0] = B[kk * kConvBN + j * 8];'
                          ' bf[j][1] = ~bf[j][0];'),),
     'no_store': (('if (m >= s.m || col0 + cc >= s.o) continue;',
@@ -121,6 +134,44 @@ WG_KNOCKOUTS: dict[str, tuple[tuple[str, str], ...]] = {
         'transpose_tile(r.scratch + i * wg::kTileBytes, r.b(s), t);',
         ''),),
 }
+# Variants of the multi-plane conv, name: ((text in xnor.cu, its
+# stand-in), ...). Each computes the same result as the source; each is
+# checked equal to the twin and timed on the captured inputs of
+# PLANES_PHASES.
+_PLANES_BOUNDS = '__launch_bounds__(kConvThreads, kPlanesBlocks)'
+PLANES_VARIANTS: dict[str, tuple[tuple[str, str], ...]] = {
+    # No register cap: ptxas picks the count (the ls-1 conv's choice).
+    'planes_no_cap': ((_PLANES_BOUNDS, '__launch_bounds__(kConvThreads)'),),
+    # Registers capped for 2 or for 4 blocks an SM (255 or 128).
+    'planes_2_blocks': (('constexpr int kPlanesBlocks = 3;',
+                         'constexpr int kPlanesBlocks = 2;'),),
+    'planes_4_blocks': (('constexpr int kPlanesBlocks = 3;',
+                         'constexpr int kPlanesBlocks = 4;'),),
+    # Warp tiles of 2 x 2 warps: at one group (ls-T) the ls-1 conv's 64
+    # pixels x 32 channels, at two (ls-2) 32 x 32 of each group, so each
+    # A fragment is expanded by two warps and each B fragment by two.
+    'planes_lsT_2x2_warps': (('static constexpr int kMT = GA == 1 ? 2 : 1;',
+                              'static constexpr int kMT = GA == 1 ? 4 : 1;'),
+                             ('static constexpr int kNT = GA == 3 ? 4 : 8;',
+                              'static constexpr int kNT = GA == 2 ? 8 : 4;')),
+    'planes_ls2_2x2_warps': (('static constexpr int kMT = GA == 1 ? 2 : 1;',
+                              'static constexpr int kMT = GA == 3 ? 1 : 2;'),
+                             ('static constexpr int kNT = GA == 3 ? 4 : 8;',
+                              'static constexpr int kNT = GA == 1 ? 8 : 4;')),
+    # A ring of 3 stages, not 4 (the ls-1 conv's too, which is not timed).
+    'planes_3_stages': (('constexpr int kConvStages = 4;',
+                         'constexpr int kConvStages = 3;'),),
+}
+# The multi-plane model phases whose captured convs time the multi-plane
+# conv: (name, x_quant, w_quant, options), as chip_smoke.MODEL_PHASES has
+# them (ResNet-18 XNOR, EMA scales, batch 128).
+PLANES_PHASES = (
+    ('resnet18_xnor_lsT_ls1', 'ls-T', 'ls-1', {}),
+    ('resnet18_xnor_ls2_ls1_int8', 'ls-2', 'ls-1', {'sign_compute': 'int8'}),
+)
+# The multi-plane instances whose SASS and occupancy are recorded, (ga,
+# pa, gw, pw) of the launch that takes them: ls-T x ls-1 and ls-2 x ls-1.
+PLANES_INSTANCES = ((1, 2, 1, 1), (2, 1, 1, 1))
 GEMMS = ('xnor_gemm', 'tiled_matmul_bf16', 'tiled_matmul_int8')
 WG_TARGETS: dict[str, tuple[str, tuple[str, ...]]] = {
     'gemm_no_expand': ('xnor.cu', ('xnor_gemm',)),
@@ -194,7 +245,7 @@ BW_VARIANTS: dict[str, tuple[tuple[str, str], ...]] = {
 # The source each part's variants edit: a variant's name starts with its
 # part.
 BW_FILES = {'pool': 'pool.cu', 'add': 'probe.cu'}
-PARTS = ('conv', 'gemm', 'pool', 'add')
+PARTS = ('conv', 'planes', 'gemm', 'pool', 'add')
 POOL_SHAPE = (128, 112, 112, 64)    # the serving stem map
 ADD_SHAPES = ((1024, 256), (16384, 4096))
 # (N, H=W, C, O), 3x3, stride 1, padding 1: the layers' repeated convs.
@@ -238,8 +289,8 @@ def build_all(baselines: dict[str, Optional[str]], parts: tuple[str, ...]
     library}}. 'kernel' is this tree's sources, 'baseline' the ones
     `baselines` names by stem."""
     csrc = {f.name: f.read_text() for f in sorted(_build.CSRC.glob('*.cu*'))}
-    stems = {'conv': ('xnor',), 'gemm': ('xnor', 'probe'), 'pool': ('pool',),
-             'add': ('probe',)}
+    stems = {'conv': ('xnor',), 'planes': ('xnor',), 'gemm': ('xnor', 'probe'),
+             'pool': ('pool',), 'add': ('probe',)}
     jobs: dict[tuple[str, str], dict[str, str]] = {
         ('kernel', stem): csrc for part in parts for stem in stems[part]}
     stale = []
@@ -248,6 +299,12 @@ def build_all(baselines: dict[str, Optional[str]], parts: tuple[str, ...]
         if text is None:
             stale.append(('conv_knockout', name))
         elif name != 'kernel':
+            jobs[(name, 'xnor')] = {**csrc, 'xnor.cu': text}
+    for name in PLANES_VARIANTS if 'planes' in parts else ():
+        text = variant_source(name, csrc['xnor.cu'], PLANES_VARIANTS)
+        if text is None:
+            stale.append(('planes_variant', name))
+        else:
             jobs[(name, 'xnor')] = {**csrc, 'xnor.cu': text}
     for name, (fname, kernels) in (WG_TARGETS.items() if 'gemm' in parts
                                    else ()):
@@ -299,25 +356,90 @@ def build_all(baselines: dict[str, Optional[str]], parts: tuple[str, ...]
     return dict(libs)
 
 
-def _functions(lib: str) -> dict[str, list[str]]:
-    """{SASS function name: its opcodes} of a built library."""
+def _listing(lib: str) -> dict[str, list[tuple[str, str]]]:
+    """{SASS function name: its lines in order, an instruction as (opcode,
+    BRA target or '') and a label as ('', label)} of a built library. An
+    instruction's address is a label too (`0x<hex>`), since a branch
+    names its target by label or by address."""
     nvcc = Path(_build.nvcc_path())
     sass = subprocess.run([str(nvcc.with_name('cuobjdump')), '-sass', lib],
                           capture_output=True, text=True, check=True).stdout
-    return {f.split('\n')[0].strip(): re.findall(
-        r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)', f)
-        for f in sass.split('Function : ')[1:]}
+    out = {}
+    for f in sass.split('Function : ')[1:]:
+        lines = []
+        for line in f.split('\n')[1:]:
+            label = re.match(r'\s*(\.L_x_\d+):', line)
+            op = re.search(r'/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?'
+                           r'([A-Z][A-Z0-9]*)(.*)', line)
+            if label:
+                lines.append(('', label.group(1)))
+            elif op:
+                lines.append(('', hex(int(op.group(1), 16))))
+                target = re.search(r'`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b',
+                                   op.group(3).split(';')[0])
+                if op.group(2) != 'BRA' or target is None:
+                    target = ''
+                else:
+                    target = target.group(1) or hex(int(target.group(2), 16))
+                lines.append((op.group(2), target))
+        out[f.split('\n')[0].strip()] = lines
+    return out
 
 
-def sass_mix(lib: str) -> dict[str, Any]:
-    """Opcode counts of the bf16 conv kernel's SASS from its first MMA to
-    its last: one unrolled stage of kKS words."""
-    ops = next(ops for name, ops in _functions(lib).items()
-               if 'xnor_conv2d_kernel' in name and 'bfloat16' in name)
+def _functions(lib: str) -> dict[str, list[str]]:
+    """{SASS function name: its opcodes} of a built library."""
+    return {name: [op for op, _ in lines if op]
+            for name, lines in _listing(lib).items()}
+
+
+def _stage(lines: list[tuple[str, str]]) -> Optional[list[str]]:
+    """The opcodes of the loop around a kernel's MMAs (one stage: its
+    barrier, loads, any expansion outside the k-steps, and the k-steps),
+    from the label the first backward branch after the last IMMA jumps to
+    through that branch; None where there is no such branch."""
+    ops = [(op, target) for op, target in lines if op]
+    at, labels = 0, {}
+    for op, name in lines:
+        if op:
+            at += 1
+        else:
+            labels[name] = at
+    imma = [i for i, (op, _) in enumerate(ops) if op == 'IMMA']
+    for i in range(imma[-1] + 1, len(ops)):
+        start = labels.get(ops[i][1]) if ops[i][1] else None
+        if start is not None and start <= imma[0]:
+            return [op for op, _ in ops[start:i + 1]]
+    return None
+
+
+def sass_mix(lib: str, kernel: str = 'xnor_conv2d_kernel',
+             instance: Optional[tuple[int, int, int, int]] = None
+             ) -> dict[str, Any]:
+    """Opcode counts of a bf16 conv kernel's SASS: from its first MMA to
+    its last (the k-steps of one unrolled stage of kKS words) and over
+    the whole stage loop (`stage`: with its barriers, loads and any
+    expansion outside the k-steps). `instance` (ga, pa, gw, pw) picks
+    the multi-plane kernel's template for that layout (the ls-1 conv's
+    by default); the *_per_word counts are per warp and word."""
+    mark = ''
+    if instance is not None:
+        ga, pa, _, pw = instance
+        mark = f'Li{1 if pa == 2 else min(ga, 3)}ELi{pa}ELi{pw}E'
+    lines = next(lines for name, lines in _listing(lib).items()
+                 if kernel in name and 'bfloat16' in name and mark in name)
+    ops = [op for op, _ in lines if op]
     mma = [i for i, op in enumerate(ops) if op == 'IMMA']
     window = collections.Counter(ops[mma[0]:mma[-1] + 1])
-    return dict(instructions=sum(window.values()), imma=window['IMMA'],
-                top=dict(window.most_common(8)))
+    stage = _stage(lines)
+    words = 8  # kKS
+    return dict(kernel=kernel, instance=instance,
+                instructions=sum(window.values()), imma=window['IMMA'],
+                per_word=sum(window.values()) / words,
+                imma_per_word=window['IMMA'] / words,
+                stage_per_word=None if stage is None else len(stage) / words,
+                top=dict(window.most_common(8)),
+                stage_top=None if stage is None else dict(
+                    collections.Counter(stage).most_common(10)))
 
 
 def gemm_sass(lib: str) -> list[dict[str, Any]]:
@@ -431,6 +553,108 @@ def captured_convs(dev: torch.device, batch: int = 128,
     return seen
 
 
+def planes_captured(dev: torch.device, x_quant: str, w_quant: str,
+                    options: dict, batch: int = 128, seed: int = 0) -> list:
+    """(conv, input) of each QuantConv2d in one bf16 forward of the seeded
+    ResNet-18 XNOR of a multi-plane phase (EMA scales, folded)."""
+    model = models.seeded_model(models.bench_resnet18, x_quant, w_quant,
+                                dev, seed, moving_average_mode='eval_only',
+                                **options)
+    model.eval_dtype = torch.bfloat16
+    seen: list = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for m in model.modules() if isinstance(m, QuantConv2d)]
+    x = torch.randn(batch, 224, 224, 3,
+                    generator=torch.Generator().manual_seed(seed)).to(dev)
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def planes_calls(lib: ctypes.CDLL, seen: list
+                 ) -> tuple[list[Callable[[], int]], Callable[[], list[str]]]:
+    """The multi-plane conv's bare launch of `lib` (bf16 out) at each
+    captured conv, on the words of the plain producer, and a check that
+    names every output unequal to the plain twin's."""
+    convs, checks = [], []
+    for i, (conv, xin) in enumerate(seen):
+        n, h, w, c = xin.shape
+        k = B.sign_planes(conv.x_quant)
+        xg = 2 if conv.x_quant == 'ls-T' else 1
+        wp = conv.w_packed.contiguous()
+        wg = 2 if conv.w_quant == 'ls-T' and wp.shape[0] == 2 else 1
+        words = B.pack_sign_planes_plain(xin, k, conv.x_va, conv.x_thresh,
+                                         conv.x_flip)
+        vx = conv.x_quantizer(xin)[:k // xg].float().contiguous()
+        vw = conv.w_scales[:wp.shape[0] // wg].float().contiguous()
+        bias = (None if conv.bias is None
+                else conv.bias.to(torch.bfloat16).contiguous())
+        kk, s, p = wp.shape[1], conv.stride, conv.padding
+        oh, ow = (h + 2 * p - kk) // s + 1, (w + 2 * p - kk) // s + 1
+        o = wp.shape[-1]
+        out = torch.empty(n, oh, ow, o, dtype=torch.bfloat16,
+                          device=xin.device)
+        convs.append(launcher(
+            lib.qtt_xnor_conv2d_planes_bf16, (words, wp, vx, vw, bias, out),
+            (n, h, w, wp.shape[-2], c, o, oh, ow, kk, kk, s, p, k // xg, xg,
+             wp.shape[0] // wg, wg, _build.stream(xin))))
+        want = B.xnor_conv2d_planes_plain(
+            words, wp, vx, vw, bias, in_channels=c, x_group=xg, w_group=wg,
+            stride=s, padding=p, out_dtype=torch.bfloat16)
+        checks.append((f'xnor_conv2d_planes {i}', out, want))
+
+    def unequal() -> list[str]:
+        status = [fn() for fn in convs]
+        torch.cuda.synchronize()
+        if any(status):
+            return [f'CUDA status {status}']
+        return [what for what, got, want in checks
+                if not torch.equal(got, want)]
+    return convs, unequal
+
+
+def planes_occupancy(libs: dict[str, dict[str, ctypes.CDLL]],
+                     dev: torch.device) -> None:
+    """Registers a thread and blocks an SM of the ls-1 conv and the
+    PLANES_INSTANCES (bf16 out) in every library that reports them."""
+    for name, stems in libs.items():
+        lib = stems.get('xnor')
+        if lib is None or not hasattr(lib, 'qtt_xnor_conv2d_occupancy'):
+            continue
+        for inst in ((1, 1, 1, 1),) + PLANES_INSTANCES:
+            regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            status = lib.qtt_xnor_conv2d_occupancy(
+                0, *inst, ctypes.byref(regs), ctypes.byref(blocks))
+            common.record('conv_occupancy', dev, variant=name,
+                          instance=list(inst), status=status,
+                          registers=regs.value, blocks_per_sm=blocks.value)
+
+
+def planes_variants(libs: dict[str, dict[str, ctypes.CDLL]],
+                    dev: torch.device) -> None:
+    """Each PLANES_VARIANTS build and the source as it is, checked equal
+    to the twin and timed (card ms, summed over a forward's 16 convs) on
+    each phase of PLANES_PHASES, in the order kernel, variants, kernel."""
+    names = [n for n in PLANES_VARIANTS if n in libs]
+    for phase, xq, wq, options in PLANES_PHASES:
+        with torch.inference_mode():
+            seen = planes_captured(dev, xq, wq, options)
+            calls = {name: planes_calls(libs[name]['xnor'], seen)
+                     for name in ['kernel'] + names}
+        for name, (_, unequal) in calls.items():
+            bad = unequal()
+            if bad:
+                raise AssertionError(f'{name} differs from the twin: {bad}')
+        for rnd, name in enumerate(['kernel'] + names + ['kernel']):
+            common.record('planes_variant', dev, variant=name, phase=phase,
+                          round=rnd, launches=len(calls[name][0]),
+                          card_ms=sum(common.card_ms(f, ITERS)
+                                      for f in calls[name][0]))
+
+
 def launcher(entry: Callable[..., int], tensors: tuple, ints: tuple
              ) -> Callable[[], int]:
     """A call of `entry` on the pointers of `tensors`, then `ints`; it
@@ -537,6 +761,20 @@ def baseline_vs_current(libs: dict[str, dict[str, ctypes.CDLL]],
         for k, kname in enumerate(('producer', 'xnor_conv2d')):
             _rounds({name: c[k] for name, c in calls.items()}, dev,
                     kernel=kname)
+    if 'xnor' in base and 'planes' in parts:
+        for phase, xq, wq, options in PLANES_PHASES:
+            with torch.inference_mode():
+                seen = planes_captured(dev, xq, wq, options)
+                calls = {name: planes_calls(libs[lib]['xnor'], seen)
+                         for name, lib in (('baseline', 'baseline'),
+                                           ('current', 'kernel'))}
+            for name, (_, unequal) in calls.items():
+                bad = unequal()
+                if bad:
+                    raise AssertionError(f'{name} xnor.cu differs from the '
+                                         f'twin in {phase}: {bad}')
+            _rounds({name: c[0] for name, c in calls.items()}, dev,
+                    kernel='xnor_conv2d_planes', phase=phase)
     if 'gemm' not in parts:
         return
     gemms = gemm_calls(dev)
@@ -649,6 +887,13 @@ def main(argv: Optional[list[str]] = None) -> int:
         common.record('conv_sass', dev, **sass_mix(
             str(lib_file('kernel', 'xnor'))))
         knockouts(libs, dev)
+    if 'planes' in parts:
+        for inst in PLANES_INSTANCES:
+            common.record('planes_sass', dev, **sass_mix(
+                str(lib_file('kernel', 'xnor')), 'xnor_conv2d_planes_kernel',
+                inst))
+        planes_occupancy(libs, dev)
+        planes_variants(libs, dev)
     if 'gemm' in parts:
         for name in ('kernel', 'baseline'):
             for stem in sorted(set(libs.get(name, {})) & {'xnor', 'probe'}):

@@ -99,6 +99,9 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'WORKER_SPEC', {
         'model': 'lenet_random', 'max_batch': 4, 'input_shape': [28, 28, 1]})
     monkeypatch.setattr(chip_smoke, '_worker_launches', worker_launches)
+    # The occupancy query needs the built library.
+    monkeypatch.setattr(chip_smoke, 'occupancy', lambda dt, *layout: dict(
+        registers=len(layout), blocks_per_sm=3))
     monkeypatch.setattr(_build, 'build', lambda verbose=False: {})
     monkeypatch.setattr(chip_smoke, 'launch_counts', lambda: next(counts))
     for name, value in (('synchronize', lambda *a: None),
@@ -134,6 +137,21 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
             headline[k['name']] if k['name'] == 'xnor_conv2d_planes' else
             1 if k['name'] in chip_smoke.PROBE_KERNELS else 0)
     assert headline['xnor_conv2d_planes'] == 8
+    # One multi-plane row for each phase that launches the kernel, with
+    # the registers and blocks an SM of the instance it takes; a library
+    # yardstick only where one pair of scale groups makes the function
+    # one conv (ls-T x ls-1).
+    planes = {k['phase']: k for k in kernels
+              if k['name'] == 'xnor_conv2d_planes'}
+    assert list(planes) == [name for name, *_, per_conv in
+                            chip_smoke.MODEL_PHASES
+                            if 'xnor_conv2d_planes' in per_conv]
+    assert len(planes) == 3 and chip_smoke.OFF_PHASE in planes
+    for phase, k in planes.items():
+        assert k['registers'] == 4 and k['blocks_per_sm'] == 3, phase
+        assert (k['library_ms'] is None) == ('ls2' in phase), phase
+    conv = next(k for k in kernels if k['name'] == 'xnor_conv2d')
+    assert conv['registers'] == 0 and conv['blocks_per_sm'] == 3
     # The producer's row is the main path's (k = 1); the headline phase's
     # k = 2 run stands beside it.
     pack = next(k for k in kernels if k['name'] == 'pack_sign_planes')
@@ -182,3 +200,31 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     for key in ('latency_ms', 'client_latency_ms'):
         assert {'p50', 'p99'} <= set(workers[key])
         assert {'p50', 'p99'} <= set(stack['frontend'][key])
+
+
+def test_build_report_names_each_kernel():
+    """nvcc's -Xptxas -v report parsed into registers and spills a
+    kernel, its name demangled with the template arguments."""
+    ns = '_ZN39_GLOBAL__N__617c4668_7_xnor_cu_bfe1ff4b'
+    planes = (f'{ns}25xnor_conv2d_planes_kernelI13__nv_bfloat16Li1ELi2ELi1E'
+              'EEvPKjS3_PKfS5_PKT_PS6_NS_9ConvShapeENS_10PlaneShapeE')
+    log = '\n'.join([
+        f"ptxas info    : Compiling entry function '{planes}' for 'sm_90a'",
+        f'ptxas info    : Function properties for {planes}',
+        '    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads',
+        'ptxas info    : Used 168 registers, used 1 barriers',
+        f'ptxas info    : Function properties for {ns}18xnor_conv2d_kernelIf'
+        'EEvPKjS2_PKfS4_PKT_PS5_NS_9ConvShapeE',
+        '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+        'ptxas info    : Used 150 registers, used 1 barriers',
+        f'ptxas info    : Function properties for {ns}16xnor_gemm_kernelEPKj',
+        '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+        'ptxas info    : Used 128 registers'])
+    assert chip_smoke.kernel_resources(log) == {
+        'xnor_conv2d_planes_kernel<bf16,1,2,1>': dict(
+            spill_stores=8, spill_loads=12, registers=168),
+        'xnor_conv2d_kernel<f32>': dict(spill_stores=0, spill_loads=0,
+                                        registers=150),
+        'xnor_gemm_kernel': dict(spill_stores=0, spill_loads=0,
+                                 registers=128)}
+    assert chip_smoke.kernel_name('_Z3fooi') == '_Z3fooi'

@@ -113,10 +113,17 @@ def test_producer_twin_matches_jax(rng, shape, tdtype):
 _PAIRS = [(xs, ws) for xs in chip_smoke.PLANE_X_SCHEMES
           for ws in chip_smoke.PLANE_W_SCHEMES if (xs, ws) != ('ls-1', 'ls-1')]
 # Each check shape with two of the pairs, so that every pair meets
-# several shapes and every shape two pairs.
+# several shapes and every shape two pairs; then every plane layout the
+# CUDA kernel instantiates (merged planes on either side, 1-3 activation
+# groups a pass, passes over weight groups and over activation groups
+# past 3) at the shape that crosses its tiles' edges in M and N.
 _PLANE_CASES = [(shape, _PAIRS[(i + d) % len(_PAIRS)])
                 for i, shape in enumerate(chip_smoke.PLANES_CHECK_SHAPES)
                 for d in (0, len(_PAIRS) // 2)]
+_PLANE_CASES += [(chip_smoke.PLANES_TILE_SHAPE, (xs, ws))
+                 for xs in chip_smoke.PLANES_TILE_X_SCHEMES
+                 for ws in chip_smoke.PLANE_W_SCHEMES
+                 if (xs, ws) != ('ls-1', 'ls-1')]
 
 
 def _jax_planes_conv(xw, ww, c, vx, vw, bias, x_group, w_group, stride,
@@ -150,10 +157,7 @@ def test_planes_conv_twin_matches_jax(rng, shape, pair, out_dtype):
     against JAX's int8 route: exact, with a scale of its own for every
     plane group."""
     n, h, w, c, o, k, stride, padding = shape
-    x_scheme, w_scheme = pair
-    k_a, k_w = TB.sign_planes(x_scheme), TB.sign_planes(w_scheme)
-    xg, wg = (2 if x_scheme == 'ls-T' else 1), (2 if w_scheme == 'ls-T'
-                                                 else 1)
+    (k_a, xg), (k_w, wg) = map(chip_smoke.plane_layout, pair)
     wc = -(-c // 32)
     xw = rng.integers(-2 ** 31, 2 ** 31, (k_a, n, h, w, wc), dtype=np.int32)
     ww = rng.integers(-2 ** 31, 2 ** 31, (k_w, k, k, wc, o), dtype=np.int32)

@@ -424,12 +424,71 @@ def test_wgmma_knockouts_apply_to_their_file_only_where_their_text_is(name):
     assert xnor_variants.variant_source(name, src + src, table) is None
 
 
+@pytest.mark.parametrize('name', sorted(xnor_variants.PLANES_VARIANTS))
+def test_planes_variants_apply_only_where_their_text_is(name):
+    """Each variant of the multi-plane conv substitutes as the conv's
+    knock-outs do (checked on a stand-in source)."""
+    table = xnor_variants.PLANES_VARIANTS
+    subs = table[name]
+    assert subs
+    src = 'head\n' + '\n'.join(old for old, _ in subs) + '\ntail\n'
+    want = 'head\n' + '\n'.join(new for _, new in subs) + '\ntail\n'
+    assert xnor_variants.variant_source(name, src, table) == want
+    assert xnor_variants.variant_source(name, 'other', table) is None
+    assert xnor_variants.variant_source(name, src + src, table) is None
+
+
+def test_sass_stage_is_the_loop_around_the_mmas():
+    """The stage count runs from the label that the first backward
+    branch after the last IMMA jumps to through that branch: forward
+    branches (a k-step loop's early exit) and code outside the loop do
+    not count; no backward branch gives None."""
+    lines = [('MOV', ''), ('', '.L_x_1'), ('BAR', ''), ('STS', ''),
+             ('BAR', ''), ('LDS', ''), ('IMMA', ''), ('BRA', '.L_x_2'),
+             ('IMMA', ''), ('', '.L_x_2'), ('ISETP', ''), ('BRA', '.L_x_1'),
+             ('STG', ''), ('EXIT', '')]
+    assert xnor_variants._stage(lines) == [
+        'BAR', 'STS', 'BAR', 'LDS', 'IMMA', 'BRA', 'IMMA', 'ISETP', 'BRA']
+    assert xnor_variants._stage(lines[:-4] + [('EXIT', '')]) is None
+
+
+def test_sass_listing_reads_labels_and_addresses(monkeypatch):
+    """cuobjdump's listing parsed into opcodes and BRA targets, a target
+    named by label or by address (an operand like `c[0x0]` of any other
+    instruction is no target), and the stage loop found in both forms."""
+    body = ('        /*0000*/                   MOV R1, c[0x0][0x28] ;\n'
+            '                                   /* 0x000fe40000000800 */\n'
+            '{top}        /*0010*/                   BAR.SYNC 0x0 ;\n'
+            '        /*0020*/                   IMMA.16832.S8.S8 R4, R8 ;\n'
+            '        /*0030*/               @P0 BRA {fwd} ;\n'
+            '        /*0040*/                   IMMA.16832.S8.S8 R4, R8 ;\n'
+            '{mid}        /*0050*/              @!P1 BRA {back} ;\n'
+            '        /*0060*/                   EXIT ;\n')
+    sass = ('\tFunction : by_label\n' + body.format(
+        top='.L_x_1:\n', mid='.L_x_2:\n', fwd='`(.L_x_2)', back='`(.L_x_1)')
+        + '\tFunction : by_address\n' + body.format(
+            top='', mid='', fwd='0x50', back='0x10'))
+    monkeypatch.setattr(_build, 'nvcc_path', lambda: '/cuda/bin/nvcc')
+    monkeypatch.setattr(xnor_variants.subprocess, 'run', lambda *a, **k: (
+        type('Done', (), {'stdout': sass})))
+    listing = xnor_variants._listing('lib.so')
+    assert set(listing) == {'by_label', 'by_address'}
+    for lines in listing.values():
+        assert [op for op, _ in lines if op] == [
+            'MOV', 'BAR', 'IMMA', 'BRA', 'IMMA', 'BRA', 'EXIT']
+        assert [t for op, t in lines if op and t] in (
+            ['.L_x_2', '.L_x_1'], ['0x50', '0x10'])
+        assert xnor_variants._stage(lines) == ['BAR', 'IMMA', 'BRA', 'IMMA',
+                                               'BRA']
+
+
 def test_variants_build_apart():
     """Every (variant, source) pair is built in a directory of its own,
     so a baseline xnor.cu, probe.cu and pool.cu cannot overwrite each
     other's copy of the sources."""
     assert set(xnor_variants.WG_TARGETS) == set(xnor_variants.WG_KNOCKOUTS)
     pairs = {(v, s) for v in ('baseline', *xnor_variants.KNOCKOUTS,
+                              *xnor_variants.PLANES_VARIANTS,
                               *xnor_variants.WG_KNOCKOUTS,
                               *xnor_variants.BW_VARIANTS)
              for s in ('xnor', 'probe', 'pool')}
