@@ -68,7 +68,25 @@ the chip-probe path:
 8. calibrates the two recipe models (RECIPE_PHASES): EMA scales from
    four seeded batches on the card and on the CPU (held to
    CALIBRATION_REL_TOL), then folded, stripped and served;
-9. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+9. trains (the train phase, TRAIN_CONFIGS): the QAT train step of the
+   ImageNet KD recipes at full width (ResNet-18 XNOR student, 224 px,
+   1000 classes, batch 256; a seeded regular fp ResNet-18 teacher in
+   train mode; Adam under linear_lr, pure KD), after two checks: one
+   step card against CPU in float32 (TRAIN_CPU_LIMITS) and remat on
+   against off. Three configurations (ls-1 x ls-1 in float32; the same
+   with bf16 train_dtype, remat and a bf16 teacher; the TPU recipe's
+   ls-2 activations with lloyd solves) each take two warm-up and ten
+   timed steps through make_train_step and train_epoch on one fixed
+   seeded batch, one JSON line {"train_phase": ...} each (ms a step back
+   to back and its split into forward, teacher, backward and optimizer
+   by CUDA events, img/s, peak memory, the loss of each step, which must
+   fall). The first trained student then runs evaluate (the stem pool
+   kernel once a batch) and is calibrated, packed, folded, stripped and
+   served through InferenceEngine (xnor_conv2d and the producer once a
+   binary conv, the pool once; the packed float32 chain within 2% of
+   the logit spread of its calibrated dense twin's, the served bf16
+   logits within 5%);
+10. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
@@ -96,7 +114,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from quant_tpu_torch.probes import models
+from quant_tpu_torch.probes import models, train_profile
 from quant_tpu_torch.probes.common import card_alone_ms, card_ms, tf32
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
@@ -276,7 +294,50 @@ SOLVE_CHECK_ROWS = 8  # samples of each conv input solved on both
 SERVING_REQUESTS = 64
 WORKER_SPEC = {'model': 'resnet18_random', 'max_batch': 32,
                'input_shape': [224, 224, 3]}
-
+# The train phase: the QAT train step of the ImageNet KD recipes at full
+# width (probes.train_profile.CONFIGS: ResNet-18 XNOR student, 224 px,
+# 1000 classes, batch 256, moving_average_mode 'off', Adam under
+# linear_lr, pure KD from a frozen regular fp ResNet-18 teacher in train
+# mode, seeded: no checkpoint).
+TRAIN_CONFIGS = tuple(train_profile.CONFIGS)
+# (student builder, teacher builder, input (H, W, C), classes).
+TRAIN_MODELS = (models.bench_resnet18, models.imagenet_teacher,
+                (224, 224, 3), 1000)
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 256, 2, 10
+# One step of the first configuration, card against CPU, float32 with
+# TF32 off, on TRAIN_CHECK_BATCH images, from one set of weights. The
+# card's cuDNN convs and reductions sum in another order than the CPU's,
+# and an activation within that rounding of 0 flips its sign, which
+# moves the dots it feeds by 2 v1 v_w and the gradients downstream by far
+# more than the rounding: on the CPU alone, inputs one ulp apart move
+# the loss by 1e-4, a BN statistic by 0.1% and the gradient of layer4's
+# shortcut conv by 11%. Limits: the loss relative; the gradient over all
+# leaves (relative norm of the difference), its median leaf and its
+# worst leaf, a leaf's error over |cpu| + GRAD_FLOOR |all gradients| /
+# GRAD_MEDIAN (a bias before a BN has a true gradient of 0 and holds
+# noise); BN running statistics and w_vs relative to their largest
+# element.
+TRAIN_CHECK_BATCH = 4
+TRAIN_CPU_LIMITS = dict(loss_rel=2e-3, grad_rel=0.1, grad_median=5e-2,
+                        grad_worst=0.75, grad_floor=1e-3, stats_rel=3e-2,
+                        w_vs_rel=1e-5)
+# remat on against off on the card, the first configuration at this
+# batch: the same forward, so the same loss (float32 rounding at most)
+# and the same new state, bit for bit.
+REMAT_CHECK_BATCH, REMAT_LOSS_REL = 32, 1e-6
+# The eval step's batches; the trained student, calibrated on
+# CALIBRATION_BATCHES batches of CALIBRATION_BATCH, serves
+# TRAIN_SERVE_BATCH images. Its packed float32 chain on the card (the
+# kernels, the threshold fold) is held to TRAIN_SERVE_REL_TOL of the
+# logit spread of the calibrated twin's dense float32 eval forward
+# (measured 2.9e-7). Its bf16 chain through InferenceEngine is held to
+# TRAIN_SERVE_BF16_REL_TOL of that spread: bf16 rounding flips the
+# signs of activations within an ulp of a threshold, as JAX's own bf16
+# chain does (the port's equals it op by op), which puts it 1.93% (CPU,
+# seeded init) to 2.16% (the card, trained) from float32; a fault in
+# the route would be tens of %.
+TRAIN_EVAL_BATCHES, TRAIN_SERVE_BATCH = 2, 4
+TRAIN_SERVE_REL_TOL, TRAIN_SERVE_BF16_REL_TOL = FP32_REL_TOL, 5e-2
 
 
 def card_line() -> str:
@@ -1512,6 +1573,295 @@ def recipe_phase(build: str, x_quant: str, w_quant: str, recipe: str,
                 quantizers=len(got), serving=served)
 
 
+def cuda_event() -> Any:
+    """A CUDA event recorded on the current stream (timing enabled)."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _train_models(name: str, seed: int
+                  ) -> tuple[torch.nn.Module, torch.nn.Module]:
+    """(student, teacher) of a train configuration on the CPU."""
+    make, teacher_make, _, _ = TRAIN_MODELS
+    return train_profile.build(name, seed, 'cpu', make, teacher_make)
+
+
+def _train_data(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """n seeded ImageNet-shaped images (N(0, 1), NHWC) and labels."""
+    rng = np.random.default_rng(seed)
+    _, _, hwc, classes = TRAIN_MODELS
+    return (rng.standard_normal((n,) + hwc, dtype=np.float32),
+            rng.integers(0, classes, n))
+
+
+def _one_step(student: torch.nn.Module, teacher: torch.nn.Module,
+              x: np.ndarray, y: np.ndarray, device: str) -> float:
+    from quant_tpu_torch.train.metrics import init_metric_state
+
+    step = train_profile.make_step(teacher)
+    _, _, loss = step(train_profile.make_state(student),
+                      torch.from_numpy(x).to(device),
+                      torch.from_numpy(y).to(device), init_metric_state())
+    return loss.item()
+
+
+def _state_tensors(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """BN running statistics and cached weight scales, on the CPU."""
+    return {name: b.detach().cpu() for name, b in model.named_buffers()
+            if name.rsplit('.', 1)[-1] in ('running_mean', 'running_var',
+                                           'w_vs')}
+
+
+def train_against_cpu(seed: int) -> dict:
+    """One train step of the first configuration, card against CPU (TF32
+    off) from one set of weights: the loss, every gradient leaf, the new
+    BN statistics and w_vs, each held to TRAIN_CPU_LIMITS."""
+    student_cpu, teacher_cpu = _train_models(TRAIN_CONFIGS[0], seed)
+    student = copy.deepcopy(student_cpu).to(DEVICE)
+    teacher = copy.deepcopy(teacher_cpu).to(DEVICE)
+    x, y = _train_data(TRAIN_CHECK_BATCH, seed)
+    lim = TRAIN_CPU_LIMITS
+    with tf32(False):
+        got = _one_step(student, teacher, x, y, DEVICE)
+    want = _one_step(student_cpu, teacher_cpu, x, y, 'cpu')
+    loss_rel = abs(got - want) / abs(want)
+    grads = {n: p.grad.detach().cpu() for n, p in student.named_parameters()}
+    wants = {n: p.grad for n, p in student_cpu.named_parameters()}
+    total = torch.sqrt(sum(g.double().pow(2).sum() for g in wants.values()))
+    diff = torch.sqrt(sum((grads[n] - w).double().pow(2).sum()
+                          for n, w in wants.items()))
+    grad_rel = (diff / total).item()
+    floor = lim['grad_floor'] * total.item() / lim['grad_median']
+    rels = {n: (grads[n] - w).double().norm().item()
+            / (w.double().norm().item() + floor) for n, w in wants.items()}
+    worst = max(rels, key=rels.get)
+    grad_median = float(np.median(list(rels.values())))
+    stats, w_vs = 0.0, 0.0
+    card_state, cpu_state = _state_tensors(student), _state_tensors(
+        student_cpu)
+    for name, w in cpu_state.items():
+        rel = ((card_state[name] - w).abs().max()
+               / w.abs().max().clamp_min(1e-30)).item()
+        if name.endswith('w_vs'):
+            w_vs = max(w_vs, rel)
+        else:
+            stats = max(stats, rel)
+    record = dict(batch=TRAIN_CHECK_BATCH, loss_card=got, loss_cpu=want,
+                  loss_rel_err=loss_rel, grad_rel_err=grad_rel,
+                  grad_median_leaf_err=grad_median,
+                  grad_worst_leaf_err=rels[worst], grad_worst_leaf=worst,
+                  grad_leaves=len(wants), stats_rel_err=stats,
+                  w_vs_rel_err=w_vs, limits=lim)
+    print(f'train step card vs CPU: {record}', flush=True)
+    if not (loss_rel <= lim['loss_rel'] and grad_rel <= lim['grad_rel']
+            and grad_median <= lim['grad_median']
+            and rels[worst] <= lim['grad_worst']
+            and stats <= lim['stats_rel'] and w_vs <= lim['w_vs_rel']):
+        raise AssertionError(f'train step card vs CPU past its limits: '
+                             f'{record}')
+    return record
+
+
+def remat_check(seed: int) -> dict:
+    """The first configuration with remat on against off on the card at
+    REMAT_CHECK_BATCH: loss within REMAT_LOSS_REL, new state equal."""
+    student_cpu, teacher_cpu = _train_models(TRAIN_CONFIGS[0], seed)
+    teacher = teacher_cpu.to(DEVICE)
+    x, y = _train_data(REMAT_CHECK_BATCH, seed + 1)
+    out = []
+    for remat in (False, True):
+        student = copy.deepcopy(student_cpu).to(DEVICE)
+        student.remat = remat
+        loss = _one_step(student, teacher, x, y, DEVICE)
+        out.append((loss, _state_tensors(student)))
+    (l0, s0), (l1, s1) = out
+    rel = abs(l1 - l0) / abs(l0)
+    equal = all(torch.equal(s0[k], s1[k]) for k in s0)
+    record = dict(batch=REMAT_CHECK_BATCH, loss_off=l0, loss_on=l1,
+                  loss_rel_err=rel, state_equal=equal, state_tensors=len(s0))
+    print(f'remat on vs off: {record}', flush=True)
+    if not (rel <= REMAT_LOSS_REL and equal):
+        raise AssertionError(f'remat changes the step: {record}')
+    return record
+
+
+def train_phase(name: str, seed: int) -> tuple[dict, Any]:
+    """One train configuration at TRAIN_BATCH: TRAIN_WARMUP steps, then
+    TRAIN_STEPS through make_train_step and train_epoch on one fixed
+    seeded batch, timed with CUDA events at each part of the step. The
+    loss must be finite at every step and fall from the first step to
+    the last, and the timed steps launch the stem pool kernel once a
+    step (the teacher's) and no other kernel. Returns (record, the train
+    state)."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch import train as T
+
+    recipe, x_quant, w_quant, options, teacher_dtype = (
+        train_profile.CONFIGS[name])
+    student, teacher = (m.to(DEVICE) for m in _train_models(name, seed))
+    x, y = _train_data(TRAIN_BATCH, seed)
+    batch = (torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE))
+    marks: list = []
+    step = train_profile.make_step(teacher, lambda part: marks.append(
+        (part, cuda_event())))
+    state = train_profile.make_state(student)
+    T.train_epoch(step, state, [batch] * TRAIN_WARMUP, epoch=1)
+    torch.cuda.synchronize()
+    marks.clear()
+    sums: list = []
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _ = T.train_epoch(
+        step, state, [batch] * TRAIN_STEPS, epoch=2, hooks=[
+            lambda metrics, **kw: sums.append(
+                metrics['train'].state['loss_sum'].clone())],
+        lr_schedule=state.tx.schedule,
+        steps_per_epoch=train_profile.STEPS_PER_EPOCH)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    cum = [float(v) for v in sums]
+    losses = [(b - a) / TRAIN_BATCH for a, b in zip([0.0] + cum, cum)]
+    parts = ('forward', 'teacher', 'backward', 'optimizer')
+    split = {p: 0.0 for p in parts}
+    for (part, ev), (_, nxt) in zip(marks, marks[1:]):
+        if part in split:
+            split[part] += ev.elapsed_time(nxt) / TRAIN_STEPS
+    starts = [ev for part, ev in marks if part == 'forward']
+    ends = [ev for part, ev in marks if part == 'end']
+    ms = starts[0].elapsed_time(ends[-1]) / TRAIN_STEPS
+    record = dict(
+        name=name, recipe=recipe, x_quant=x_quant, w_quant=w_quant,
+        teacher_dtype=teacher_dtype, batch=TRAIN_BATCH,
+        input=list(TRAIN_MODELS[2]), steps=TRAIN_STEPS,
+        warmup=TRAIN_WARMUP, ms_per_step=ms,
+        images_per_s=TRAIN_BATCH / ms * 1e3, split_ms=split,
+        max_memory_allocated=peak, losses=losses, wall_s=wall_s,
+        launches=launches, **options)
+    print(json.dumps({'train_phase': record}), flush=True)
+    # The teacher's forward records no gradient, so its stem pool is the
+    # kernel; the student's differentiable pool is not.
+    if launches != {'max_pool_3x3_s2_p1': TRAIN_STEPS}:
+        raise AssertionError(f'{name}: launches {launches}')
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f'{name}: losses {losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'{name}: the loss did not fall: {losses}')
+    return record, state
+
+
+def eval_step_check(state: Any, seed: int) -> dict:
+    """evaluate on TRAIN_EVAL_BATCHES seeded batches with the launch
+    counts zeroed just before: the dense eval forward launches the stem
+    pool kernel once a batch and no other kernel."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch import train as T
+
+    x, y = _train_data(TRAIN_BATCH, seed)
+    loader = [(x, y)] * TRAIN_EVAL_BATCHES
+    step = T.make_eval_step(T.get_loss_fn('cross_entropy'))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    metrics = T.evaluate(step, state, loader)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {'max_pool_3x3_s2_p1': TRAIN_EVAL_BATCHES}
+    if launches != want or not np.isfinite(metrics['Loss']):
+        raise AssertionError(f'eval step: launches {launches}, expected '
+                             f'{want}; metrics {metrics}')
+    return dict(batches=TRAIN_EVAL_BATCHES, batch=TRAIN_BATCH,
+                metrics=metrics, launches=launches)
+
+
+def serve_trained(model: torch.nn.Module, seed: int) -> dict:
+    """The trained student calibrated (calibrate_ema_scales on
+    CALIBRATION_BATCHES seeded batches), packed, folded, stripped and
+    served through InferenceEngine with a bf16 chain: the packed float32
+    chain within TRAIN_SERVE_REL_TOL and the served bf16 logits within
+    TRAIN_SERVE_BF16_REL_TOL of the logit spread of the calibrated twin's
+    dense float32 eval forward, and each packed forward launching
+    xnor_conv2d and pack_sign_planes once a QuantConv2d and the stem
+    pool once."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.nn import export
+    from quant_tpu_torch.nn.layers import QuantConv2d
+    from quant_tpu_torch.serving.engine import InferenceEngine
+
+    hwc = TRAIN_MODELS[2]
+    gen = torch.Generator().manual_seed(seed)
+    batches = [torch.randn((CALIBRATION_BATCH,) + hwc, generator=gen)
+               .to(DEVICE) for _ in range(CALIBRATION_BATCHES)]
+    twin = export.calibrate_ema_scales(model, batches)
+    x = np.random.default_rng(seed).standard_normal(
+        (TRAIN_SERVE_BATCH,) + hwc, dtype=np.float32)
+    served = copy.deepcopy(twin)
+    for m in served.modules():
+        if hasattr(m, 'inference_mode'):
+            m.inference_mode = 'packed'
+    export.export_packed_variables(served)
+    if not export.fold_for_serving(served)[1]:
+        raise AssertionError('the calibrated student did not fold')
+    export.strip_for_deployment(served)
+    with tf32(False):
+        want = twin(torch.from_numpy(x).to(DEVICE)).cpu().numpy()
+        got32 = served(torch.from_numpy(x).to(DEVICE)).cpu().numpy()
+    served.eval_dtype = torch.bfloat16
+    n_convs = sum(isinstance(m, QuantConv2d) for m in served.modules())
+    engine = InferenceEngine(served, hwc, max_batch=TRAIN_SERVE_BATCH,
+                             device=DEVICE)
+    engine.warmup([TRAIN_SERVE_BATCH])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = engine.predict(x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    expect = dict(xnor_conv2d=n_convs, pack_sign_planes=n_convs,
+                  max_pool_3x3_s2_p1=1)
+    spread = float(want.max() - want.min())
+    err = float(np.abs(got - want).max())
+    err32 = float(np.abs(got32 - want).max())
+    record = dict(calibration_batches=CALIBRATION_BATCHES,
+                  calibration_batch=CALIBRATION_BATCH,
+                  batch=TRAIN_SERVE_BATCH, spread=spread,
+                  bf16_max_abs_err=err, bf16_rel_err=err / spread,
+                  fp32_max_abs_err=err32, fp32_rel_err=err32 / spread,
+                  limit=TRAIN_SERVE_REL_TOL,
+                  bf16_limit=TRAIN_SERVE_BF16_REL_TOL, launches=launches)
+    print(f'trained student served: {record}', flush=True)
+    if launches != expect:
+        raise AssertionError(f'served student: launches {launches}, '
+                             f'expected {expect}')
+    if not (np.isfinite(got).all()
+            and err <= TRAIN_SERVE_BF16_REL_TOL * spread
+            and err32 <= TRAIN_SERVE_REL_TOL * spread):
+        raise AssertionError(f'served student past its limit: {record}')
+    return record
+
+
+def train_phases(seed: int) -> dict:
+    """The train phase: the card-vs-CPU step, the remat check, the three
+    configurations, the eval step and the trained student served."""
+    t0 = time.perf_counter()
+    out = dict(against_cpu=train_against_cpu(seed),
+               remat=remat_check(seed), configs=[])
+    trained = None
+    for i, name in enumerate(TRAIN_CONFIGS):
+        record, state = train_phase(name, seed + i)
+        out['configs'].append(record)
+        if i == 0:
+            trained = state
+        else:
+            del state
+    out['eval'] = eval_step_check(trained, seed)
+    print(f'eval step: {out["eval"]}', flush=True)
+    out['serve'] = serve_trained(trained.model, seed)
+    out['s'] = time.perf_counter() - t0
+    return out
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
@@ -1684,6 +2034,9 @@ def main(argv: Optional[list[str]] = None) -> int:
         print(f'recipe {build} calibrated: {recipes[-1]}', flush=True)
     recipes_s = time.perf_counter() - t0
 
+    train = train_phases(args.seed)
+    print(f'train phase: {train["s"]:.1f} s', flush=True)
+
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
     probe_s = time.perf_counter() - t0
@@ -1731,6 +2084,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            serving_stack=stack,
                            model_phases=phases, model_phases_s=phases_s,
                            recipes=recipes, recipes_s=recipes_s,
+                           train=train,
                            probes=records, probe_s=probe_s,
                            build_resources=resources,
                            torch=torch.__version__,

@@ -4,12 +4,15 @@ quant_tpu/nn/export.py).
 The JAX functions map variable trees to variable trees; here the state
 lives in the modules, so each function updates a QResNet or QLeNet5 in
 place and returns it. `packed_params_tree` reads the result back in the
-JAX tree's shape.
+JAX tree's shape. Each function puts the model in eval mode (a model in
+train mode would solve, track and normalize on the batch) and records
+no gradient.
 """
 
 import copy
+import functools
 import logging
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -24,6 +27,16 @@ PACKED_LEAVES = ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va',
                  'b_fold')
 
 
+def _in_eval(fn: Callable) -> Callable:
+    """Run fn(model, ...) with the model in eval mode, under no_grad."""
+    @functools.wraps(fn)
+    def run(model: torch.nn.Module, *args, **kwargs):
+        model.eval()
+        with torch.no_grad():
+            return fn(model, *args, **kwargs)
+    return run
+
+
 def _quant_convs(model: torch.nn.Module) -> list[tuple[str, QuantConv2d]]:
     return [(name, m) for name, m in model.named_modules()
             if isinstance(m, QuantConv2d)]
@@ -35,6 +48,7 @@ def _require_packed(model: torch.nn.Module, what: str) -> None:
                          'export_packed_variables first.')
 
 
+@_in_eval
 def export_packed_variables(model: torch.nn.Module) -> torch.nn.Module:
     """Pack the sign words of every conv that serves packed (binary
     weights) once; `w_scales` are the cached weight scales (quant_state
@@ -45,6 +59,7 @@ def export_packed_variables(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
+@_in_eval
 def fold_bn_into_packed(model: torch.nn.Module,
                         eps: float = 1e-5) -> torch.nn.Module:
     """Fold each eval BN that follows a packed conv into the conv's
@@ -74,7 +89,7 @@ def _eval_only_twin(model: torch.nn.Module) -> torch.nn.Module:
     """A copy of the model with moving_average_mode 'eval_only' (JAX's
     model.clone(moving_average_mode='eval_only')): every state carried
     over, EMA state created (zero, untracked) where the model had none."""
-    twin = copy.deepcopy(model)
+    twin = copy.deepcopy(model).eval()
     dev = next(twin.parameters()).device
     for m in twin.modules():
         if hasattr(m, 'moving_average_mode'):
@@ -99,13 +114,14 @@ def calibrate_ema_scales(model: torch.nn.Module,
     mode, blending each batch's solved scales into the EMA.
 
     Args:
-        model: a QResNet or QLeNet5 (any moving_average_mode); unchanged.
+        model: a QResNet or QLeNet5 (any moving_average_mode, either
+            mode); unchanged.
         batches: iterable of NHWC input batches (tensors or arrays).
 
     Returns:
-        the 'eval_only' twin carrying the calibrated EMA scales, its
-        quantizers out of observer mode; fold_for_serving folds it as any
-        EMA model.
+        the 'eval_only' twin in eval mode carrying the calibrated EMA
+        scales, its quantizers out of observer mode; fold_for_serving
+        folds it as any EMA model.
     """
     twin = _eval_only_twin(model)
     dev = next(twin.parameters()).device
@@ -148,6 +164,7 @@ def _clamp_box_check(label: str, scheme: str, clamp: dict,
             'clamp box; serve unfolded.')
 
 
+@_in_eval
 def fold_xnor_thresholds(model: torch.nn.Module,
                          eps: float = 1e-5) -> torch.nn.Module:
     """Fold each pre-conv BN + clamp + sign extraction into per-channel
@@ -232,6 +249,7 @@ def fold_for_serving(model: torch.nn.Module
     return model, True
 
 
+@_in_eval
 def strip_for_deployment(model: torch.nn.Module) -> torch.nn.Module:
     """Drop what serving never reads: the fp kernels and cached weight
     scales of every packed conv. The model then serves from the packed

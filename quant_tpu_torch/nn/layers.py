@@ -1,18 +1,37 @@
-"""Eval-form layers (port of quant_tpu/nn/layers.py:87-564, eval only).
+"""Layers of the port in eval and train form (port of
+quant_tpu/nn/layers.py:87-564).
 
 Modules keep the JAX layouts (HWIO kernels, (in, out) dense kernels,
 NHWC activations) and the JAX tree's leaf names where PyTorch has no
 idiom of its own, so `utils.jax_import.from_jax_variables` maps one
-exported variable tree onto them. Everything here is inference: the
-weight quantizers read cached scales, the activation quantizers EMA
-scales or the batch's own solve ('off'), and, in observer mode
-(`calibrate`), blend each batch's solve into the EMA; QuantConv2d runs
-the packed serving conv or the dense eval conv. Training (quantizers in
-train mode, BN statistics, the STE, train_dtype) is not ported yet.
+variable tree onto them. Parameters are trainable (`requires_grad`);
+state (BN statistics, cached weight scales `w_vs`, EMA activation
+scales) lives in buffers.
+
+Every module here is built in eval mode, and so is every model, so a
+module serves as built; `model.train()` switches to the train forms,
+JAX's `train=True`:
+
+- QuantConv2d runs the dense QAT conv whatever `inference_mode` says,
+  solves its weight scales on every forward and caches them in `w_vs`
+  (eval reads the cache), and casts the quantized operands, bias and
+  output to the chain's `train_dtype` when one is set (the solves stay
+  float32);
+- ActivationQuantizer solves each batch's scales and, in an EMA mode,
+  blends their batch mean into `ema` (with 'train_and_eval' it then
+  quantizes with the blended scales);
+- BatchNorm normalizes with the batch's statistics as flax computes them
+  and updates its running statistics.
+
+Values reach the gradient through the straight-through `binarize` and
+the clamps' JAX gradients. Train forwards write state in place, so
+`state_unchanged` can keep a module's state as it was (a frozen
+teacher in train mode, the recomputation of a rematerialized block).
 """
 
 import math
-from typing import Any, Callable, Optional, Sequence, Union
+from contextlib import contextmanager
+from typing import Any, Callable, Iterator, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -45,16 +64,27 @@ def _uniform(shape: Sequence[int], fan_in: int,
     return t.uniform_(-bound, bound, generator=generator)
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+@contextmanager
+def state_unchanged(module: nn.Module) -> Iterator[None]:
+    """Run the body and put every buffer of `module` back as it was: the
+    train forwards' state writes (BN statistics, w_vs, EMA) are undone,
+    as JAX throws away the state a non-mutable apply returns."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, value in saved:
+                b.copy_(value)
 
 
 class PReLU(nn.Module):
-    """PReLU with one shared slope; the slope is cast to x's dtype."""
+    """PReLU with one shared slope; the slope is cast to x's dtype. At
+    x = 0 the gradient is 1, as jnp.where's (F.prelu's is the slope)."""
 
     def __init__(self, negative_slope_init: float = 0.25):
         super().__init__()
-        self.negative_slope = _frozen(
+        self.negative_slope = nn.Parameter(
             torch.tensor(negative_slope_init, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,9 +105,9 @@ class Conv(nn.Module):
         kh, kw = _pair(kernel_size)
         fan_in = in_channels * kh * kw
         self.stride, self.padding, self.s2d = stride, padding, s2d
-        self.kernel = _frozen(_uniform((kh, kw, in_channels, features),
-                                       fan_in, generator))
-        self.bias = (_frozen(_uniform((features,), fan_in, generator))
+        self.kernel = nn.Parameter(_uniform(
+            (kh, kw, in_channels, features), fan_in, generator))
+        self.bias = (nn.Parameter(_uniform((features,), fan_in, generator))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor,
@@ -102,9 +132,10 @@ class Dense(nn.Module):
                  use_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.kernel = _frozen(_uniform((in_features, features), in_features,
-                                       generator))
-        self.bias = (_frozen(_uniform((features,), in_features, generator))
+        self.kernel = nn.Parameter(_uniform((in_features, features),
+                                            in_features, generator))
+        self.bias = (nn.Parameter(_uniform((features,), in_features,
+                                           generator))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor,
@@ -119,13 +150,21 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm as flax computes it: (x - mean) * (rsqrt(var + eps)
-    * weight) + bias in float32, rounded once to `dtype`. Affine-free
+    """BatchNorm as flax computes it, with torch's conventions (momentum
+    is the new statistics' weight, 0.1; eps 1e-5). Affine-free
     (`affine=False`, LeNet-5's) has no weight and no bias.
 
-    eps 1e-5 as the JAX BatchNorm; its training-time running-stat update
-    (torch momentum convention) comes with train mode.
+    Eval: (x - mean) * (rsqrt(var + eps) * weight) + bias in float32 on
+    the running statistics, rounded once to `dtype`. Train (flax 0.12
+    normalization.py:60-142): the batch's mean and fast variance
+    max(0, E[x^2] - E[x]^2) over N, H, W, reduced in at least float32
+    whatever x's dtype, normalize the same way, and the running
+    statistics become 0.9 * old + 0.1 * batch (the biased batch
+    variance, where F.batch_norm would update with the unbiased one);
+    the output is `dtype`, else x's dtype promoted with the affine's.
     """
+
+    momentum = 0.1  # the new statistics' weight (JAX passes 1 - 0.1)
 
     def __init__(self, num_features: int, epsilon: float = 1e-5,
                  affine: bool = True):
@@ -133,10 +172,11 @@ class BatchNorm(nn.Module):
         self.epsilon = epsilon
         ones = torch.ones(num_features, dtype=torch.float32)
         zeros = torch.zeros(num_features, dtype=torch.float32)
-        self.weight = _frozen(ones.clone()) if affine else None
-        self.bias = _frozen(zeros.clone()) if affine else None
+        self.weight = nn.Parameter(ones.clone()) if affine else None
+        self.bias = nn.Parameter(zeros.clone()) if affine else None
         self.register_buffer('running_mean', zeros.clone())
         self.register_buffer('running_var', ones.clone())
+        self.eval()
 
     def scale(self, eps: float) -> torch.Tensor:
         """The eval affine's a = gamma / sqrt(var + eps), as the export
@@ -150,29 +190,59 @@ class BatchNorm(nn.Module):
         var = self.running_var + eps
         return g / torch.sqrt(var.double()).to(var.dtype)
 
-    def forward(self, x: torch.Tensor,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.epsilon)
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(var + self.epsilon)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x.to(torch.float32) - self.running_mean) * mul
+        y = (x.to(torch.promote_types(x.dtype, torch.float32)) - mean) * mul
         if self.bias is not None:
             y = y + self.bias
+        return y
+
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if self.training:
+            return self._train(x, dtype)
+        y = self._normalize(x, self.running_mean, self.running_var)
         return y.to(dtype or torch.promote_types(x.dtype, torch.float32))
+
+    def _train(self, x: torch.Tensor,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = tuple(range(x.ndim - 1))
+        mean = xs.mean(dim=axes)
+        mean2 = (xs * xs).mean(dim=axes)
+        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+        keep = 1.0 - self.momentum  # flax's momentum
+        with torch.no_grad():
+            self.running_mean.copy_(keep * self.running_mean
+                                    + (1 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + (1 - keep) * var)
+        y = self._normalize(x, mean, var)
+        if dtype is None:
+            dtype = (torch.promote_types(x.dtype, self.weight.dtype)
+                     if self.weight is not None else x.dtype)
+        return y.to(dtype)
 
 
 class ActivationQuantizer(nn.Module):
-    """Per-sample activation scales in eval (quant_tpu/nn/layers.py:
-    123-218, eval branches): the EMA broadcast over the batch when an EMA
-    mode tracks one, else the batch's own solve (ls-2 and ls-T by opt_v1
-    over every `skip`-th element, `solver_mode`). fp has no scales and no
-    state.
+    """Per-sample activation scales (quant_tpu/nn/layers.py:123-218).
+    fp has no scales and no state.
 
-    With `calibrate` (the observer pass of nn.export.calibrate_ema_scales)
-    each forward also solves the batch's scales and blends their batch
-    mean into `ema`: the first batch copies, later ones take momentum*old
-    + (1-momentum)*new, and `ema_count` counts them. It then returns the
-    blended scales, so later layers see what EMA serving will feed them.
+    Eval: the EMA broadcast over the batch when an EMA mode tracks one,
+    else the batch's own solve (ls-2 and ls-T by opt_v1 over every
+    `skip`-th element, `solver_mode`). With `calibrate` (the observer
+    pass of nn.export.calibrate_ema_scales) each forward also solves the
+    batch's scales and blends their batch mean into `ema`, then returns
+    the blended scales, so later layers see what EMA serving will feed
+    them.
+
+    Train: the batch's own solve. An EMA mode blends its batch mean into
+    `ema` ('eval_only'), and 'train_and_eval' returns the blended scales
+    instead. A blend copies the first batch's scales and later takes
+    momentum*old + (1-momentum)*new; `ema_count` counts the batches.
     """
 
     def __init__(self, scheme: str, moving_average_mode: str = 'off',
@@ -195,40 +265,57 @@ class ActivationQuantizer(nn.Module):
         self.register_buffer(
             'ema_count',
             torch.zeros((), dtype=torch.int32) if use_ema else None)
+        self.eval()
 
     def solve(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The (k, N) scales this batch solves to (None for fp)."""
         return solve_scales(self.scheme, x, self.skip, self.solver_mode)
 
+    def _track(self, batch_vs: torch.Tensor) -> torch.Tensor:
+        """Blend the batch mean of batch_vs into the EMA; the blend."""
+        new = batch_vs.mean(dim=1)
+        m = self.moving_average_momentum
+        blended = torch.where(self.ema_count > 0,
+                              m * self.ema + (1.0 - m) * new, new)
+        with torch.no_grad():
+            self.ema.copy_(blended)
+            self.ema_count.add_(1)
+        return blended
+
     def forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """(k, N) scales for x (N leading); None for fp."""
         if self.scheme == 'fp':
             return None
+        k, n = scheme_num_scales(self.scheme), x.shape[0]
+        if self.training:
+            batch_vs = self.solve(x)
+            if self.ema is None:
+                return batch_vs
+            blended = self._track(batch_vs)
+            if self.moving_average_mode == 'train_and_eval':
+                return blended[:, None].expand(k, n)
+            return batch_vs
         if self.calibrate:
             if self.ema is None:
                 raise ValueError(
                     "calibrate=True needs an EMA moving_average_mode "
                     "('eval_only'/'train_and_eval') so there is EMA "
                     'state to calibrate.')
-            new = self.solve(x).mean(dim=1)
-            m = self.moving_average_momentum
-            blended = torch.where(self.ema_count > 0,
-                                  m * self.ema + (1.0 - m) * new, new)
-            self.ema.copy_(blended)
-            self.ema_count.add_(1)
+            self._track(self.solve(x))
         if self.ema is not None:
-            return self.ema[:, None].expand(self.ema.shape[0], x.shape[0])
+            return self.ema[:, None].expand(k, n)
         return self.solve(x)
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
-        """x_q = sum_i v_i * b_i with this batch's scales (x for fp)."""
+        """x_q = sum_i v_i * b_i with this batch's scales (x for fp),
+        differentiable through the straight-through binarize."""
         return quantize_with_scheme(self.scheme, x, self(x))[1]
 
 
 class QuantConv2d(nn.Module):
-    """Quantized conv in eval: conv(w_quant(w), x_quant(clamp(x))).
+    """Quantized conv: conv(w_quant(w), x_quant(clamp(x))) + bias.
 
-    inference_mode 'packed' (with a binary w_quant) serves the packed
+    Eval: inference_mode 'packed' (with a binary w_quant) serves the packed
     conv of ops.binary_infer: weights from the exported `w_packed` /
     `w_scales` buffers or, before export, from the fp kernel and its
     cached scales `w_vs` ((k, O), the JAX tree's quant_state
@@ -244,6 +331,14 @@ class QuantConv2d(nn.Module):
 
     inference_mode 'dense' (and an fp w_quant) runs the conv of the
     quantized tensors in float32, as JAX's eval forward does.
+
+    Train (layers.py:544-564), whatever inference_mode says: the weight
+    scales are solved (`solver_mode`, every 3rd element) and cached in
+    `w_vs`, the activations quantized with the train form of the
+    activation quantizer, and both quantized tensors convolved. The
+    forward's `out_dtype` is the chain's train_dtype: when set, the
+    quantized operands and the bias are cast to it and the conv's output
+    stays in it; else the conv runs in float32.
 
     `solver_mode` and `calibrate` reach the activation quantizer; its
     solves take every 3rd element of a row, as JAX's quantizers.
@@ -275,9 +370,10 @@ class QuantConv2d(nn.Module):
         self.moving_average_mode = moving_average_mode
         self.inference_mode = inference_mode
         self.pass_fusion, self.sign_compute = pass_fusion, sign_compute
-        self.kernel = _frozen(_uniform((kh, kw, in_channels, features),
-                                       fan_in, generator))
-        self.bias = (_frozen(_uniform((features,), fan_in, generator))
+        self.solver_mode = solver_mode
+        self.kernel = nn.Parameter(_uniform(
+            (kh, kw, in_channels, features), fan_in, generator))
+        self.bias = (nn.Parameter(_uniform((features,), fan_in, generator))
                      if use_bias else None)
         k_w = scheme_num_scales(w_quant)
         self.register_buffer(
@@ -289,6 +385,7 @@ class QuantConv2d(nn.Module):
         for name in ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va',
                      'b_fold'):
             self.register_buffer(name, None)
+        self.eval()
 
     def clamp_fn(self) -> Callable:
         return get_clamp_fn(**self.clamp)
@@ -329,6 +426,23 @@ class QuantConv2d(nn.Module):
         return conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
                       bias=self.bias).to(torch.float32)
 
+    def _train(self, x: torch.Tensor,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+        w_oi = self._w_oi()
+        x_q = self.x_quantizer.quantize(self.clamp_fn()(x))
+        if self.w_quant != 'fp':
+            w_vs, w_oi = quantize_with_scheme(self.w_quant, w_oi, None,
+                                              mode=self.solver_mode)
+            with torch.no_grad():
+                self.w_vs.copy_(w_vs)
+        w_q, bias = torch.movedim(w_oi, 0, -1), self.bias
+        if dtype is not None:
+            bias = bias.to(dtype) if bias is not None else None
+            return conv2d(x_q.to(dtype), w_q.to(dtype), stride=self.stride,
+                          padding=self.padding, bias=bias)
+        return conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
+                      bias=bias).to(torch.float32)
+
     def _sign_compute(self) -> str:
         if self.sign_compute != 'auto':
             return self.sign_compute
@@ -340,6 +454,8 @@ class QuantConv2d(nn.Module):
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 bn_folded: bool = False) -> torch.Tensor:
+        if self.training:
+            return self._train(x, out_dtype)
         if not self.packed:
             return self._dense(x)
         has_fold = self.b_fold is not None

@@ -1,4 +1,4 @@
-"""QLeNet5 in eval form (port of quant_tpu/nn/lenet.py).
+"""QLeNet5 in eval and train form (port of quant_tpu/nn/lenet.py).
 
 fp conv1 (5x5) -> relu -> BN(affine-free, eps 1e-4) -> 2x2 max pool ->
 BN -> quantized conv2 (5x5) -> relu -> 2x2 max pool -> NHWC flatten ->
@@ -6,7 +6,10 @@ fp fc1 -> relu -> fp fc2 -> log_softmax. Module names match the JAX
 tree (conv1, bn_conv1, bn_conv2, conv2, fc1, fc2). The 2x2 pools stay
 PyTorch ops: JAX runs them with reduce_window, outside any Pallas
 kernel. With `bn_fold`, bn_conv2 lives in conv2's thresholds
-(nn.export.fold_xnor_thresholds).
+(nn.export.fold_xnor_thresholds). Built in eval mode; after
+`train()` the forward is JAX's train=True apply (BN on batch
+statistics, the dense QAT conv2, the chain in `train_dtype`), whose
+log-probabilities feed the MNIST recipes' nll_loss.
 """
 
 from typing import Any, Optional
@@ -38,7 +41,8 @@ class QLeNet5(nn.Module):
                  inference_mode: str = 'packed',
                  eval_dtype: DtypeLike = None, pass_fusion: bool = True,
                  sign_compute: str = 'auto', bn_fold: bool = False,
-                 in_channels: int = 1, device: DeviceLike = 'cuda',
+                 in_channels: int = 1, train_dtype: DtypeLike = None,
+                 device: DeviceLike = 'cuda',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
@@ -46,6 +50,7 @@ class QLeNet5(nn.Module):
         self.moving_average_mode = moving_average_mode
         self.inference_mode = inference_mode
         self.eval_dtype = as_dtype(eval_dtype)
+        self.train_dtype = as_dtype(train_dtype)
         self.bn_fold = bn_fold
         self.conv1 = Conv(in_channels, conv1_filters, 5, generator=generator)
         self.bn_conv1 = BatchNorm(conv1_filters, _BN_EPS, affine=False)
@@ -63,6 +68,7 @@ class QLeNet5(nn.Module):
         self.fc2 = Dense(conv2_filters * output_classes, output_classes,
                          generator=generator)
         self.to(dev)
+        self.eval()
 
     def fold_pairs(self) -> list[tuple[str, QuantConv2d, BatchNorm]]:
         """The (name, conv, BN before it) the threshold fold takes."""
@@ -72,13 +78,18 @@ class QLeNet5(nn.Module):
         return (self.bn_fold and self.inference_mode == 'packed'
                 and self.w_quant != 'fp' and self.x_quant != 'fp')
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC images (N, 28, 28, 1) -> float32 log-probabilities."""
-        dt = self.eval_dtype
+        """NHWC images (N, 28, 28, 1) -> float32 log-probabilities (eval
+        under torch.no_grad)."""
+        if self.training:
+            return self._forward(x, self.train_dtype, False)
+        with torch.no_grad():
+            return self._forward(x, self.eval_dtype, self._fold())
+
+    def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
+                 fold: bool) -> torch.Tensor:
         if dt is not None:
             x = x.to(dt)
-        fold = self._fold()
         x = self.bn_conv1(torch.relu(self.conv1(x, dt)))
         x = max_pool2d(x, kernel_size=2, stride=2)
         if not fold:

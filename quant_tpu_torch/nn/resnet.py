@@ -1,22 +1,29 @@
-"""QResNet and its four block families in eval form (port of
-quant_tpu/nn/resnet.py): the regular (conv->BN) and XNOR (BN->conv)
-orderings, each as basic and bottleneck blocks.
+"""QResNet and its four block families (port of quant_tpu/nn/resnet.py):
+the regular (conv->BN) and XNOR (BN->conv) orderings, each as basic and
+bottleneck blocks, in eval and train form.
 
 Module names match the JAX variable tree (conv1, bn1, layer{s}_block{b},
 fc; inside a block bn1, conv1, nonlin1, ..., conv3, bn3, nonlin3,
 shortcut). With `bn_fold` the blocks skip the BNs that an export fold
 put into their convs: the epilogue's (`b_fold`, regular families) or
 the thresholds (`x_thresh`, XNOR families).
+
+Models are built in eval mode; `model.train()` runs the train forward
+(nn.layers: batch statistics, solved and cached scales, the dense QAT
+convs), with the chain in `train_dtype` and, with `remat`, each block
+recomputed in the backward pass.
 """
 
 from typing import Any, Iterator, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from quant_tpu_torch.device import DeviceLike, resolve_device
 from quant_tpu_torch.nn.layers import (
     BatchNorm, Conv, Dense, DtypeLike, PReLU, QuantConv2d, as_dtype,
+    state_unchanged,
 )
 from quant_tpu_torch.ops.conv import global_avg_pool, max_pool2d
 from quant_tpu_torch.ops.pool import max_pool_3x3_s2_p1, pool_fusable
@@ -45,6 +52,7 @@ class _Shortcut(nn.Module):
             self.conv = Conv(in_planes, planes, 1, stride=stride,
                              use_bias=use_bias, generator=generator)
             self.norm = BatchNorm(planes)
+        self.eval()
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -76,9 +84,11 @@ class _Block(nn.Module):
                           inference_mode=inference_mode,
                           pass_fusion=pass_fusion, sign_compute=sign_compute,
                           use_bias=use_bias, generator=generator)
+        self.eval()
 
     def _fold(self, bn_fold: bool) -> bool:
-        return (bn_fold and self.inference_mode == 'packed'
+        return (bn_fold and not self.training
+                and self.inference_mode == 'packed'
                 and self.w_quant != 'fp'
                 and not (self.xnor and self.x_quant == 'fp'))
 
@@ -271,6 +281,29 @@ class XnorBottleneckBlock(_Block):
         return self.nonlin3(out + self.shortcut(x, dtype))
 
 
+def remat_block(block: nn.Module, x: torch.Tensor,
+                dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """block(x, dtype) under torch.utils.checkpoint, JAX's nn.remat: the
+    backward pass recomputes the block's activations instead of keeping
+    them. The recomputation starts from the state the forward saw and
+    leaves the state the forward wrote (BN statistics, w_vs, EMA are
+    written once, and 'train_and_eval' re-blends from the same EMA)."""
+    before = [(b, b.clone()) for b in block.buffers()]
+    ran = []
+
+    def run(inp: torch.Tensor) -> torch.Tensor:
+        if not ran:
+            ran.append(True)
+            return block(inp, dtype)
+        with state_unchanged(block):
+            with torch.no_grad():
+                for b, value in before:
+                    b.copy_(value)
+            return block(inp, dtype)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 BLOCKS = {
     'regular': RegularBasicBlock,
     'xnor': XnorBasicBlock,
@@ -280,7 +313,7 @@ BLOCKS = {
 
 
 class QResNet(nn.Module):
-    """ResNet with per-stage quantization config, in eval form.
+    """ResNet with per-stage quantization config.
 
     Arguments mirror the JAX QResNet (layer0 configures the fp stem,
     layer1..layer4 carry {x_quant, w_quant, clamp, double_shortcut?}),
@@ -299,6 +332,16 @@ class QResNet(nn.Module):
     drawn from `generator`, or come from a JAX tree via
     utils.jax_import.from_jax_variables.
 
+    Built in eval mode. After `train()` a forward is JAX's train=True
+    apply: every conv dense (inference_mode and bn_fold do not apply),
+    the chain in `train_dtype` (e.g. torch.bfloat16: stem, BNs' outputs,
+    nonlins, shortcuts, quantized operands, head; the solves and BN
+    reductions stay float32, the logits are float32), the stem pool
+    differentiable (ops.conv.max_pool2d; the pool kernel, which has no
+    backward, serves where no gradient is recorded), and with `remat`
+    each block under torch.utils.checkpoint (`remat_block`). State
+    (BN statistics, w_vs, EMA) is written once a forward.
+
     Builds on `device` ('cuda' by default; raises if CUDA is missing).
     """
 
@@ -312,6 +355,7 @@ class QResNet(nn.Module):
                  eval_dtype: DtypeLike = None, pass_fusion: bool = True,
                  sign_compute: str = 'auto', bn_fold: bool = False,
                  stem_s2d: bool = False, in_channels: int = 3,
+                 train_dtype: DtypeLike = None, remat: bool = False,
                  device: DeviceLike = 'cuda',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -322,6 +366,8 @@ class QResNet(nn.Module):
         self.block = block
         self.moving_average_mode = moving_average_mode
         self.eval_dtype = as_dtype(eval_dtype)
+        self.train_dtype = as_dtype(train_dtype)
+        self.remat = remat
         self.bn_fold = bn_fold
         self.maxpool = dict(layer0['maxpool'])
         if self.maxpool['type'] not in ('maxpool2d', 'identity'):
@@ -360,27 +406,35 @@ class QResNet(nn.Module):
                 in_planes = planes * expansion
         self.fc = Dense(in_planes, output_classes, generator=generator)
         self.to(dev)
+        self.eval()
 
     def blocks(self) -> Iterator[tuple[str, _Block]]:
         for name in self.block_names:
             yield name, getattr(self, name)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC images -> float32 logits."""
-        dt = self.eval_dtype
+        """NHWC images -> float32 logits (eval under torch.no_grad)."""
+        if self.training:
+            return self._forward(x, self.train_dtype, False)
+        with torch.no_grad():
+            return self._forward(x, self.eval_dtype, self.bn_fold)
+
+    def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
+                 bn_fold: bool) -> torch.Tensor:
         if dt is not None:
             x = x.to(dt)
         x = torch.relu(self.bn1(self.conv1(x, dt), dt))
         mp = self.maxpool
+        grad = torch.is_grad_enabled()
         if mp['type'] == 'maxpool2d':
             if pool_fusable(tuple(x.shape), mp['kernel_size'], mp['stride'],
-                            mp['padding']):
+                            mp['padding']) and not (grad and x.requires_grad):
                 x = max_pool_3x3_s2_p1(x.contiguous())
             else:
                 x = max_pool2d(x, kernel_size=mp['kernel_size'],
                                stride=mp['stride'], padding=mp['padding'])
+        remat = self.remat and self.training and grad
         for _, blk in self.blocks():
-            x = blk(x, dt, self.bn_fold)
+            x = remat_block(blk, x, dt) if remat else blk(x, dt, bn_fold)
         logits = self.fc(global_avg_pool(x), dt)
         return logits.to(torch.float32)

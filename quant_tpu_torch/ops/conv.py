@@ -3,6 +3,11 @@
 Port of quant_tpu/ops/conv.py:24-122. The JAX package left these
 to XLA; here they are PyTorch ops (F.conv2d / F.max_pool2d) over NCHW
 views of NHWC tensors, so the callers keep the reference's layouts.
+All of them are differentiable: `max_pool2d` routes a window's gradient
+to its first maximum in row-major order, as XLA's select_and_scatter
+does for reduce_window. A conv's output dtype is its operands' (JAX's
+callers pass preferred_element_type equal to it: float32, or the
+train_dtype of a bf16 chain, whose output stays bf16).
 """
 
 from typing import Optional, Sequence, Union

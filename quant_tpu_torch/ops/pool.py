@@ -4,7 +4,9 @@
 tensor and runs its plain twin, `ops.conv.max_pool2d`, for a CPU tensor.
 Both take the max over the same 9 values, with NaN propagated as
 lax.max does, so they agree exactly: equal values, NaN where the other
-has NaN (its payload may differ).
+has NaN (its payload may differ). The kernel has no backward: where
+autograd would record the pool, the wrapper raises, and train forwards
+take `ops.conv.max_pool2d` (JAX's train path is reduce_window too).
 """
 
 import ctypes
@@ -48,8 +50,13 @@ def vector_bytes(c: int, itemsize: int, *ptrs: int) -> int:
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
-    """3x3/stride-2/pad-1 max pool, NHWC, H and W even."""
+    """3x3/stride-2/pad-1 max pool, NHWC, H and W even. Raises where
+    autograd would need its gradient (the kernel has no backward)."""
     _build.require(x.ndim == 4, f'expected NHWC, got shape {x.shape}')
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError('max_pool_3x3_s2_p1 has no backward; a '
+                           'forward that needs the gradient takes '
+                           'ops.conv.max_pool2d')
     n, h, w, c = x.shape
     if h % 2 or w % 2:
         raise ValueError(f'fused pool needs even H, W; got {(h, w)}')

@@ -1,15 +1,17 @@
-"""Activation clamps, the scheme registry and the eval forms of the
-quantizers (port of quant_tpu/ops/quantize.py:37-156 and
-quant_tpu/nn/layers.py:34-66).
+"""Activation clamps, the scheme registry and the quantizers (port of
+quant_tpu/ops/quantize.py:37-156 and quant_tpu/nn/layers.py:34-66).
 
-Scales are solved in float32 over a row view (rows = out-channels for
-weights, samples for activations); x_q keeps x's dtype, each scale cast
-to it first. Each quantizer returns ((k, rows) scales, x_q) and solves
-its scales when none are given: ls-1 and gf-k by means, ls-2 and ls-T
-by the least-squares optimum `ops.optimal.opt_v1` over every `skip`-th
-element of a row (mode 'exact', 'reference' or 'lloyd'). `solve_scales`
-gives the scales alone, as JAX's jitted forwards compute them where x_q
-is dead.
+Scales are solved in float32 over a detached row view (rows =
+out-channels for weights, samples for activations), so no gradient
+reaches them; x_q keeps x's dtype, each scale cast to it first, and is
+differentiable in x through the straight-through `binarize` (gf-k's
+value recursion included: each pass binarizes x - result). Each
+quantizer returns ((k, rows) scales, x_q) and solves its scales when
+none are given: ls-1 and gf-k by means, ls-2 and ls-T by the
+least-squares optimum `ops.optimal.opt_v1` over every `skip`-th element
+of a row (mode 'exact', 'reference' or 'lloyd'). `solve_scales` gives
+the scales alone, as JAX's jitted forwards compute them where x_q is
+dead.
 """
 
 import re
@@ -19,7 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from quant_tpu_torch.ops.optimal import opt_v1
-from quant_tpu_torch.ops.ste import binary_sign
+from quant_tpu_torch.ops.ste import binarize, binary_sign
 
 _LS_SCALES = {'fp': 0, 'ls-1': 1, 'ls-2': 2, 'ls-T': 1}
 
@@ -30,8 +32,11 @@ def clamp_identity(x: torch.Tensor) -> torch.Tensor:
 
 
 def clamp_symmetric(x: torch.Tensor, alpha: float) -> torch.Tensor:
-    """Clamp x to [-alpha, +alpha]."""
-    return torch.clamp(x, -alpha, alpha)
+    """Clamp x to [-alpha, +alpha] as jnp.clip does: min(max(x, -alpha),
+    alpha), whose gradient is 0.5 at x = +-alpha (a tie of max or min
+    splits it), where torch.clamp's is 1."""
+    lo = torch.tensor(-alpha, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), -lo)
 
 
 def get_clamp_fn(kind: str = 'identity',
@@ -78,15 +83,15 @@ def quantizer_fp(x: torch.Tensor, vs: Optional[torch.Tensor] = None
 
 def quantizer_ls_1(x: torch.Tensor, v1: Optional[torch.Tensor] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """1-bit least-squares quantization, eval form.
+    """1-bit least-squares quantization.
 
     v1 is the per-row mean(|x|) in float32 when not supplied. Returns
-    ((1, rows) scales, v1 * sign(x)) with sign(0) = +1.
+    ((1, rows) scales, v1 * binarize(x)) with sign(0) = +1.
     """
     if v1 is None:
         v1 = _rows32(x).abs().mean(dim=-1)
     v1 = v1.reshape(-1)
-    return v1[None, :], _per_row(v1, x) * binary_sign(x)
+    return v1[None, :], _per_row(v1, x) * binarize(x)
 
 
 def _solve_ls_2(x: torch.Tensor, skip: int, mode: str) -> torch.Tensor:
@@ -109,9 +114,9 @@ def quantizer_ls_2(x: torch.Tensor, vs: Optional[torch.Tensor] = None,
     if vs is None:
         vs = _solve_ls_2(x, skip, mode)
     v1, v2 = vs[0].reshape(-1), vs[1].reshape(-1)
-    b1 = binary_sign(x)
+    b1 = binarize(x)
     v1b = _per_row(v1, x)
-    x_q = v1b * b1 + _per_row(v2, x) * binary_sign(x - v1b * b1)
+    x_q = v1b * b1 + _per_row(v2, x) * binarize(x - v1b * b1)
     return torch.stack([v1, v2]), x_q
 
 
@@ -123,9 +128,9 @@ def quantizer_ls_ternary(x: torch.Tensor, vs: Optional[torch.Tensor] = None,
     (opt_v1) unless vs gives (1, rows)."""
     v1 = (opt_v1(_rows32(x), ternary=True, skip=skip, mode=mode)
           if vs is None else vs[0].reshape(-1))
-    b1 = binary_sign(x)
+    b1 = binarize(x)
     v1b = _per_row(v1, x)
-    return v1[None, :], v1b * (b1 + binary_sign(x - v1b * b1))
+    return v1[None, :], v1b * (b1 + binarize(x - v1b * b1))
 
 
 def quantizer_gf(x: torch.Tensor, k: int, vs: Optional[torch.Tensor] = None
@@ -140,7 +145,7 @@ def quantizer_gf(x: torch.Tensor, k: int, vs: Optional[torch.Tensor] = None
     for i in range(k):
         v = vs[i].reshape(-1)
         saved.append(v)
-        result = result + _per_row(v, x) * binary_sign(x - result)
+        result = result + _per_row(v, x) * binarize(x - result)
     return torch.stack(saved), result
 
 

@@ -1,6 +1,8 @@
 """Seeded models for the probes, the smoke run and the tests.
 
-`bench_resnet18` ports the model builder of bench.py:59-77;
+`bench_resnet18` ports the model builder of bench.py:59-77 (the
+student of the ImageNet KD recipes, examples/imagenet/imagenet_ls1_kd.yaml);
+`imagenet_teacher` their teacher, examples/imagenet/imagenet_fp.yaml;
 `resnet50_cifar` the ResNet-50 of
 examples/cifar100/cifar100_resnet50_ls2_tpu.yaml and `lenet5` the
 LeNet-5 of examples/mnist/*.yaml. `seed_state` gives a built model the
@@ -46,6 +48,24 @@ def bench_resnet18(x_quant: str, w_quant: str, block: str = 'xnor',
                             'stride': 2, 'padding': 1}},
         layer1=dict(layer), layer2=dict(layer), layer3=dict(layer),
         layer4=dict(layer), nonlins=['prelu', 'prelu'],
+        num_blocks=[2, 2, 2, 2], output_classes=1000, **kwargs)
+
+
+def imagenet_teacher(x_quant: str = 'fp', w_quant: str = 'fp',
+                     **kwargs: Any) -> QResNet:
+    """The teacher of the ImageNet KD recipes (imagenet_fp.yaml):
+    ResNet-18, regular blocks, identity clamp, ReLU, 224 px, 1000
+    classes; fp x fp as written."""
+    layer = {'x_quant': x_quant, 'w_quant': w_quant,
+             'clamp': {'kind': 'identity'}}
+    return QResNet(
+        block='regular',
+        layer0={'n_in_channels': 64, 'kernel_size': 7, 'stride': 2,
+                'padding': 3, 'bias': False,
+                'maxpool': {'type': 'maxpool2d', 'kernel_size': 3,
+                            'stride': 2, 'padding': 1}},
+        layer1=dict(layer), layer2=dict(layer), layer3=dict(layer),
+        layer4=dict(layer), nonlins=['relu', 'relu'],
         num_blocks=[2, 2, 2, 2], output_classes=1000, **kwargs)
 
 

@@ -73,7 +73,7 @@ class InferenceEngine:
                 and model_device != self.device):
             raise ValueError(f'model lives on {model_device}, engine '
                              f'device is {self.device}')
-        self.model = model
+        self.model = model.eval()
         self.input_shape = tuple(input_shape)
         self.max_batch = max_batch
         self.buckets = sorted(set(

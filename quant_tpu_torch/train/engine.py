@@ -1,0 +1,206 @@
+"""Train and eval steps and the epoch drivers (port of
+quant_tpu/train/engine.py).
+
+A train step does what the reference's per-batch loop does: the model's
+train forward (BN statistics, quantizer state), the frozen teacher's
+forward for KD, the loss, the backward pass, the optimizer's update at
+the schedule's learning rate for this step, and the metric update on
+the device. The host loops feed batches (any iterable of (images,
+labels), numpy or torch, moved to the model's device) and fire hooks.
+
+One card: JAX's `mesh` and `donate` (make_train_step, make_eval_step)
+and `assemble` (train_epoch, evaluate) have no counterpart here; data
+parallelism over several cards is a later slice.
+"""
+
+import inspect
+import logging
+from typing import Any, Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from quant_tpu_torch.train.metrics import (
+    MetricAccumulator, update_metric_state, update_metric_state_masked,
+)
+from quant_tpu_torch.train.state import TrainState
+
+logger = logging.getLogger(__name__)
+
+Hook = Callable[..., None]
+
+
+def _accepts_metrics(hook: Hook) -> bool:
+    """Hooks of the old protocol (epoch, global_step, values_dict,
+    log_interval) are called without the live-metrics kwarg unless they
+    declare it (or **kwargs)."""
+    try:
+        params = inspect.signature(hook).parameters.values()
+    except (TypeError, ValueError):
+        return True
+    return any(p.kind == p.VAR_KEYWORD or p.name == 'metrics'
+               for p in params)
+
+
+def _on(a: Any, device: torch.device,
+        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.asarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
+def make_train_step(loss_fn: Callable,
+                    teacher_apply: Optional[Callable] = None,
+                    phase_hook: Optional[Callable[[str], None]] = None
+                    ) -> Callable:
+    """The train step: (state, data, target, metric_state) -> (state,
+    metric_state, loss); the state is updated in place.
+
+    Args:
+        loss_fn: (output, target) -> scalar, or with a teacher
+            (output, teacher_output, target) -> scalar.
+        teacher_apply: optional frozen teacher forward, (data) -> logits
+            (train.kd.make_teacher_apply).
+        phase_hook: optional, called with 'forward', 'teacher',
+            'backward', 'optimizer' and 'end' as each part of the step
+            starts (and it ends), e.g. to record CUDA events.
+    """
+    def mark(name: str) -> None:
+        if phase_hook is not None:
+            phase_hook(name)
+
+    def step(state: TrainState, data: torch.Tensor, target: torch.Tensor,
+             metric_state: dict) -> tuple[TrainState, dict, torch.Tensor]:
+        model, optimizer = state.model.train(), state.optimizer
+        state.tx.set_lr(optimizer, state.step)
+        optimizer.zero_grad(set_to_none=True)
+        mark('forward')
+        output = model(data)
+        if teacher_apply is None:
+            loss = loss_fn(output, target)
+        else:
+            mark('teacher')
+            loss = loss_fn(output, teacher_apply(data), target)
+        mark('backward')
+        loss.backward()
+        mark('optimizer')
+        optimizer.step()
+        mark('end')
+        state.step += 1
+        loss = loss.detach()
+        return state, update_metric_state(metric_state, loss, output,
+                                          target), loss
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable) -> Callable:
+    """The eval step: (state, data, target, metric_state) ->
+    (metric_state, output), the model in eval mode (cached and EMA
+    scales, running statistics), nothing written.
+
+    When loss_fn has a `.per_sample` form (the built-in losses do), rows
+    with target < 0 (padding) are left out of the metrics."""
+    per_sample = getattr(loss_fn, 'per_sample', None)
+
+    @torch.no_grad()
+    def step(state: TrainState, data: torch.Tensor, target: torch.Tensor,
+             metric_state: dict) -> tuple[dict, torch.Tensor]:
+        output = state.model.eval()(data)
+        if per_sample is not None:
+            safe_t = torch.clamp(target, min=0)
+            return update_metric_state_masked(
+                metric_state, per_sample(output, safe_t), output,
+                target), output
+        loss = loss_fn(output, target)
+        return update_metric_state(metric_state, loss, output,
+                                   target), output
+
+    return step
+
+
+def train_epoch(train_step: Callable, state: TrainState,
+                loader: Iterable, epoch: int, log_interval: int = 10,
+                hooks: Optional[list[Hook]] = None,
+                lr_schedule: Optional[Callable] = None,
+                steps_per_epoch: Optional[int] = None,
+                stop: Optional[Callable[[], bool]] = None,
+                ) -> tuple[TrainState, dict[str, float]]:
+    """Run one training epoch; returns (state, computed metrics).
+
+    stop: polled before each batch; when it turns true the epoch ends
+    early with the metrics accumulated so far.
+    """
+    hooks = hooks or []
+    hook_metrics_ok = [_accepts_metrics(h) for h in hooks]
+    metrics = MetricAccumulator()
+    metric_state = metrics.state
+    seen = 0
+    n_total = getattr(loader, 'num_examples', None)
+    device = state.device
+    for batch_idx, (data, target) in enumerate(loader):
+        if stop is not None and stop():
+            logger.warning('Stop requested: ending epoch %d after %d '
+                           'batches.', epoch, batch_idx)
+            break
+        data = _on(data, device)
+        target = _on(target, device, torch.int64)
+        state, metric_state, loss = train_step(state, data, target,
+                                               metric_state)
+        seen += data.shape[0]
+        global_step = 1 + (epoch - 1) * (steps_per_epoch or 0) + batch_idx
+        if hooks:
+            metrics.state = metric_state
+            lr = (float(lr_schedule(state.step - 1))
+                  if lr_schedule else None)
+            for hook, with_metrics in zip(hooks, hook_metrics_ok):
+                kw = ({'metrics': {'train': metrics}}
+                      if with_metrics else {})
+                hook(epoch=epoch, global_step=global_step,
+                     values_dict={'lr': lr}, log_interval=log_interval,
+                     **kw)
+        if batch_idx % log_interval == 0:
+            logger.info('Train Epoch: %d [%d/%s]\tBatch Loss: %.6f',
+                        epoch, seen, n_total or '?', float(loss))
+    metrics.state = metric_state
+    computed = metrics.compute()
+    logger.info('Training set evaluation metrics: %s', computed)
+    return state, computed
+
+
+def evaluate(eval_step: Callable, state: TrainState, loader: Iterable,
+             epoch: int = 1, hooks: Optional[list[Hook]] = None,
+             stop: Optional[Callable[[], bool]] = None,
+             pad_rows_to: Optional[int] = None) -> dict[str, float]:
+    """Evaluate on a held-out set; returns computed metrics.
+
+    pad_rows_to: pad each batch's rows up to a multiple of this with
+    rows of target -1, which the masked metrics leave out (valid only
+    with a loss that has `.per_sample`).
+    """
+    hooks = hooks or []
+    metrics = MetricAccumulator()
+    metric_state = metrics.state
+    device = state.device
+    batch_idx = 0
+    for batch_idx, (data, target) in enumerate(loader):
+        if stop is not None and stop():
+            logger.warning('Stop requested: ending eval at epoch %d '
+                           'after %d batches.', epoch, batch_idx)
+            break
+        data = _on(data, device)
+        target = _on(target, device, torch.int64)
+        if pad_rows_to and data.shape[0] % pad_rows_to:
+            extra = pad_rows_to - data.shape[0] % pad_rows_to
+            data = torch.cat([data, data.new_zeros(
+                (extra,) + tuple(data.shape[1:]))])
+            target = torch.cat([target, target.new_full((extra,), -1)])
+        metric_state, _ = eval_step(state, data, target, metric_state)
+    metrics.state = metric_state
+    computed = metrics.compute()
+    for hook in hooks:
+        kw = ({'metrics': {'test': metrics}}
+              if _accepts_metrics(hook) else {})
+        hook(epoch=epoch, global_step=batch_idx + 1, **kw)
+    logger.info('Test set evaluation metrics: %s', computed)
+    return computed

@@ -4,6 +4,11 @@ read them back as one.
 The tree is nested dicts of numpy arrays with the JAX collections
 `params`, `batch_stats`, `quant_state` and `packed_params`, exactly as
 `jax.device_get(variables)` gives them; nothing of JAX is imported.
+`params` leaves become trainable parameters and the other collections
+buffers, so the params, batch_stats and quant_state of a JAX TrainState
+load into a port model that trains on from there, and
+`to_jax_variables` hands the trained state back (optimizer state is
+not carried).
 """
 
 from typing import Any, Mapping, Optional
@@ -125,7 +130,7 @@ def from_jax_variables(model: nn.Module,
                     f"{coll}/{'/'.join(prefix + list(path))}: shape "
                     f'{tuple(t.shape)} != {tuple(current.shape)}')
             if attr in module._parameters:
-                setattr(module, attr, nn.Parameter(t, requires_grad=False))
+                setattr(module, attr, nn.Parameter(t))
             else:
                 setattr(module, attr, t)
     return model
@@ -134,7 +139,8 @@ def from_jax_variables(model: nn.Module,
 def to_jax_variables(model: nn.Module) -> dict[str, Any]:
     """The model's state as a JAX variable tree of numpy arrays, the
     inverse of from_jax_variables (by the same leaf map): an attribute
-    that is None is left out of the tree."""
+    that is None is left out of the tree. The arrays are copies, so the
+    tree stays as it was while the model trains on."""
     tree: dict[str, Any] = {}
     for name, module in model.named_modules():
         rows = _LEAVES.get(type(module).__name__)
@@ -148,5 +154,5 @@ def to_jax_variables(model: nn.Module) -> dict[str, Any]:
             node = tree.setdefault(coll, {})
             for key in prefix + list(path[:-1]):
                 node = node.setdefault(key, {})
-            node[path[-1]] = value.detach().cpu().numpy()
+            node[path[-1]] = value.detach().cpu().numpy().copy()
     return tree

@@ -6,12 +6,14 @@ nvcc, the card's name, CUDA events and the launch counters (which only
 a CUDA launch bumps) are stood in for, the probe path is cut to toy
 sizes, the serving stack to 4 requests with its worker processes
 serving the 'lenet_random' spec on the CPU, and the model and recipe
-phases to small models. That catches Python-level breakage of the
+phases to small models, the train phase to small models at batch 2.
+That catches Python-level breakage of the
 script (arguments, shapes, the phases' control flow, the report's keys)
 before a run on the card.
 """
 
 import json
+import time
 
 import pytest
 import torch
@@ -58,6 +60,25 @@ def worker_launches(before: dict, after: dict) -> dict:
     return got
 
 
+def small_family(family: str):
+    """A builder of small_config models of a family, (x_quant, w_quant,
+    **kwargs) as the recipes' builders."""
+    def make(x_quant: str, w_quant: str, **kw) -> torch.nn.Module:
+        return models.build(family, models.small_config(
+            family, x_quant, w_quant), **kw)
+    return make
+
+
+class HostEvent:
+    """A CUDA event's stand-in on the host clock."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end: 'HostEvent') -> float:
+        return (end.t - self.t) * 1e3
+
+
 KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                'library_ms'}
@@ -74,7 +95,16 @@ def rehearsal(monkeypatch):
     # The in-process frontend serves its 4 requests as 2 batches of 2.
     frontend = dict(main, xnor_conv2d=32, pack_sign_planes=32,
                     max_pool_3x3_s2_p1=2)
-    counts = iter([main, frontend, *phase_counts(), probe])
+    # The train phase: each configuration's 10 timed steps launch the
+    # teacher's pool once a step; the eval step's 2 batches the pool
+    # only; the served small student (8 binary convs) one forward.
+    idle = {k: 0 for k in main}
+    train_steps = [dict(idle, max_pool_3x3_s2_p1=10)] * 3
+    train_eval = dict(idle, max_pool_3x3_s2_p1=2)
+    train_serve = dict(idle, xnor_conv2d=8, pack_sign_planes=8,
+                       max_pool_3x3_s2_p1=1)
+    counts = iter([main, frontend, *phase_counts(), *train_steps,
+                   train_eval, train_serve, probe])
     monkeypatch.setattr(chip_smoke, 'PHASE_MODELS', SMALL_MODELS)
     monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
     monkeypatch.setattr(chip_smoke, 'card_ms',
@@ -103,11 +133,24 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'occupancy', lambda dt, *layout: dict(
         registers=len(layout), blocks_per_sm=3))
     monkeypatch.setattr(_build, 'build', lambda verbose=False: {})
+    monkeypatch.setattr(chip_smoke, 'TRAIN_MODELS', (
+        small_family('xnor'), small_family('regular'), (32, 32, 3), 10))
+    for name in ('TRAIN_BATCH', 'TRAIN_CHECK_BATCH', 'REMAT_CHECK_BATCH',
+                 'TRAIN_SERVE_BATCH'):
+        monkeypatch.setattr(chip_smoke, name, 2)
+    monkeypatch.setattr(chip_smoke, 'cuda_event', HostEvent)
+    # The small student's bf16 chain is 7-13% of the logit spread from its
+    # float32 one (few channels, a 1x1 last map the pool cannot average):
+    # its served bf16 logits are held to 20% here, the card's full-width
+    # student's to 5% (the float32 chain, held to 2% on both, is 2e-7).
+    monkeypatch.setattr(chip_smoke, 'TRAIN_SERVE_BF16_REL_TOL', 0.2)
     monkeypatch.setattr(chip_smoke, 'launch_counts', lambda: next(counts))
     for name, value in (('synchronize', lambda *a: None),
                         ('is_available', lambda: True),
                         ('get_device_name', lambda *a: 'cpu'),
                         ('device_count', lambda: 1),
+                        ('reset_peak_memory_stats', lambda *a: None),
+                        ('max_memory_allocated', lambda *a: 0),
                         ('_sleep', lambda cycles: None)):
         monkeypatch.setattr(torch.cuda, name, value)
     yield main
@@ -188,6 +231,29 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     for r in report['recipes']:
         assert r['ema_max_rel_err'] == 0.0 and r['quantizers'] > 0
         assert r['serving']['requests'] == 16
+    train = report['train']
+    assert [c['name'] for c in train['configs']] == list(
+        chip_smoke.TRAIN_CONFIGS)
+    lines_train = [json.loads(ln)['train_phase'] for ln in lines
+                   if ln.startswith('{"train_phase"')]
+    assert lines_train == train['configs']
+    for c in train['configs']:
+        assert len(c['losses']) == chip_smoke.TRAIN_STEPS
+        assert c['losses'][-1] < c['losses'][0]
+        assert set(c['split_ms']) == {'forward', 'teacher', 'backward',
+                                      'optimizer'}
+        assert c['batch'] == 2 and c['images_per_s'] > 0
+        assert c['launches'] == {'max_pool_3x3_s2_p1': 10}
+    cpu = train['against_cpu']
+    assert cpu['loss_rel_err'] == cpu['grad_rel_err'] == 0.0
+    assert cpu['grad_median_leaf_err'] == cpu['grad_worst_leaf_err'] == 0.0
+    assert cpu['grad_leaves'] > 40
+    assert train['remat']['state_equal'] and train['remat'][
+        'loss_rel_err'] == 0.0
+    assert train['eval']['launches'] == {'max_pool_3x3_s2_p1': 2}
+    assert train['serve']['launches'] == {
+        'xnor_conv2d': 8, 'pack_sign_planes': 8, 'max_pool_3x3_s2_p1': 1}
+    assert train['serve']['fp32_rel_err'] < 1e-5
     stack = report['serving_stack']
     assert stack['frontend']['batches'] == 2
     assert stack['frontend']['launches'] == {
