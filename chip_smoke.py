@@ -86,7 +86,24 @@ the chip-probe path:
    binary conv, the pool once; the packed float32 chain within 2% of
    the logit spread of its calibrated dense twin's, the served bf16
    logits within 5%);
-10. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+10. runs the experiment phase, the port's entry point as users run it:
+   the recipe drivers (quant_tpu_torch.examples) in process on the
+   recipes' YAML files, cut as EXPERIMENT_MNIST and EXPERIMENT_IMAGENET
+   say. (a) mnist_ls1.yaml on a seeded IDX-gz MNIST the phase writes:
+   the experiment's files, --restore-experiment --skip-training equal to
+   the last test.csv row, --auto-resume to checkpoint_4, serving.prepare
+   --calibrate-dataset, the artifact served in process (its launches a
+   forward), on the CPU and from an 'artifact' worker process; the
+   loader's ms a step beside a fixed batch's and its idle share
+   (torch.profiler). (b) The ImageNet KD pair at full width on the
+   synthetic loader: the teacher imagenet_fp.yaml, then
+   imagenet_ls1_kd.yaml from the teacher's config.yaml and checkpoint
+   (the stem pool launched once an eval batch and once a step by the
+   frozen teacher), the loaded teacher equal to its experiment's own
+   model, serving.prepare --calibrate-synthetic, the artifact served as
+   in (a) (16 xnor_conv2d, 16 pack_sign_planes, 1 pool a forward); one
+   JSON line {"experiment_phase": ...};
+11. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
@@ -338,6 +355,45 @@ REMAT_CHECK_BATCH, REMAT_LOSS_REL = 32, 1e-6
 # the route would be tens of %.
 TRAIN_EVAL_BATCHES, TRAIN_SERVE_BATCH = 2, 4
 TRAIN_SERVE_REL_TOL, TRAIN_SERVE_BF16_REL_TOL = FP32_REL_TOL, 5e-2
+# The experiment phase (after the train phase): the port's recipe
+# drivers (quant_tpu_torch.examples) run in process, main(argv), on the
+# recipes under examples/ as written except for the cuts below, each
+# written into a temporary copy of the YAML. (a) MNIST: mnist_ls1.yaml
+# at its widths (LeNet-5, 20 and 50 filters, ls-1 x ls-1, 'off', Adadelta
+# under step_lr, batch 64 / 5000) on a seeded dataset the phase writes in
+# the IDX-gz format; cuts: epochs 10 -> 2, dataset_path,
+# root_experiments_dir, tensorboard off. (b) ImageNet KD at full width:
+# the teacher imagenet_fp.yaml, then imagenet_ls1_kd.yaml distilling
+# from its checkpoint, both on the synthetic loader (224 px, 1000
+# classes); cuts: epochs 100 and 240 -> 1, the data section. Each recipe
+# is then prepared (serving.prepare, EMA calibration) and served from an
+# 'artifact' worker process.
+EXPERIMENT_MNIST = dict(recipe='examples/mnist/mnist_ls1.yaml', train=6000,
+                        test=5000, epochs=2, name='mnist_ls1',
+                        per_forward={'xnor_conv2d': 1,
+                                     'pack_sign_planes': 1})
+EXPERIMENT_IMAGENET = dict(
+    teacher='examples/imagenet/imagenet_fp.yaml',
+    student='examples/imagenet/imagenet_ls1_kd.yaml',
+    data={'dataset': 'synthetic', 'image_shape': [224, 224, 3],
+          'num_classes': 1000, 'train_size': 512, 'test_size': 256},
+    epochs=1, calibrate_synthetic=4,
+    per_forward={'xnor_conv2d': 16, 'pack_sign_planes': 16,
+                 'max_pool_3x3_s2_p1': 1})
+# Overrides of a recipe's sections beyond the cuts above, by recipe path
+# ({section: {key: value}}): none on the card (the CPU rehearsal narrows
+# the models and the batches here).
+EXPERIMENT_OVERRIDES: dict = {}
+EXPERIMENT_REQUESTS = 16
+# A restored experiment's --skip-training eval against the last test.csv
+# row of its run, relative (the same checkpoint, eval forward and batch).
+EXPERIMENT_EVAL_REL_TOL = 1e-6
+# Fixed-batch steps of the MNIST recipe's LeNet-5, timed beside the
+# loader's steps; steps the profiler reads for the idle share.
+EXPERIMENT_FIXED_STEPS, EXPERIMENT_PROFILE_STEPS = 20, 30
+# A worker process keeps PyTorch's defaults, (float32 matmuls in TF32,
+# cuDNN convs in TF32) = (False, True); this script turns both off.
+WORKER_TF32 = (False, True)
 
 
 def card_line() -> str:
@@ -1399,15 +1455,18 @@ def frontend_phase(model: torch.nn.Module, seed: int) -> dict:
                                   s=warm['s'], max_abs_err=warm_err))
 
 
-def _worker_launches(before: dict, after: dict) -> dict[str, int]:
+def _worker_launches(before: dict, after: dict,
+                     per_batch: Optional[dict] = None) -> dict[str, int]:
     """A worker's launches between two of its stats, checked against its
-    batches: 16 xnor_conv2d, 16 pack_sign_planes and 1 pool each."""
+    batches: per_batch's counts each, by default the ResNet-18's 16
+    xnor_conv2d, 16 pack_sign_planes and 1 pool."""
     got = {k: after['kernel_launches'][k] - before['kernel_launches'][k]
            for k in after['kernel_launches']}
     n = after['batches'] - before['batches']
     want = {k: 0 for k in got}
-    want.update(xnor_conv2d=16 * n, pack_sign_planes=16 * n,
-                max_pool_3x3_s2_p1=n)
+    per_batch = per_batch or dict(xnor_conv2d=16, pack_sign_planes=16,
+                                  max_pool_3x3_s2_p1=1)
+    want.update({k: v * n for k, v in per_batch.items()})
     if got != want:
         raise AssertionError(f'worker launches {got}, expected {want}')
     return got
@@ -1862,6 +1921,383 @@ def train_phases(seed: int) -> dict:
     return out
 
 
+class StepTimer:
+    """A train hook: the host clock after each train step, the card
+    synchronised first; `get_hooks` is a driver's get_hooks."""
+
+    def __init__(self):
+        self.marks: list[tuple[int, int, float]] = []
+
+    def __call__(self, epoch: int, global_step: int, **_: Any) -> None:
+        torch.cuda.synchronize()
+        self.marks.append((epoch, global_step, time.perf_counter()))
+
+    def get_hooks(self, config: dict, root: Any) -> tuple[list, list]:
+        return [self], []
+
+    def ms_per_step(self) -> Optional[float]:
+        """Mean ms between consecutive steps of one epoch (the loader's
+        next batch, its copy to the card and the step), each epoch's
+        first step left out; None with fewer than 2 steps an epoch."""
+        gaps = [(b[2] - a[2]) * 1e3 for a, b in zip(self.marks,
+                                                      self.marks[1:])
+                if a[0] == b[0]]
+        return float(np.mean(gaps)) if gaps else None
+
+
+def write_mnist(root: str, n_train: int, n_test: int, seed: int) -> None:
+    """A seeded MNIST in the published IDX-gz format: ten random 28x28
+    class prototypes, each image its class's plus noise, uint8."""
+    import gzip
+    import struct
+
+    rng = np.random.default_rng(seed)
+    protos = rng.integers(0, 256, (10, 28, 28))
+    for prefix, n in (('train', n_train), ('t10k', n_test)):
+        labels = rng.integers(0, 10, n).astype(np.uint8)
+        images = np.clip(protos[labels] + rng.normal(0, 48, (n, 28, 28)),
+                         0, 255).astype(np.uint8)
+        for kind, arr, magic in (('images-idx3', images, 0x803),
+                                 ('labels-idx1', labels, 0x801)):
+            with gzip.open(os.path.join(
+                    root, f'{prefix}-{kind}-ubyte.gz'), 'wb') as f:
+                f.write(struct.pack('>I', magic))
+                f.write(struct.pack('>' + 'I' * arr.ndim, *arr.shape))
+                f.write(arr.tobytes())
+
+
+def recipe_copy(recipe: str, path: str, root: str, epochs: int,
+                **sections: dict) -> str:
+    """The recipe YAML with the phase's cuts: epochs, the experiments
+    root, tensorboard off, and the given sections' keys, then
+    EXPERIMENT_OVERRIDES; written to path."""
+    import yaml
+
+    with open(recipe) as f:
+        cfg = yaml.safe_load(f)
+    cfg['optimization']['epochs'] = epochs
+    cfg['log'].update(root_experiments_dir=root, tensorboard=False)
+    for overrides in (sections, EXPERIMENT_OVERRIDES.get(recipe, {})):
+        for section, keys in overrides.items():
+            node = cfg
+            for part in section.split('.'):
+                node = node[part]
+            node.update(copy.deepcopy(keys))
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _test_rows(exp_dir: str) -> list[dict]:
+    import csv
+
+    with open(os.path.join(exp_dir, 'metrics', 'test.csv')) as f:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
+def _timed(fn: Callable, *args: Any, **kw: Any) -> tuple[Any, float]:
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def loader_profile(train_step: Callable, state: Any, batches: list,
+                   ) -> dict:
+    """The card's kernel time over train steps on `batches` (host numpy
+    batches, as a loader yields them) under torch.profiler: ms a step,
+    kernel ms a step and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quant_tpu_torch import train as T
+
+    T.train_epoch(train_step, state, batches[:3], epoch=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        T.train_epoch(train_step, state, batches, epoch=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    busy = sum(evt.device_time_total for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA)
+    busy_ms = busy / 1e3 / len(batches)
+    if busy_ms <= 0:
+        raise AssertionError('the profiler saw no device time')
+    return dict(steps=len(batches), ms_per_step=wall_ms,
+                kernel_ms_per_step=busy_ms,
+                idle_share=max(0.0, 1 - busy_ms / wall_ms))
+
+
+def _serve_artifact(out: str, shape: tuple, per_forward: dict,
+                    seed: int) -> dict:
+    """The artifact in process on the card (one forward of
+    EXPERIMENT_REQUESTS images, its launches read around it) and on the
+    CPU (its logits within FP32_REL_TOL of the spread), then from one
+    'artifact' worker process: the same requests, one at a time, equal
+    to the in-process engine's answers under the worker's TF32 settings
+    (WORKER_TF32), the worker's launches from its stats. Both engines
+    pad every batch to one bucket of EXPERIMENT_REQUESTS, so each
+    forward takes one cuDNN algorithm: the float32 stem's rounding flips
+    binary activations near their thresholds (the ResNet-18 artifact's
+    worker under cuDNN's TF32 against this process without: 3.3-3.4% of
+    the logit spread, measured)."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.serving.engine import InferenceEngine
+    from quant_tpu_torch.serving.prepare import load_serving_artifact
+    from quant_tpu_torch.serving.worker import spawn_engine_workers
+
+    images = np.random.default_rng(seed).standard_normal(
+        (EXPERIMENT_REQUESTS,) + tuple(shape)).astype(np.float32)
+    model, art_shape = load_serving_artifact(out, DEVICE)
+    if tuple(art_shape) != tuple(shape):
+        raise AssertionError(f'artifact shape {art_shape}, not {shape}')
+    bucket = [EXPERIMENT_REQUESTS]
+    engine = InferenceEngine(model, shape, max_batch=EXPERIMENT_REQUESTS,
+                             batch_buckets=bucket, device=DEVICE)
+    engine.warmup([EXPERIMENT_REQUESTS])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    want = engine.predict(images)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if launches != per_forward:
+        raise AssertionError(f'{out}: launches {launches} a forward, '
+                             f'expected {per_forward}')
+    cpu_model, _ = load_serving_artifact(out, 'cpu')
+    cpu = cpu_model(torch.from_numpy(images)).numpy()
+    spread = float(cpu.max() - cpu.min())
+    cpu_err = float(np.abs(want - cpu).max())
+    if not (np.isfinite(want).all() and want.shape[0] == len(images)
+            and cpu_err <= FP32_REL_TOL * spread):
+        raise AssertionError(f'{out}: card vs CPU max abs err {cpu_err}, '
+                             f'spread {spread}')
+    with tf32(*WORKER_TF32):
+        want_worker = engine.predict(images)
+    spec = {'model': 'artifact', 'artifact_dir': out, 'device': DEVICE,
+            'max_batch': EXPERIMENT_REQUESTS, 'batch_buckets': bucket}
+    t0 = time.perf_counter()
+    procs, clients = spawn_engine_workers(1, spec, timeout=600)
+    startup_s = time.perf_counter() - t0
+    try:
+        before = clients[0].stats
+        futures = [clients[0].submit(img) for img in images]
+        got = np.stack([f.result(timeout=300) for f in futures])
+        after = clients[0].stats
+        worker = _worker_launches(before, after, per_forward)
+    finally:
+        for c in clients:
+            c.shutdown_server()
+            c.stop()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=60)
+    err = float(np.abs(got - want_worker).max())
+    if not np.array_equal(got, want_worker):
+        raise AssertionError(f'{out}: worker vs in-process engine max abs '
+                             f'err {err}, spread {spread}')
+    return dict(requests=len(images), launches_per_forward=launches,
+                cpu_max_abs_err=cpu_err, spread=spread,
+                cpu_rel_err=cpu_err / spread, worker_startup_s=startup_s,
+                worker_batches=after['batches'] - before['batches'],
+                worker_launches=worker, worker_max_abs_err=err,
+                worker_tf32_vs_off_max_abs_err=float(
+                    np.abs(want_worker - want).max()),
+                exit_codes=[p.returncode for p in procs])
+
+
+def mnist_experiment(root: str, seed: int) -> dict:
+    """(a) mnist_ls1.yaml through quant_tpu_torch.examples.mnist: the
+    experiment's files, --restore-experiment --skip-training against the
+    last test.csv row, --auto-resume to checkpoint_4, then
+    serving.prepare --calibrate-dataset and an 'artifact' worker; the
+    loader's ms a step beside a fixed batch's and the idle share."""
+    import yaml
+
+    from quant_tpu_torch import train as T
+    from quant_tpu_torch.data import MNISTDataLoader
+    from quant_tpu_torch.examples import mnist
+    from quant_tpu_torch.serving import prepare
+    from quant_tpu_torch.train.task import init_model_variables
+
+    cut = EXPERIMENT_MNIST
+    data = os.path.join(root, 'mnist')
+    os.makedirs(data)
+    write_mnist(data, cut['train'], cut['test'], seed)
+    cfg = recipe_copy(cut['recipe'], os.path.join(root, 'mnist.yaml'),
+                      os.path.join(root, 'experiments'), cut['epochs'],
+                      data={'dataset_path': data})
+    exp = os.path.join(root, 'experiments', cut['name'])
+    run = ['--config', cfg, '--experiment-name', cut['name'],
+           '--device', DEVICE]
+    timer = StepTimer()
+    (train_m, test_m), train_s = _timed(mnist.main, run, timer.get_hooks)
+    ckpts = os.path.join(exp, 'checkpoints')
+    files = sorted(os.listdir(exp)) + sorted(os.listdir(ckpts))
+    for name in ('config.yaml', 'metrics', 'checkpoints',
+                 f'checkpoint_{cut["epochs"]}'):
+        if name not in files:
+            raise AssertionError(f'mnist experiment: no {name} ({files})')
+    last = _test_rows(exp)[-1]
+    if len(train_m) != cut['epochs'] or not all(
+            np.isfinite(m['Loss']) for m in train_m + test_m):
+        raise AssertionError(f'mnist metrics {train_m} {test_m}')
+
+    _, eval_s = _timed(mnist.main, ['--restore-experiment', exp,
+                                    '--skip-training', '--device', DEVICE])
+    again = _test_rows(exp)[-1]
+    eval_err = max(abs(again[k] - v) / max(abs(v), 1e-30)
+                   for k, v in last.items())
+    if not eval_err <= EXPERIMENT_EVAL_REL_TOL:
+        raise AssertionError(f'restored eval {again} vs {last}')
+
+    (resumed, _), resume_s = _timed(mnist.main, run + ['--auto-resume'])
+    final = 2 * cut['epochs']
+    if not (os.path.exists(os.path.join(ckpts, f'checkpoint_{final}'))
+            and len(resumed) == cut['epochs']):
+        raise AssertionError(f'auto-resume: {os.listdir(ckpts)}')
+
+    out, prepare_s = _timed(prepare.main, [
+        '--experiment', exp, '--input-shape', '28,28,1', '--device', DEVICE,
+        '--calibrate-dataset', data])
+    meta = yaml.safe_load(open(os.path.join(out, 'serving.yaml')))
+    if not meta['bn_fold']:
+        raise AssertionError('the calibrated LeNet-5 did not fold')
+    served = _serve_artifact(str(out), (28, 28, 1), cut['per_forward'],
+                             seed)
+
+    # The recipe's step on one fixed batch, then on the loader's batches
+    # under the profiler.
+    with open(cfg) as f:
+        recipe = yaml.safe_load(f)
+    model = init_model_variables('lenet5', recipe['model']['arch_config'],
+                                 seed, DEVICE)
+    loader = MNISTDataLoader(**{k: v for k, v in recipe['data'].items()
+                                if k != 'dataset'}).get_train_loader()
+    tx, _ = T.make_optimizer(recipe['optimization'], cut['epochs'],
+                             len(loader))
+    state = T.TrainState.create(model, tx)
+    step = T.make_train_step(T.get_loss_fn(recipe['model']['loss']))
+    batches = list(loader)[:EXPERIMENT_PROFILE_STEPS]
+    fixed = [tuple(torch.from_numpy(a).to(DEVICE) for a in batches[0])]
+    T.train_epoch(step, state, fixed * 3, epoch=1)
+    _, fixed_s = _timed(T.train_epoch, step, state,
+                        fixed * EXPERIMENT_FIXED_STEPS, 1)
+    profiled = loader_profile(step, state, batches)
+    return dict(recipe=cut['recipe'], train_images=cut['train'],
+                test_images=cut['test'], epochs=cut['epochs'],
+                steps_per_epoch=len(loader), train_s=train_s,
+                restore_eval_s=eval_s, auto_resume_s=resume_s,
+                prepare_s=prepare_s, test_metrics=test_m,
+                restored_eval_rel_err=eval_err,
+                ms_per_step_loader=timer.ms_per_step(),
+                ms_per_step_fixed_batch=fixed_s * 1e3
+                / EXPERIMENT_FIXED_STEPS,
+                loader_profile=profiled, serving=served)
+
+
+def imagenet_experiment(root: str, seed: int, train_record: dict) -> dict:
+    """(b) The ImageNet KD pair through quant_tpu_torch.examples.imagenet:
+    the teacher imagenet_fp.yaml, then imagenet_ls1_kd.yaml from the
+    teacher's config.yaml and checkpoint, launches read around each run;
+    the teacher as the student's teacher_apply loads it against the
+    teacher experiment's own model; serving.prepare
+    --calibrate-synthetic and an 'artifact' worker."""
+    import yaml
+
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.examples import imagenet
+    from quant_tpu_torch.serving import prepare
+    from quant_tpu_torch.train.kd import make_teacher_apply
+    from quant_tpu_torch.train.task import get_teacher_apply
+
+    cut = EXPERIMENT_IMAGENET
+    exps = os.path.join(root, 'experiments')
+    runs = {}
+    for name in ('teacher', 'student'):
+        sections = {'data': cut['data']}
+        if name == 'student':
+            teacher = os.path.join(exps, 'teacher')
+            sections['model.kd_config'] = {
+                'teacher_config_path': os.path.join(teacher, 'config.yaml'),
+                'teacher_checkpoint_path': os.path.join(
+                    teacher, 'checkpoints', f'checkpoint_{cut["epochs"]}')}
+        cfg = recipe_copy(cut[name], os.path.join(root, f'{name}.yaml'),
+                          exps, cut['epochs'], **sections)
+        timer = StepTimer()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        (train_m, test_m), run_s = _timed(
+            imagenet.main, ['--config', cfg, '--experiment-name', name,
+                            '--device', DEVICE], timer.get_hooks)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        steps = len(timer.marks)
+        with open(os.path.join(exps, name, 'config.yaml')) as f:
+            written = yaml.safe_load(f)
+        batches = -(-cut['data']['test_size']
+                    // written['data']['test_batch_size'])
+        # The eval forward's stem pool (no gradient) once a batch, and
+        # the student's frozen teacher's once a step.
+        pools = batches + (steps if name == 'student' else 0)
+        if launches != {'max_pool_3x3_s2_p1': pools}:
+            raise AssertionError(f'{name}: launches {launches}, expected '
+                                 f'{pools} pools')
+        if not (os.path.exists(os.path.join(
+                exps, name, 'checkpoints', f'checkpoint_{cut["epochs"]}'))
+                and len(train_m) == cut['epochs'] and all(
+                    np.isfinite(m['Loss']) for m in train_m + test_m)):
+            raise AssertionError(f'{name}: {train_m} {test_m}')
+        runs[name] = dict(s=run_s, steps=steps, launches=launches,
+                          ms_per_step_loader=timer.ms_per_step(),
+                          train_metrics=train_m, test_metrics=test_m)
+    runs['student']['ms_per_step_fixed_batch'] = train_record['ms_per_step']
+
+    # The teacher the student distilled from, as get_teacher_apply loads
+    # it, against the teacher experiment's own model on one batch (both
+    # in the recipe's train mode).
+    kd = written['model']['kd_config']
+    teacher_apply, _ = get_teacher_apply(kd, written.get('seed'), DEVICE)
+    own, _, _ = prepare.load_experiment_model(os.path.join(exps, 'teacher'),
+                                              DEVICE)
+    own_apply = make_teacher_apply(own, bool(kd.get('train_mode')))
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (8,) + tuple(cut['data']['image_shape']), dtype=np.float32)).to(
+            DEVICE)
+    got, want = teacher_apply(x), own_apply(x)
+    if not torch.equal(got, want):
+        raise AssertionError('the loaded teacher differs from its '
+                             'experiment: max abs err '
+                             f'{(got - want).abs().max().item()}')
+    del teacher_apply, own, own_apply
+
+    shape = tuple(cut['data']['image_shape'])
+    out, prepare_s = _timed(prepare.main, [
+        '--experiment', os.path.join(exps, 'student'), '--input-shape',
+        ','.join(map(str, shape)), '--device', DEVICE,
+        '--calibrate-synthetic', str(cut['calibrate_synthetic'])])
+    served = _serve_artifact(str(out), shape, cut['per_forward'], seed + 1)
+    return dict(data=cut['data'], epochs=cut['epochs'], runs=runs,
+                teacher_equal=True, prepare_s=prepare_s, serving=served)
+
+
+def experiment_phase(seed: int, train_record: dict) -> dict:
+    """The experiment phase, in a temporary directory removed after."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='qtt_experiment_') as root:
+        out = dict(mnist=mnist_experiment(root, seed))
+        print(f'experiment mnist: {out["mnist"]}', flush=True)
+        out['imagenet'] = imagenet_experiment(root, seed, train_record)
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'experiment_phase': out}), flush=True)
+    return out
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
@@ -2037,6 +2473,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     train = train_phases(args.seed)
     print(f'train phase: {train["s"]:.1f} s', flush=True)
 
+    experiment = experiment_phase(args.seed, train['configs'][0])
+    print(f'experiment phase: {experiment["s"]:.1f} s', flush=True)
+
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
     probe_s = time.perf_counter() - t0
@@ -2084,7 +2523,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            serving_stack=stack,
                            model_phases=phases, model_phases_s=phases_s,
                            recipes=recipes, recipes_s=recipes_s,
-                           train=train,
+                           train=train, experiment=experiment,
                            probes=records, probe_s=probe_s,
                            build_resources=resources,
                            torch=torch.__version__,

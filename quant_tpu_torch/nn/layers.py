@@ -205,7 +205,7 @@ class BatchNorm(nn.Module):
         if self.training:
             return self._train(x, dtype)
         y = self._normalize(x, self.running_mean, self.running_var)
-        return y.to(dtype or torch.promote_types(x.dtype, torch.float32))
+        return y.to(dtype or self._out_dtype(x))
 
     def _train(self, x: torch.Tensor,
                dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -221,10 +221,14 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(keep * self.running_var
                                    + (1 - keep) * var)
         y = self._normalize(x, mean, var)
-        if dtype is None:
-            dtype = (torch.promote_types(x.dtype, self.weight.dtype)
-                     if self.weight is not None else x.dtype)
-        return y.to(dtype)
+        return y.to(dtype or self._out_dtype(x))
+
+    def _out_dtype(self, x: torch.Tensor) -> torch.dtype:
+        # flax's canonicalize_dtype of x and the affine's parameters:
+        # x's dtype promoted with the affine's, x's own when affine-free.
+        if self.weight is None:
+            return x.dtype
+        return torch.promote_types(x.dtype, self.weight.dtype)
 
 
 class ActivationQuantizer(nn.Module):
@@ -350,6 +354,7 @@ class QuantConv2d(nn.Module):
                  clamp: Optional[dict[str, Any]] = None,
                  stride: IntOr2 = 1, padding: IntOr2 = 0,
                  use_bias: bool = True, moving_average_mode: str = 'off',
+                 moving_average_momentum: float = 0.99,
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
@@ -380,8 +385,8 @@ class QuantConv2d(nn.Module):
             'w_vs', torch.zeros(k_w, features, dtype=torch.float32)
             if w_quant != 'fp' else None)
         self.x_quantizer = ActivationQuantizer(
-            x_quant, moving_average_mode, solver_mode=solver_mode,
-            calibrate=calibrate)
+            x_quant, moving_average_mode, moving_average_momentum,
+            solver_mode=solver_mode, calibrate=calibrate)
         for name in ('w_packed', 'w_scales', 'x_thresh', 'x_flip', 'x_va',
                      'b_fold'):
             self.register_buffer(name, None)

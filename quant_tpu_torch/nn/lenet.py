@@ -37,6 +37,7 @@ class QLeNet5(nn.Module):
                  w_quant: str = 'fp',
                  clamp: Optional[dict[str, Any]] = None,
                  moving_average_mode: str = 'off',
+                 moving_average_momentum: float = 0.99,
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed',
                  eval_dtype: DtypeLike = None, pass_fusion: bool = True,
@@ -59,6 +60,7 @@ class QLeNet5(nn.Module):
             conv1_filters, conv2_filters, 5, x_quant=x_quant,
             w_quant=w_quant, clamp=clamp,
             moving_average_mode=moving_average_mode,
+            moving_average_momentum=moving_average_momentum,
             solver_mode=solver_mode, calibrate=calibrate,
             inference_mode=inference_mode, pass_fusion=pass_fusion,
             sign_compute=sign_compute, generator=generator)

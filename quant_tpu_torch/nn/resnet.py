@@ -72,7 +72,8 @@ class _Block(nn.Module):
                  clamp: Optional[dict[str, Any]], moving_average_mode: str,
                  solver_mode: str, calibrate: bool, inference_mode: str,
                  pass_fusion: bool, sign_compute: str, use_bias: bool,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 moving_average_momentum: float = 0.99):
         super().__init__()
         if len(nonlins) != 2:
             raise ValueError('There should be 2 non-linearities.')
@@ -80,6 +81,7 @@ class _Block(nn.Module):
         self.inference_mode = inference_mode
         self.qconv = dict(x_quant=x_quant, w_quant=w_quant, clamp=clamp,
                           moving_average_mode=moving_average_mode,
+                          moving_average_momentum=moving_average_momentum,
                           solver_mode=solver_mode, calibrate=calibrate,
                           inference_mode=inference_mode,
                           pass_fusion=pass_fusion, sign_compute=sign_compute,
@@ -111,10 +113,12 @@ class RegularBasicBlock(_Block):
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 moving_average_momentum: float = 0.99):
         super().__init__(x_quant, w_quant, nonlins, clamp,
                          moving_average_mode, solver_mode, calibrate,
-                         inference_mode, pass_fusion, sign_compute, False, generator)
+                         inference_mode, pass_fusion, sign_compute, False, generator,
+                         moving_average_momentum=moving_average_momentum)
         self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride,
                                  padding=1, **self.qconv)
         self.bn1 = BatchNorm(planes)
@@ -151,10 +155,12 @@ class XnorBasicBlock(_Block):
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 moving_average_momentum: float = 0.99):
         super().__init__(x_quant, w_quant, nonlins, clamp,
                          moving_average_mode, solver_mode, calibrate,
-                         inference_mode, pass_fusion, sign_compute, True, generator)
+                         inference_mode, pass_fusion, sign_compute, True, generator,
+                         moving_average_momentum=moving_average_momentum)
         self.double_shortcut = double_shortcut
         self.bn1 = BatchNorm(in_planes)
         self.conv1 = QuantConv2d(in_planes, planes, 3, stride=stride,
@@ -194,10 +200,12 @@ class RegularBottleneckBlock(_Block):
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 moving_average_momentum: float = 0.99):
         super().__init__(x_quant, w_quant, nonlins, clamp,
                          moving_average_mode, solver_mode, calibrate,
-                         inference_mode, pass_fusion, sign_compute, False, generator)
+                         inference_mode, pass_fusion, sign_compute, False, generator,
+                         moving_average_momentum=moving_average_momentum)
         out_planes = planes * self.expansion
         self.conv1 = QuantConv2d(in_planes, planes, 1, **self.qconv)
         self.bn1 = BatchNorm(planes)
@@ -244,14 +252,16 @@ class XnorBottleneckBlock(_Block):
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
                  sign_compute: str = 'auto',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 moving_average_momentum: float = 0.99):
         if double_shortcut:
             raise ValueError(
                 'double_shortcut is only defined for basic blocks '
                 '(channel counts change inside a bottleneck).')
         super().__init__(x_quant, w_quant, nonlins, clamp,
                          moving_average_mode, solver_mode, calibrate,
-                         inference_mode, pass_fusion, sign_compute, True, generator)
+                         inference_mode, pass_fusion, sign_compute, True, generator,
+                         moving_average_momentum=moving_average_momentum)
         out_planes = planes * self.expansion
         self.bn1 = BatchNorm(in_planes)
         self.conv1 = QuantConv2d(in_planes, planes, 1, **self.qconv)
@@ -350,6 +360,7 @@ class QResNet(nn.Module):
                  layer3: dict[str, Any], layer4: Optional[dict[str, Any]],
                  nonlins: Sequence[str], num_blocks: Sequence[int],
                  output_classes: int, moving_average_mode: str = 'off',
+                 moving_average_momentum: float = 0.99,
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed',
                  eval_dtype: DtypeLike = None, pass_fusion: bool = True,
@@ -393,6 +404,7 @@ class QResNet(nn.Module):
                           w_quant=cfg.pop('w_quant'),
                           clamp=cfg.pop('clamp', None), nonlins=nonlins,
                           moving_average_mode=moving_average_mode,
+                          moving_average_momentum=moving_average_momentum,
                           solver_mode=solver_mode, calibrate=calibrate,
                           inference_mode=inference_mode,
                           pass_fusion=pass_fusion, sign_compute=sign_compute,

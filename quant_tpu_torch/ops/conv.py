@@ -10,7 +10,7 @@ callers pass preferred_element_type equal to it: float32, or the
 train_dtype of a bf16 chain, whose output stays bf16).
 """
 
-from typing import Optional, Sequence, Union
+from typing import Any, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +25,34 @@ def _pair(v: IntOr2) -> tuple[int, int]:
     return (int(a), int(b))
 
 
+class _StridedPointwiseCPU(torch.autograd.Function):
+    """A strided 1x1 conv (the downsampling shortcut) on the CPU, its
+    forward F.conv2d's on the NHWC view, its backward on contiguous NCHW
+    operands: oneDNN's backward of the channels-last view crashes the
+    process at some small shapes (torch 2.13 CPU: batch 4, 8 channels,
+    16x16, stride 2)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, w: torch.Tensor,
+                stride: tuple[int, int]) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> tuple:
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w.contiguous(), g,
+                                            stride=ctx.stride)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x.contiguous(), w.shape, g,
+                                             stride=ctx.stride)
+        return gx, gw, None
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *,
            stride: IntOr2 = 1, padding: IntOr2 = 0,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -33,8 +61,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     Computes in x's dtype (w must match). The bias is added after the
     conv's output rounding, in that dtype, as XLA does for `y + bias`.
     """
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=_pair(stride), padding=_pair(padding))
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    stride, padding = _pair(stride), _pair(padding)
+    if (x.device.type == 'cpu' and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)
+            and w.shape[:2] == (1, 1) and stride != (1, 1)
+            and padding == (0, 0)):
+        y = _StridedPointwiseCPU.apply(x_nchw, w_oihw, stride)
+    else:
+        y = F.conv2d(x_nchw, w_oihw, stride=stride, padding=padding)
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias

@@ -129,12 +129,13 @@ def card_alone_ms(fn: Callable[[], Any], iters: int,
 
 
 @contextlib.contextmanager
-def tf32(enabled: bool) -> Iterator[None]:
-    """Set TF32 for float32 matmuls and cuDNN convs; restore on exit."""
+def tf32(enabled: bool, cudnn: Optional[bool] = None) -> Iterator[None]:
+    """Set TF32 for float32 matmuls and cuDNN convs (`cudnn`, when given,
+    for the convs alone); restore on exit."""
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = enabled
-    torch.backends.cudnn.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled if cudnn is None else cudnn
     try:
         yield
     finally:

@@ -15,15 +15,25 @@ Spec (JSON):
                              ls-1, EMA and weight scales 0.5), bf16 chain,
                              sign_compute 'int8', exported, threshold
                              folded and stripped;
-         'experiment', 'artifact' — a trained checkpoint or a prepared
-                             artifact: not ported yet (they need the
-                             checkpoint code), they raise.
-  seed: weight seed (one torch.Generator), so every worker of one seed
-        serves identical variables.
+         'experiment'      — a trained experiment directory
+                             (config.yaml + its latest checkpoint),
+                             packed and BN-folded where the family allows
+                             at start-up (needs input_shape);
+         'artifact'        — a prepared artifact (serving/prepare.py):
+                             the stripped packed variables load as they
+                             are, no export work (input_shape from its
+                             serving.yaml unless given).
+  experiment_dir, artifact_dir: for 'experiment' and 'artifact'.
+  seed: weight seed of the *_random models (one torch.Generator), so
+        every worker of one seed serves identical variables.
   device: 'cuda' (default) or 'cpu'; a worker whose device is missing
         exits non-zero.
   input_shape, max_batch, batch_buckets, max_wait_ms, warmup: engine
         knobs.
+
+Unlike the JAX worker, the 'experiment' spec has no dense fallback: a
+packed export that fails raises and the worker exits non-zero, since a
+dense model would serve without the packed kernels.
 
 `spawn_engine_workers` is the parent's helper: starts n workers, waits
 for their ports and returns (procs, clients).
@@ -40,11 +50,6 @@ import time
 from typing import Optional
 
 import torch
-
-_NOT_PORTED = ('the {!r} spec needs checkpoints and train/task.build_model, '
-               'which the port does not have yet (ROADMAP Queue 1 item 5, '
-               'after item 4)')
-
 
 def _seeded_model(kind: str, spec: dict) -> torch.nn.Module:
     """The spec's model on the CPU, from one generator seeded by spec
@@ -89,14 +94,29 @@ def build_engine_from_spec(spec: dict) -> 'object':
     from quant_tpu_torch.serving.engine import InferenceEngine
 
     kind = spec.get('model', 'lenet_random')
-    if kind in ('experiment', 'artifact'):
-        raise NotImplementedError(_NOT_PORTED.format(kind))
-    if kind not in ('lenet_random', 'resnet18_random'):
+    if kind not in ('experiment', 'artifact', 'lenet_random',
+                    'resnet18_random'):
         raise ValueError(f'unknown model spec {kind!r}')
     device = resolve_device(spec.get('device', 'cuda'))
-    default_shape = (28, 28, 1) if kind == 'lenet_random' else (224, 224, 3)
-    input_shape = tuple(spec.get('input_shape', default_shape))
-    model = _seeded_model(kind, spec).to(device)
+    if kind == 'experiment':
+        from quant_tpu_torch.nn import export
+        from quant_tpu_torch.serving.prepare import (
+            serve_packed, load_experiment_model,
+        )
+        model, _, _ = load_experiment_model(spec['experiment_dir'], device)
+        export.export_packed_variables(serve_packed(model))
+        export.fold_for_serving(model)
+        input_shape = tuple(spec['input_shape'])
+    elif kind == 'artifact':
+        from quant_tpu_torch.serving.prepare import load_serving_artifact
+        model, art_shape = load_serving_artifact(spec['artifact_dir'],
+                                                 device)
+        input_shape = tuple(spec.get('input_shape', art_shape))
+    else:
+        default_shape = ((28, 28, 1) if kind == 'lenet_random'
+                         else (224, 224, 3))
+        input_shape = tuple(spec.get('input_shape', default_shape))
+        model = _seeded_model(kind, spec).to(device)
     return InferenceEngine(model, input_shape,
                            max_batch=int(spec.get('max_batch', 32)),
                            batch_buckets=spec.get('batch_buckets'),

@@ -6,7 +6,10 @@ nvcc, the card's name, CUDA events and the launch counters (which only
 a CUDA launch bumps) are stood in for, the probe path is cut to toy
 sizes, the serving stack to 4 requests with its worker processes
 serving the 'lenet_random' spec on the CPU, and the model and recipe
-phases to small models, the train phase to small models at batch 2.
+phases to small models, the train phase to small models at batch 2,
+the experiment phase to a small MNIST (LeNet-5 at the recipe's widths)
+and to small ResNets at 32 px on 8 synthetic images, its torch.profiler
+reading (which needs the card's kernels) stood in for.
 That catches Python-level breakage of the
 script (arguments, shapes, the phases' control flow, the report's keys)
 before a run on the card.
@@ -50,7 +53,7 @@ def phase_counts() -> list[dict]:
 
 
 
-def worker_launches(before: dict, after: dict) -> dict:
+def worker_launches(before: dict, after: dict, per_batch=None) -> dict:
     """The CPU workers launch no kernel: their counts stay as they were."""
     got = {k: after['kernel_launches'][k] - before['kernel_launches'][k]
            for k in after['kernel_launches']}
@@ -58,6 +61,20 @@ def worker_launches(before: dict, after: dict) -> dict:
         got)
     assert not any(got.values()), got
     return got
+
+
+# The experiment phase's ImageNet recipes narrowed to small_config's
+# ResNets (width 8, one block a stage, 10 classes) at 32 px, batch 4.
+SMALL_RECIPE = {
+    'model.arch_config': {
+        'layer0': {'n_in_channels': 8, 'kernel_size': 7, 'stride': 2,
+                   'padding': 3, 'bias': False,
+                   'maxpool': {'type': 'maxpool2d', 'kernel_size': 3,
+                               'stride': 2, 'padding': 1}},
+        'num_blocks': [1, 1, 1, 1], 'output_classes': 10},
+    'data': {'train_batch_size': 4, 'test_batch_size': 4}}
+SMALL_SERVED = {'xnor_conv2d': 8, 'pack_sign_planes': 8,
+                'max_pool_3x3_s2_p1': 1}
 
 
 def small_family(family: str):
@@ -103,8 +120,14 @@ def rehearsal(monkeypatch):
     train_eval = dict(idle, max_pool_3x3_s2_p1=2)
     train_serve = dict(idle, xnor_conv2d=8, pack_sign_planes=8,
                        max_pool_3x3_s2_p1=1)
+    # The experiment phase: the LeNet-5 artifact's forward, the teacher's
+    # run (its eval's pool), the KD student's run (2 steps of the frozen
+    # teacher, 1 eval batch), the small ResNet artifact's forward.
+    experiment = [dict(idle, xnor_conv2d=1, pack_sign_planes=1),
+                  dict(idle, max_pool_3x3_s2_p1=1),
+                  dict(idle, max_pool_3x3_s2_p1=3), dict(idle, **SMALL_SERVED)]
     counts = iter([main, frontend, *phase_counts(), *train_steps,
-                   train_eval, train_serve, probe])
+                   train_eval, train_serve, *experiment, probe])
     monkeypatch.setattr(chip_smoke, 'PHASE_MODELS', SMALL_MODELS)
     monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
     monkeypatch.setattr(chip_smoke, 'card_ms',
@@ -139,6 +162,17 @@ def rehearsal(monkeypatch):
                  'TRAIN_SERVE_BATCH'):
         monkeypatch.setattr(chip_smoke, name, 2)
     monkeypatch.setattr(chip_smoke, 'cuda_event', HostEvent)
+    monkeypatch.setattr(chip_smoke, 'EXPERIMENT_MNIST', dict(
+        chip_smoke.EXPERIMENT_MNIST, train=128, test=64))
+    imagenet = chip_smoke.EXPERIMENT_IMAGENET
+    monkeypatch.setattr(chip_smoke, 'EXPERIMENT_IMAGENET', dict(
+        imagenet, per_forward=SMALL_SERVED, data=dict(
+            imagenet['data'], image_shape=[32, 32, 3], num_classes=10,
+            train_size=8, test_size=4)))
+    monkeypatch.setattr(chip_smoke, 'EXPERIMENT_OVERRIDES', {
+        imagenet['teacher']: SMALL_RECIPE, imagenet['student']: SMALL_RECIPE})
+    monkeypatch.setattr(chip_smoke, 'loader_profile', lambda step, state,
+                        batches: dict(steps=len(batches), idle_share=None))
     # The small student's bf16 chain is 7-13% of the logit spread from its
     # float32 one (few channels, a 1x1 last map the pool cannot average):
     # its served bf16 logits are held to 20% here, the card's full-width
@@ -254,6 +288,28 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     assert train['serve']['launches'] == {
         'xnor_conv2d': 8, 'pack_sign_planes': 8, 'max_pool_3x3_s2_p1': 1}
     assert train['serve']['fp32_rel_err'] < 1e-5
+    experiment = report['experiment']
+    assert [json.loads(ln)['experiment_phase'] for ln in lines
+            if ln.startswith('{"experiment_phase"')] == [experiment]
+    mnist = experiment['mnist']
+    assert mnist['restored_eval_rel_err'] == 0.0
+    assert len(mnist['test_metrics']) == 2 and mnist['steps_per_epoch'] == 2
+    assert mnist['ms_per_step_loader'] > 0 and mnist[
+        'ms_per_step_fixed_batch'] > 0
+    runs = experiment['imagenet']['runs']
+    assert runs['teacher']['launches'] == {'max_pool_3x3_s2_p1': 1}
+    assert runs['student']['launches'] == {'max_pool_3x3_s2_p1': 3}
+    assert runs['student']['ms_per_step_fixed_batch'] == train['configs'][
+        0]['ms_per_step']
+    assert experiment['imagenet']['teacher_equal']
+    for served, per_forward in (
+            (mnist['serving'], {'xnor_conv2d': 1, 'pack_sign_planes': 1}),
+            (experiment['imagenet']['serving'], SMALL_SERVED)):
+        assert served['launches_per_forward'] == per_forward
+        assert served['requests'] == 16 and served['exit_codes'] == [0]
+        assert served['cpu_max_abs_err'] == served['worker_max_abs_err'] == 0
+        assert served['worker_tf32_vs_off_max_abs_err'] == 0
+        assert served['worker_startup_s'] > 0
     stack = report['serving_stack']
     assert stack['frontend']['batches'] == 2
     assert stack['frontend']['launches'] == {

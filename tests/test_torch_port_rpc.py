@@ -349,9 +349,17 @@ def test_spawn_kills_started_workers_when_one_fails(monkeypatch):
     assert marked_pids() == []
 
 
-def test_worker_specs_that_wait_for_checkpoints_raise():
-    for kind in ('experiment', 'artifact'):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-            worker.build_engine_from_spec({'model': kind})
+def test_worker_specs_that_wait_for_checkpoints_raise(tmp_path):
+    """The checkpoint specs need their directory: without one, or with one
+    that holds no config and checkpoint, they raise (they serve in
+    tests/test_torch_port_prepare.py); an unknown spec raises too."""
+    for kind, key in (('experiment', 'experiment_dir'),
+                      ('artifact', 'artifact_dir')):
+        with pytest.raises(KeyError, match=key):
+            worker.build_engine_from_spec({'model': kind, 'device': 'cpu'})
+        with pytest.raises(FileNotFoundError):
+            worker.build_engine_from_spec({
+                'model': kind, key: str(tmp_path), 'device': 'cpu',
+                'input_shape': [28, 28, 1]})
     with pytest.raises(ValueError, match='unknown model spec'):
         worker.build_engine_from_spec({'model': 'vgg'})
