@@ -65,10 +65,20 @@ the chip-probe path:
    their twins on its captured inputs and times them there: one kernels
    row a phase, with the registers and blocks an SM of the instance it
    takes;
-8. calibrates the two recipe models (RECIPE_PHASES): EMA scales from
+8. runs the oracle phase (ORACLE_RUNS): apple/ml-quant's own small
+   XNOR ResNet (ls-2 x ls-1) and LeNet-5 (ls-1 x ls-1) from
+   tests/data_oracle, their state dicts imported through
+   utils.torch_import onto the card: the dense forwards and the packed
+   ones (the ResNet on the int8 route, 6 xnor_conv2d_planes and 6
+   producers, and on JAX's 'auto' route, the bake; LeNet-5 1
+   xnor_conv2d and 1 producer), launches read around each, held to the
+   reference's logits (1e-3 dense, 5e-2 and equal argmax packed) and
+   each kernel to its twin on the captured inputs; then the export ->
+   import round trip (utils.torch_export) on the card;
+9. calibrates the two recipe models (RECIPE_PHASES): EMA scales from
    four seeded batches on the card and on the CPU (held to
    CALIBRATION_REL_TOL), then folded, stripped and served;
-9. trains (the train phase, TRAIN_CONFIGS): the QAT train step of the
+10. trains (the train phase, TRAIN_CONFIGS): the QAT train step of the
    ImageNet KD recipes at full width (ResNet-18 XNOR student, 224 px,
    1000 classes, batch 256; a seeded regular fp ResNet-18 teacher in
    train mode; Adam under linear_lr, pure KD), after two checks: one
@@ -86,7 +96,7 @@ the chip-probe path:
    binary conv, the pool once; the packed float32 chain within 2% of
    the logit spread of its calibrated dense twin's, the served bf16
    logits within 5%);
-10. runs the experiment phase, the port's entry point as users run it:
+11. runs the experiment phase, the port's entry point as users run it:
    the recipe drivers (quant_tpu_torch.examples) in process on the
    recipes' YAML files, cut as EXPERIMENT_MNIST and EXPERIMENT_IMAGENET
    say. (a) mnist_ls1.yaml on a seeded IDX-gz MNIST the phase writes:
@@ -95,20 +105,33 @@ the chip-probe path:
    --calibrate-dataset, the artifact served in process (its launches a
    forward), on the CPU and from an 'artifact' worker process; the
    loader's ms a step beside a fixed batch's and its idle share
-   (torch.profiler). (b) The ImageNet KD pair at full width on the
-   synthetic loader: the teacher imagenet_fp.yaml, then
+   (torch.profiler); each worker's float32 logits are held to the CPU's
+   (the worker serves with TF32 off) and bit for bit to an in-process
+   engine. Then the pod phase: one DP train step of three small models
+   (DP_STEP_CASES, BN and EMA statistics, one with remat) at a world of
+   2 on gloo on the card, held to this process's step on the whole
+   batch at the CPU test's step tolerance, with the local-statistics
+   control shown to differ; the same recipe through
+   PodComputePlatform on a smaller MNIST (POD_MNIST), a world of 1 on
+   NCCL and a world of 2 on gloo (both ranks on the card), each equal
+   to this process's run of the same logical batches, the ranks'
+   metrics equal, and a world of 2 whose rank 1 gets SIGTERM (the gang
+   stops at one step, one interrupt checkpoint). (b) The ImageNet KD
+   pair at full width on the synthetic loader: the teacher
+   imagenet_fp.yaml, then
    imagenet_ls1_kd.yaml from the teacher's config.yaml and checkpoint
    (the stem pool launched once an eval batch and once a step by the
    frozen teacher), the loaded teacher equal to its experiment's own
    model, serving.prepare --calibrate-synthetic, the artifact served as
    in (a) (16 xnor_conv2d, 16 pack_sign_planes, 1 pool a forward); one
    JSON line {"experiment_phase": ...};
-11. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+12. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
-Prints the card line, a JSON line {"kernels": [...]}, a JSON line
-{"probes": [...]} and, last, {"ok": true, "device": {...}}. Any failed
+Prints the card line, JSON lines {"oracle_phase": ...},
+{"experiment_phase": ...}, {"kernels": [...]} and {"probes": [...]}
+and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and exits non-zero; without CUDA it exits 2 before printing
 any result.
 
@@ -391,9 +414,113 @@ EXPERIMENT_EVAL_REL_TOL = 1e-6
 # Fixed-batch steps of the MNIST recipe's LeNet-5, timed beside the
 # loader's steps; steps the profiler reads for the idle share.
 EXPERIMENT_FIXED_STEPS, EXPERIMENT_PROFILE_STEPS = 20, 30
-# A worker process keeps PyTorch's defaults, (float32 matmuls in TF32,
-# cuDNN convs in TF32) = (False, True); this script turns both off.
-WORKER_TF32 = (False, True)
+# The reference-checkpoint oracles: apple/ml-quant's own models (state
+# dicts with warmed quantizer, EMA and BN buffers, an input, the
+# reference's logits) in tests/data_oracle, imported through
+# utils.torch_import and built as tests/nn/test_torch_import.py builds
+# them. Held as there: dense within ORACLE_DENSE_TOL, packed within
+# ORACLE_PACKED_TOL with equal argmax (allclose's atol = rtol = tol).
+ORACLE_DIR = 'tests/data_oracle'
+_ORACLE_LAYER = {'x_quant': 'ls-2', 'w_quant': 'ls-1',
+                 'clamp': {'kind': 'symmetric', 'alpha': 2.0},
+                 'double_shortcut': True}
+ORACLES = {
+    'resnet': dict(file='resnet_small_ls2_ls1.npz', num_blocks=[1, 1, 1],
+                   config=dict(
+                       block='xnor',
+                       layer0={'n_in_channels': 8, 'kernel_size': 3,
+                               'stride': 1, 'padding': 1, 'bias': False,
+                               'maxpool': {'type': 'identity'}},
+                       layer1=dict(_ORACLE_LAYER),
+                       layer2=dict(_ORACLE_LAYER),
+                       layer3=dict(_ORACLE_LAYER), layer4=None,
+                       nonlins=['prelu', 'prelu'], num_blocks=[1, 1, 1],
+                       output_classes=10, moving_average_mode='eval_only',
+                       solver_mode='reference')),
+    'lenet': dict(file='lenet_ls1_ls1.npz', conv2_filters=12, config=dict(
+        conv1_filters=8, conv2_filters=12, output_classes=10,
+        x_quant='ls-1', w_quant='ls-1', clamp={'kind': 'identity'},
+        moving_average_mode='eval_only', solver_mode='reference')),
+}
+ORACLE_DENSE_TOL, ORACLE_PACKED_TOL = 1e-3, 5e-2
+# (oracle, inference_mode, sign_compute, launches of the forward). The
+# ResNet's three XNOR blocks hold two binary convs each: on the int8
+# route, one producer (k = 2, ls-2) and one multi-plane conv a conv; on
+# JAX's 'auto' route ls-2 x ls-1 takes the bf16 bake, PyTorch ops only,
+# and its stem has no pool. LeNet-5's one binary conv (ls-1 x ls-1)
+# takes the ls-1 conv on 'auto'. The dense forwards launch nothing.
+ORACLE_RUNS = (
+    ('resnet', 'dense', 'auto', {}),
+    ('resnet', 'packed', 'int8', {'xnor_conv2d_planes': 6,
+                                  'pack_sign_planes': 6}),
+    ('resnet', 'packed', 'auto', {}),
+    ('lenet', 'dense', 'auto', {}),
+    ('lenet', 'packed', 'auto', {'xnor_conv2d': 1, 'pack_sign_planes': 1}),
+)
+# The pod phase: the MNIST recipe (EXPERIMENT_MNIST) through
+# PodComputePlatform on a smaller seeded MNIST (POD_MNIST images: 20
+# steps of the recipe's batch 64, one epoch), as a world of 1 on NCCL and
+# a world of 2 on gloo with both ranks on the one card (NCCL refuses two
+# ranks on one card), each against this process's single-process run of
+# the same logical batches (the ranks' shards in rank order); then a
+# world of 2 preempted: SIGTERM to rank 1 once checkpoint_3 exists, its
+# third epoch (checkpoint_2 to checkpoint_3: 20 steps, the eval, the
+# checkpoint) timed beside the single-process epoch.
+POD_MNIST = dict(train=1280, test=1000, epochs=1, preempt_epochs=50)
+POD_RUNS = ((1, None), (2, 'gloo'))
+POD_TIMEOUT = 300
+# The pod phase's runs, pods and this process's alike, take cuDNN's
+# deterministic algorithms (pod_worker.DETERMINISTIC_ENV): with the
+# default ones one process's run of this recipe against itself moves
+# its test loss by several % in 20 steps (the phase measures it:
+# 'default_cudnn_spread'): their backward sums in a run-dependent order,
+# and the binary net's sign flips and Adadelta's near-constant early
+# steps carry ulps that far. Deterministic, a run repeats itself.
+POD_DETERMINISTIC = True
+# Pod against the single-process run, {world: {part: (loss, relative;
+# accuracies, in examples of the part's set)}}. A world of 1 is the
+# single process's program on its batches: equal. A world of 2 sums its
+# BN statistics, gradients and metrics as per-rank partial sums over
+# half batches (other cuDNN shapes), a float32 order of its own, which
+# the sign flips carry along the trajectory: the train metrics, a mean
+# over the epoch's steps, stay close; the final model's test metrics
+# move further (on an H100 80GB HBM3 at 700 W: train loss 1.7e-3, 3 and
+# 3 examples of 1,280; test loss 3.5e-2, 2 and 0 examples of 1,000).
+# These limits check the pod's plumbing end to end; a band this wide
+# would not by itself catch a data-parallel fault such as statistics
+# left local. The DP step below is the gate for that on the card.
+POD_LIMITS = {1: {'train': (0.0, 0), 'test': (0.0, 0)},
+              2: {'train': (1e-2, 12), 'test': (1e-1, 10)}}
+# The DP step on the card: a world of 2 on gloo, both ranks on the card,
+# each on half of one seeded batch of DP_STEP_BATCH, takes one train step
+# with a mesh; its gradients, updated variables (params, BN statistics,
+# EMA scales), loss and metrics are held to one step of this process on
+# the whole batch at the CPU test's step tolerance
+# (tests/test_torch_port_dp.py STEP_TOL: the global batch's sums taken as
+# two partial sums, a few ulps). The cases are that test's: a LeNet-5
+# with BatchNorm (float activations into its conv2), a small XNOR ResNet
+# (BatchNorm and EMA activation scales) and the same ResNet with each
+# block rematerialized. The control: the same ranks with their
+# statistics left local move the BN running statistics by more than
+# DP_LOCAL_MIN_DIFF from the whole batch's, so the gate can fail.
+DP_STEP_CASES = {
+    'lenet': ('lenet', 'fp', 'ls-1', 'nll_loss', (28, 28, 1), {}),
+    'xnor_resnet': ('xnor', 'ls-1', 'ls-1', 'cross_entropy', (32, 32, 3),
+                    {}),
+    'xnor_resnet_remat': ('xnor', 'ls-1', 'ls-1', 'cross_entropy',
+                          (32, 32, 3), {'remat': True})}
+DP_STEP_BATCH, DP_STEP_WORLD = 8, 2
+DP_STEP_TOL = dict(rtol=2e-5, atol=2e-6)
+# cuDNN off for the DP step's convs, in the ranks and here alike: the
+# step compares two ways of summing the same rows, and on the card
+# cuDNN's deterministic weight-gradient algorithm for the LeNet-5's
+# conv1 (one input channel, 5x5) at 8 rows lands 9.2e-4 of the
+# gradient's largest entry from the float64 value, as two halves of 4
+# rows 2.1e-7 (on an H100 80GB HBM3 at 700 W; the phase records both as
+# 'cudnn_wgrad'), which alone moves that gradient past DP_STEP_TOL.
+# PyTorch's own convs (cuBLAS, TF32 off) sum within 2e-7 at both sizes.
+DP_STEP_CUDNN = False
+DP_LOCAL_MIN_DIFF = 1e-3
 
 
 def card_line() -> str:
@@ -2035,14 +2162,13 @@ def _serve_artifact(out: str, shape: tuple, per_forward: dict,
     """The artifact in process on the card (one forward of
     EXPERIMENT_REQUESTS images, its launches read around it) and on the
     CPU (its logits within FP32_REL_TOL of the spread), then from one
-    'artifact' worker process: the same requests, one at a time, equal
-    to the in-process engine's answers under the worker's TF32 settings
-    (WORKER_TF32), the worker's launches from its stats. Both engines
-    pad every batch to one bucket of EXPERIMENT_REQUESTS, so each
-    forward takes one cuDNN algorithm: the float32 stem's rounding flips
-    binary activations near their thresholds (the ResNet-18 artifact's
-    worker under cuDNN's TF32 against this process without: 3.3-3.4% of
-    the logit spread, measured)."""
+    'artifact' worker process: the same requests, one at a time, within
+    FP32_REL_TOL of the CPU's spread and equal to the in-process
+    engine's answers (the worker serves with TF32 off, as this process
+    runs), the worker's launches from its stats. Both engines pad every
+    batch to one bucket of EXPERIMENT_REQUESTS, so each forward takes one
+    cuDNN algorithm: the float32 stem's rounding flips binary
+    activations near their thresholds."""
     from quant_tpu_torch import _build
     from quant_tpu_torch.serving.engine import InferenceEngine
     from quant_tpu_torch.serving.prepare import load_serving_artifact
@@ -2073,8 +2199,6 @@ def _serve_artifact(out: str, shape: tuple, per_forward: dict,
             and cpu_err <= FP32_REL_TOL * spread):
         raise AssertionError(f'{out}: card vs CPU max abs err {cpu_err}, '
                              f'spread {spread}')
-    with tf32(*WORKER_TF32):
-        want_worker = engine.predict(images)
     spec = {'model': 'artifact', 'artifact_dir': out, 'device': DEVICE,
             'max_batch': EXPERIMENT_REQUESTS, 'batch_buckets': bucket}
     t0 = time.perf_counter()
@@ -2096,8 +2220,15 @@ def _serve_artifact(out: str, shape: tuple, per_forward: dict,
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait(timeout=60)
-    err = float(np.abs(got - want_worker).max())
-    if not np.array_equal(got, want_worker):
+    err = float(np.abs(got - want).max())
+    worker_cpu_err = float(np.abs(got - cpu).max())
+    print(f'{out}: worker vs CPU max abs err {worker_cpu_err} '
+          f'({worker_cpu_err / spread} of the spread), vs in-process '
+          f'engine {err}', flush=True)
+    if not worker_cpu_err <= FP32_REL_TOL * spread:
+        raise AssertionError(f'{out}: worker vs CPU max abs err '
+                             f'{worker_cpu_err}, spread {spread}')
+    if not np.array_equal(got, want):
         raise AssertionError(f'{out}: worker vs in-process engine max abs '
                              f'err {err}, spread {spread}')
     return dict(requests=len(images), launches_per_forward=launches,
@@ -2105,8 +2236,8 @@ def _serve_artifact(out: str, shape: tuple, per_forward: dict,
                 cpu_rel_err=cpu_err / spread, worker_startup_s=startup_s,
                 worker_batches=after['batches'] - before['batches'],
                 worker_launches=worker, worker_max_abs_err=err,
-                worker_tf32_vs_off_max_abs_err=float(
-                    np.abs(want_worker - want).max()),
+                worker_cpu_max_abs_err=worker_cpu_err,
+                worker_cpu_rel_err=worker_cpu_err / spread,
                 exit_codes=[p.returncode for p in procs])
 
 
@@ -2284,6 +2415,596 @@ def imagenet_experiment(root: str, seed: int, train_record: dict) -> dict:
                 teacher_equal=True, prepare_s=prepare_s, serving=served)
 
 
+def load_oracle(name: str) -> tuple[dict, np.ndarray, np.ndarray]:
+    """(the reference's state dict, its input NHWC, its logits)."""
+    data = np.load(os.path.join(ORACLE_DIR, ORACLES[name]['file']))
+    sd = {k[4:]: data[k] for k in data.files if k.startswith('sd::')}
+    return (sd, np.ascontiguousarray(np.transpose(data['input'],
+                                                  (0, 2, 3, 1))),
+            data['logits'])
+
+
+def _oracle_tree(name: str, sd: dict) -> dict:
+    from quant_tpu_torch.utils import torch_import as TI
+
+    spec = ORACLES[name]
+    if name == 'resnet':
+        return TI.import_resnet_state_dict(sd, num_blocks=spec['num_blocks'])
+    return TI.import_lenet_state_dict(sd, conv2_filters=spec['conv2_filters'])
+
+
+def oracle_model(name: str, device: str, sd: Optional[dict] = None,
+                 **kw: Any) -> torch.nn.Module:
+    """The oracle's model on `device` holding the reference's state dict
+    (the oracle's own unless sd is given), imported through
+    utils.torch_import and merged onto the model's variables."""
+    from quant_tpu_torch.nn import MODEL_REGISTRY
+    from quant_tpu_torch.utils.jax_import import (
+        from_jax_variables, to_jax_variables,
+    )
+    from quant_tpu_torch.utils.torch_import import merge_imported
+
+    if sd is None:
+        sd = load_oracle(name)[0]
+    cls = MODEL_REGISTRY['lenet5' if name == 'lenet' else 'resnet']
+    model = cls(**ORACLES[name]['config'], device=device, **kw)
+    return from_jax_variables(model, merge_imported(
+        to_jax_variables(model), _oracle_tree(name, sd)))
+
+
+def _within(got: np.ndarray, want: np.ndarray, tol: float) -> bool:
+    """np.testing.assert_allclose(got, want, rtol=tol, atol=tol)'s test."""
+    return bool(np.all(np.abs(got - want) <= tol + tol * np.abs(want)))
+
+
+def oracle_captured(seen: list) -> dict[str, float]:
+    """The producer and the conv kernels against their twins on every
+    conv input an oracle's packed forward captured (unfolded, EMA
+    scales): ls-1 x ls-1 convs through xnor_conv2d, the others through
+    planes_captured; returns {kernel: max abs error}."""
+    from quant_tpu_torch.ops import binary_infer as B
+
+    errs = {'pack_sign_planes': 0.0}
+    multi = [(c, x) for c, x in seen
+             if B.sign_planes(c.x_quant) > 1 or c.w_packed.shape[0] > 1]
+    if multi:
+        errs.update(planes_captured(multi))
+    for i, (conv, xin) in enumerate(seen):
+        if any(conv is c for c, _ in multi):
+            continue
+        xp, args = _producer_args(conv, xin)
+        for x in (xp, xp.float()):
+            errs['pack_sign_planes'] = max(
+                errs['pack_sign_planes'], check_equal(
+                    f'pack_sign_planes oracle {i} {x.dtype}',
+                    B.pack_sign_planes(x, 1, *args),
+                    B.pack_sign_planes_plain(x, 1, *args)))
+        conv_args = (B.pack_sign_planes_plain(xp, 1, *args)[0],
+                     conv.w_packed[0].contiguous(), args[0][0],
+                     conv.w_scales[0], conv.bias)
+        kw = dict(in_channels=xin.shape[-1], stride=conv.stride,
+                  padding=conv.padding)
+        for dt in (torch.bfloat16, torch.float32):
+            errs['xnor_conv2d'] = max(errs.get('xnor_conv2d', 0.0),
+                                      check_equal(
+                f'xnor_conv2d oracle {i} {dt}',
+                B.xnor_conv2d(*conv_args, out_dtype=dt, **kw),
+                B.xnor_conv2d_plain(*conv_args, out_dtype=dt, **kw)))
+    torch.cuda.synchronize()
+    return errs
+
+
+def _oracle_round_trip(name: str) -> dict:
+    """The oracle imported into a model on the card, exported back
+    (utils.torch_export) and imported into a fresh model: the export
+    equals the reference's state dict (its BN batch counters, which the
+    tree does not track, aside) and the fresh model's tree the source's,
+    leaf for leaf."""
+    from quant_tpu_torch.utils import torch_export as TE
+    from quant_tpu_torch.utils.jax_import import to_jax_variables
+
+    sd = load_oracle(name)[0]
+    spec = ORACLES[name]
+    source = to_jax_variables(oracle_model(name, DEVICE,
+                                           inference_mode='dense'))
+    if name == 'resnet':
+        exported = TE.export_resnet_state_dict(
+            source, num_blocks=spec['num_blocks'], momentum=0.99)
+    else:
+        exported = TE.export_lenet_state_dict(
+            source, conv2_filters=spec['conv2_filters'], momentum=0.99)
+    if set(exported) != set(sd):
+        raise AssertionError(f'{name} export: keys differ from the '
+                             'reference state dict')
+    for k, v in exported.items():
+        counter = (k.endswith('num_batches_tracked')
+                   and 'moving_avg_module' not in k)
+        if v.shape != sd[k].shape or not (
+                counter or np.array_equal(v, sd[k])):
+            raise AssertionError(f'{name} export: {k} differs')
+    back = to_jax_variables(oracle_model(name, DEVICE, sd=exported,
+                                         inference_mode='dense'))
+    paths = dict(_tree_leaves(source))
+    for path, leaf in _tree_leaves(back):
+        if not (leaf.dtype == paths[path].dtype
+                and np.array_equal(leaf, paths[path])):
+            raise AssertionError(f'{name} round trip: {path} differs')
+    if len(paths) != len(_tree_leaves(back)):
+        raise AssertionError(f'{name} round trip: leaves differ')
+    return dict(keys=len(exported), leaves=len(paths))
+
+
+def _tree_leaves(tree: dict, prefix: str = '') -> list:
+    if not isinstance(tree, dict):
+        return [(prefix, np.asarray(tree))]
+    return [leaf for k, v in tree.items()
+            for leaf in _tree_leaves(v, f'{prefix}/{k}')]
+
+
+def oracle_phase() -> tuple[dict, dict[str, float]]:
+    """The reference-checkpoint oracles on the card (ORACLE_RUNS): each
+    forward's launches read around it, held to the reference's logits;
+    each packed forward's kernels held to their twins on the captured
+    inputs; each dense forward beside the CPU's. A dense forward past
+    ORACLE_DENSE_TOL of the reference (the card's float32 sum order) is
+    held instead to FP32_REL_TOL of the spread against the CPU's, with
+    the reference's argmax. Then the export -> import round trip on the
+    card. Returns (record, {kernel: max abs error})."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.nn.export import export_packed_variables
+
+    t0 = time.perf_counter()
+    runs, errs = [], {}
+    for name, mode, route, want in ORACLE_RUNS:
+        _, x, ref = load_oracle(name)
+        model = oracle_model(name, DEVICE, inference_mode=mode,
+                             sign_compute=route)
+        if mode == 'packed':
+            export_packed_variables(model)
+        seen, hooks = capture_conv_inputs(model)
+        xt = torch.from_numpy(x).to(DEVICE)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with torch.inference_mode():
+            out = model(xt)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        for h in hooks:
+            h.remove()
+        out = out.cpu().numpy()
+        run = dict(oracle=name, mode=mode, sign_compute=route,
+                   launches=launches,
+                   max_abs_err=float(np.abs(out - ref).max()),
+                   argmax_equal=bool(np.array_equal(out.argmax(-1),
+                                                    ref.argmax(-1))))
+        label = f'oracle {name} {mode} {route}'
+        if launches != want:
+            raise AssertionError(f'{label}: launches {launches}, expected '
+                                 f'{want}')
+        if mode == 'packed':
+            run['held_to'] = 'reference'
+            if not (_within(out, ref, ORACLE_PACKED_TOL)
+                    and run['argmax_equal']):
+                raise AssertionError(f'{label}: {run}')
+            if launches:
+                with torch.inference_mode():
+                    captured = oracle_captured(seen)
+                for kname, err in captured.items():
+                    errs[kname] = max(errs.get(kname, 0.0), err)
+                run['captured'] = captured
+        else:
+            with torch.inference_mode():
+                cpu = oracle_model(name, 'cpu', inference_mode=mode)(
+                    torch.from_numpy(x)).numpy()
+            run['cpu_max_abs_err'] = float(np.abs(out - cpu).max())
+            spread = float(cpu.max() - cpu.min())
+            if _within(out, ref, ORACLE_DENSE_TOL):
+                run['held_to'] = 'reference'
+            elif (run['cpu_max_abs_err'] <= FP32_REL_TOL * spread
+                  and run['argmax_equal']):
+                run['held_to'] = 'cpu'
+            else:
+                raise AssertionError(f'{label}: {run}')
+        print(f'{label}: {run}', flush=True)
+        runs.append(run)
+    round_trip = {name: _oracle_round_trip(name) for name in ORACLES}
+    record = dict(runs=runs, round_trip=round_trip,
+                  s=time.perf_counter() - t0)
+    print(json.dumps({'oracle_phase': record}), flush=True)
+    return record, errs
+
+
+def _pod_config(cfg_path: str, name: str, **over: Any) -> dict:
+    """The recipe copy's config as the MNIST driver parses it."""
+    from quant_tpu_torch.config import get_base_argument_parser, parse_config
+
+    config = parse_config(get_base_argument_parser('pod').parse_args(
+        ['--config', cfg_path, '--experiment-name', name, '--device',
+         DEVICE]))
+    for section, keys in over.items():
+        config[section] = {**config[section], **keys}
+    return config
+
+
+def pod_reference(config: dict, world: int) -> tuple[dict, dict, dict]:
+    """The single-process run of the pod's logical batches (the ranks'
+    shards in rank order) in this process: (train metrics, test
+    metrics, {'s': the run's seconds, 'epoch_s': its train and eval})."""
+    from quant_tpu_torch import train as T
+    from quant_tpu_torch.data import MNISTDataLoader
+    from quant_tpu_torch.parallel.multihost import shard_loader_for_host
+    from quant_tpu_torch.train.task import init_model_variables
+
+    t0 = time.perf_counter()
+    data = MNISTDataLoader(**{k: v for k, v in config['data'].items()
+                              if k != 'dataset'})
+    shards = [shard_loader_for_host(data.get_train_loader(), pi, world)
+              for pi in range(world)]
+    logical = [(np.concatenate([b[0] for b in step]),
+                np.concatenate([b[1] for b in step]))
+               for step in zip(*shards)]
+    model_cfg = config['model']
+    model = init_model_variables(model_cfg['architecture'],
+                                 model_cfg['arch_config'], config.get('seed'),
+                                 DEVICE)
+    tx, _ = T.make_optimizer(config['optimization'],
+                             config['optimization']['epochs'], len(logical))
+    state = T.TrainState.create(model, tx)
+    loss = T.get_loss_fn(model_cfg['loss'])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, train_m = T.train_epoch(T.make_train_step(loss), state, logical,
+                                   epoch=1, log_interval=10 ** 6)
+    test_m = T.evaluate(T.make_eval_step(loss), state,
+                        data.get_test_loader())
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    return train_m, test_m, dict(s=done - t0, epoch_s=done - t1,
+                                 steps=len(logical))
+
+
+def _pod_preempt(cfg_path: str, exps: str, env: dict) -> dict:
+    """A world of 2 (gloo) on POD_MNIST['preempt_epochs'] epochs, SIGTERM
+    to rank 1 once checkpoint_3 exists: both ranks stop at one step (a
+    rank left in a step's collectives would hold the run to its
+    timeout), rank 0 writes one interrupt checkpoint, both exit 0. The
+    third epoch's seconds come from the checkpoints' times."""
+    import signal
+    import threading
+
+    from quant_tpu_torch.experiment import Experiment
+    from quant_tpu_torch.parallel.multihost import BACKEND_ENV
+    from quant_tpu_torch.platform import PodComputePlatform
+    from quant_tpu_torch.train.task import classification_task
+    from quant_tpu_torch.utils.checkpoints import (
+        get_path_to_checkpoint, restore_checkpoint,
+    )
+
+    epochs = POD_MNIST['preempt_epochs']
+    config = _pod_config(cfg_path, 'pod_preempt',
+                         optimization={'epochs': epochs},
+                         log={'save_model_freq': 1})
+    ckpts = os.path.join(exps, 'pod_preempt', 'checkpoints')
+    fired: dict = {}
+
+    def preempt_rank_1(procs: list) -> None:
+        def fire() -> None:
+            deadline = time.monotonic() + POD_TIMEOUT / 2
+            while (not os.path.exists(os.path.join(ckpts, 'checkpoint_3'))
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            fired['t'] = time.perf_counter()
+            procs[1].send_signal(signal.SIGTERM)
+        threading.Thread(target=fire, daemon=True).start()
+
+    platform = PodComputePlatform(2, env={**env, BACKEND_ENV: 'gloo'},
+                                  timeout=POD_TIMEOUT)
+    platform.on_spawn = preempt_rank_1
+    t0 = time.perf_counter()
+    platform.run(Experiment(classification_task, config))
+    done = time.perf_counter()
+    tag = os.path.basename(str(get_path_to_checkpoint(os.path.dirname(
+        ckpts))))
+    payload = restore_checkpoint(os.path.join(ckpts, tag))
+    interrupted = int(tag.rsplit('_', 1)[1])
+    written = sorted(os.listdir(ckpts))
+    # Stopped in training, the payload resumes the interrupted epoch;
+    # stopped in its eval, the next (train.task).
+    if not (int(payload['epoch']) in (interrupted - 1, interrupted)
+            and interrupted < epochs and len(written) == interrupted):
+        raise AssertionError(f'pod preemption: {tag}, payload epoch '
+                             f'{payload["epoch"]}, checkpoints {written}')
+    epoch_s = (os.path.getmtime(os.path.join(ckpts, 'checkpoint_3'))
+               - os.path.getmtime(os.path.join(ckpts, 'checkpoint_2')))
+    return dict(epochs=epochs, interrupted_epoch=interrupted,
+                checkpoint_step=int(payload['step']), checkpoints=written,
+                s=done - t0, stop_s=done - fired['t'], epoch3_s=epoch_s)
+
+
+def _dp_step(case: str, rows: slice, mesh: Any = None) -> dict:
+    """One train step of a DP_STEP_CASES model on rows of its seeded
+    batch, on the card: {'leaves': {path: array}} of the gradients and
+    the variables after the step, the loss and the metrics."""
+    from quant_tpu_torch import train as T
+    from quant_tpu_torch.train.metrics import init_metric_state
+    from quant_tpu_torch.utils.jax_import import to_jax_variables
+
+    family, xq, wq, loss_name, shape, kw = DP_STEP_CASES[case]
+    gen = torch.Generator().manual_seed(0)
+    model = models.build(family, models.small_config(family, xq, wq),
+                         device='cpu', generator=gen, **kw)
+    models.seed_state(model, gen)
+    model = model.to(DEVICE)
+    tx, _ = T.make_optimizer(
+        {'epochs': 1, 'optimizer': {'algorithm': 'sgd', 'lr': 0.1},
+         'lr_scheduler': {'scheduler': 'step_lr', 'step_size': 1,
+                          'gamma': 1.0}}, 1, 1)
+    state = T.TrainState.create(model, tx)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(
+        (DP_STEP_BATCH,) + shape).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, DP_STEP_BATCH))
+    step = T.make_train_step(T.get_loss_fn(loss_name), mesh=mesh)
+    state, metric_state, loss = step(state, x[rows].to(DEVICE),
+                                     y[rows].to(DEVICE), init_metric_state())
+    leaves = {f'grad/{n}': p.grad.cpu().numpy()
+              for n, p in model.named_parameters() if p.grad is not None}
+
+    def walk(tree: Any, prefix: str) -> None:
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f'{prefix}/{k}')
+        else:
+            leaves[prefix] = np.asarray(tree)
+    walk(to_jax_variables(model), 'tree')
+    return dict(leaves=leaves, loss=float(loss),
+                metrics=T.MetricAccumulator(state=metric_state).compute())
+
+
+def dp_step_worker(rank: int, port: int, out: str, device: str,
+                   cudnn: bool) -> int:
+    """One rank of the DP step (chip_smoke.py --dp-step-worker): joins a
+    gloo world of DP_STEP_WORLD on `device` (DEVICE of the process that
+    spawned it), steps each case on its half of the batch, then again
+    with its statistics left local (the control), and saves the results
+    at `out`."""
+    import contextlib
+
+    from quant_tpu_torch.parallel import make_mesh, multihost
+    from quant_tpu_torch.train import engine
+
+    global DEVICE
+    DEVICE = device
+    if device == 'cuda' and not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    os.environ[multihost.BACKEND_ENV] = 'gloo'
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = cudnn
+    multihost.initialize(f'127.0.0.1:{port}', DP_STEP_WORLD, rank,
+                         device=DEVICE)
+    mesh = make_mesh(device_type=DEVICE)
+    per = DP_STEP_BATCH // DP_STEP_WORLD
+    rows = slice(rank * per, (rank + 1) * per)
+    results = {}
+    global_over = engine.global_stats.over
+    try:
+        for case in DP_STEP_CASES:
+            results[case] = _dp_step(case, rows, mesh)
+            engine.global_stats.over = (
+                lambda group: contextlib.nullcontext())
+            results[case + '_local'] = _dp_step(case, rows, mesh)
+            engine.global_stats.over = global_over
+    finally:
+        engine.global_stats.over = global_over
+        torch.distributed.destroy_process_group()
+    torch.save(results, out)
+    return 0
+
+
+def cudnn_wgrad_check() -> dict:
+    """The LeNet-5 conv1's weight gradient (1 -> 8 channels, 5x5, 28 px)
+    at 8 rows and as the sum of two halves of 4, each relative to the
+    float64 value on the CPU (the largest entry's error over the largest
+    entry), with cuDNN on and off."""
+    gen = torch.Generator().manual_seed(0)
+    x, w, gy = (torch.randn(shape, generator=gen, dtype=torch.float64)
+                for shape in ((8, 1, 28, 28), (8, 1, 5, 5), (8, 8, 24, 24)))
+
+    def wgrad(rows: slice, dtype: torch.dtype, device: str) -> torch.Tensor:
+        ww = w.to(device, dtype).detach().requires_grad_()
+        F.conv2d(x[rows].to(device, dtype), ww).backward(
+            gy[rows].to(device, dtype))
+        return ww.grad.double().cpu()
+
+    exact = wgrad(slice(None), torch.float64, 'cpu')
+    out = {}
+    saved = torch.backends.cudnn.enabled
+    try:
+        for cudnn in (True, False):
+            torch.backends.cudnn.enabled = cudnn
+            for name, got in (
+                    ('8_rows', wgrad(slice(None), torch.float32, DEVICE)),
+                    ('4_plus_4', wgrad(slice(0, 4), torch.float32, DEVICE)
+                     + wgrad(slice(4, 8), torch.float32, DEVICE))):
+                out[f'cudnn_{"on" if cudnn else "off"}_{name}'] = float(
+                    (got - exact).abs().max() / exact.abs().max())
+    finally:
+        torch.backends.cudnn.enabled = saved
+    return out
+
+
+def dp_step_phase(root: str) -> dict:
+    """The DP step of DP_STEP_CASES on the card (a world of 2 on gloo)
+    against this process's step on the whole batch; raises past
+    DP_STEP_TOL, or if the local-statistics control does not differ."""
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    outs = [os.path.join(root, f'dp_step{r}.pt')
+            for r in range(DP_STEP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--dp-step-worker',
+         str(r), str(port), outs[r], DEVICE, str(int(DP_STEP_CUDNN))],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(DP_STEP_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=POD_TIMEOUT)[0].decode(
+                errors='replace'))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f'dp step rank failed:\n{log[-3000:]}')
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    out: dict = dict(batch=DP_STEP_BATCH, world=DP_STEP_WORLD,
+                     backend='gloo', tol=DP_STEP_TOL, cases={})
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = DP_STEP_CUDNN
+    try:
+        wants = {case: _dp_step(case, slice(None)) for case in DP_STEP_CASES}
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    out.update(cudnn=DP_STEP_CUDNN, cudnn_wgrad=cudnn_wgrad_check())
+    for case, want in wants.items():
+        rec: dict = dict(max_abs_err=0.0, worst_excess=0.0, worst=None)
+        for got in (r[case] for r in ranks):
+            if set(got['leaves']) != set(want['leaves']):
+                raise AssertionError(f'dp step {case}: leaves differ')
+            pairs = [(k, got['leaves'][k], want['leaves'][k])
+                     for k in want['leaves']]
+            pairs.append(('loss', np.float64(got['loss']),
+                          np.float64(want['loss'])))
+            pairs += [(k, np.float64(got['metrics'][k]), np.float64(v))
+                      for k, v in want['metrics'].items()]
+            for k, g, w in pairs:
+                err = np.abs(g - w)
+                rec['max_abs_err'] = max(rec['max_abs_err'],
+                                         float(err.max(initial=0.0)))
+                excess = float((err - (DP_STEP_TOL['atol'] + DP_STEP_TOL[
+                    'rtol'] * np.abs(w))).max(initial=0.0))
+                if excess > rec['worst_excess']:
+                    rec.update(worst_excess=excess, worst=k)
+        local = ranks[0][case + '_local']['leaves']
+        rec['local_stats_diff'] = max(
+            float(np.abs(local[k] - want['leaves'][k]).max())
+            for k in want['leaves'] if k.startswith('tree/batch_stats'))
+        out['cases'][case] = rec
+        if rec['worst_excess'] > 0:
+            raise AssertionError(f'dp step {case} vs the single process '
+                                 f'past {DP_STEP_TOL}: {rec}')
+        if not rec['local_stats_diff'] > DP_LOCAL_MIN_DIFF:
+            raise AssertionError(f'dp step {case}: the local-statistics '
+                                 f'control does not differ: {rec}')
+    out['s'] = time.perf_counter() - t0
+    print(f'dp step ({DEVICE}): {out}', flush=True)
+    return out
+
+
+def pod_phase(root: str, seed: int) -> dict:
+    """The MNIST recipe through PodComputePlatform (POD_RUNS), each world
+    against the single-process run of its logical batches, the ranks'
+    metrics equal; then the preempted pod. Seconds of each part. Pods
+    and this process run cuDNN's deterministic algorithms
+    (POD_DETERMINISTIC)."""
+    from quant_tpu_torch.pod_worker import DETERMINISTIC_ENV
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, 'mnist_pod')
+    os.makedirs(data)
+    write_mnist(data, POD_MNIST['train'], POD_MNIST['test'], seed + 1)
+    exps = os.path.join(root, 'pod_experiments')
+    cfg_path = recipe_copy(EXPERIMENT_MNIST['recipe'],
+                           os.path.join(root, 'pod.yaml'), exps,
+                           POD_MNIST['epochs'],
+                           data={'dataset_path': data})
+    out: dict = dict(images=POD_MNIST, worlds=[],
+                     deterministic=POD_DETERMINISTIC)
+    # Why the comparison runs deterministic: one process against itself
+    # under cuDNN's default algorithms.
+    config = _pod_config(cfg_path, 'pod_default_cudnn')
+    runs = [pod_reference(config, 1)[:2] for _ in range(2)]
+    out['default_cudnn_spread'] = {
+        part: abs(runs[0][i]['Loss'] - runs[1][i]['Loss'])
+        / abs(runs[1][i]['Loss']) for i, part in enumerate(('train',
+                                                             'test'))}
+    env = {DETERMINISTIC_ENV: '1'} if POD_DETERMINISTIC else {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = POD_DETERMINISTIC
+    try:
+        out['dp_step'] = dp_step_phase(root)
+        _pod_worlds(cfg_path, env, out)
+        out['preempt'] = _pod_preempt(cfg_path, exps, env)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    steps = out['worlds'][-1]['single_process']['steps']
+    out['preempt']['ms_per_step'] = out['preempt']['epoch3_s'] / steps * 1e3
+    out['single_process_ms_per_step'] = (
+        out['worlds'][-1]['single_process']['epoch_s'] / steps * 1e3)
+    print(f'pod preempted: {out["preempt"]}; single process '
+          f'{out["single_process_ms_per_step"]} ms a step; one process '
+          f'against itself, default cuDNN, loss relative: '
+          f'{out["default_cudnn_spread"]}', flush=True)
+    out['s'] = time.perf_counter() - t0
+    return out
+
+
+def _pod_worlds(cfg_path: str, env: dict, out: dict) -> None:
+    """Each world of POD_RUNS against this process's run of its logical
+    batches, the ranks' metrics equal; records into out['worlds']."""
+    from quant_tpu_torch.experiment import Experiment
+    from quant_tpu_torch.parallel.multihost import BACKEND_ENV
+    from quant_tpu_torch.platform import PodComputePlatform
+    from quant_tpu_torch.train.task import classification_task
+
+    for world, backend in POD_RUNS:
+        config = _pod_config(cfg_path, f'pod_world{world}')
+        platform = PodComputePlatform(
+            world, env={**env, BACKEND_ENV: backend} if backend else env,
+            timeout=POD_TIMEOUT)
+        t1 = time.perf_counter()
+        train_m, test_m = platform.run(Experiment(classification_task,
+                                                  config))
+        pod_s = time.perf_counter() - t1
+        if any(m != platform.rank_metrics[0]
+               for m in platform.rank_metrics):
+            raise AssertionError(f'pod world {world}: ranks disagree '
+                                 f'{platform.rank_metrics}')
+        ref_train, ref_test, ref_time = pod_reference(config, world)
+        diffs = {}
+        for part, got, want, n in (
+                ('train', train_m[0], ref_train, POD_MNIST['train']),
+                ('test', test_m[0], ref_test, POD_MNIST['test'])):
+            diffs[part] = dict(
+                loss_rel_err=abs(got['Loss'] - want['Loss'])
+                / abs(want['Loss']),
+                **{f'{k} examples': round(abs(got[k] - want[k]) * n, 6)
+                   for k in ('Top-1 Accuracy', 'Top-5 Accuracy')})
+        record = dict(world=world, backend=backend or (
+            'nccl' if DEVICE == 'cuda' else 'gloo'), pod_s=pod_s,
+            single_process=ref_time, train=train_m[0], test=test_m[0],
+            single_train=ref_train, single_test=ref_test, diffs=diffs)
+        print(f'pod world {world}: {record}', flush=True)
+        for part, d in diffs.items():
+            loss_rtol, examples = POD_LIMITS[world][part]
+            if not (d['loss_rel_err'] <= loss_rtol
+                    and d['Top-1 Accuracy examples'] <= examples
+                    and d['Top-5 Accuracy examples'] <= examples):
+                raise AssertionError(f'pod world {world} {part} vs the '
+                                     f'single process: {d}')
+        out['worlds'].append(record)
+
+
 def experiment_phase(seed: int, train_record: dict) -> dict:
     """The experiment phase, in a temporary directory removed after."""
     import tempfile
@@ -2292,6 +3013,7 @@ def experiment_phase(seed: int, train_record: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix='qtt_experiment_') as root:
         out = dict(mnist=mnist_experiment(root, seed))
         print(f'experiment mnist: {out["mnist"]}', flush=True)
+        out['pod'] = pod_phase(root, seed)
         out['imagenet'] = imagenet_experiment(root, seed, train_record)
     out['s'] = time.perf_counter() - t0
     print(json.dumps({'experiment_phase': out}), flush=True)
@@ -2305,7 +3027,14 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--report', default=None,
                     help='also write the full results as JSON here')
+    ap.add_argument('--dp-step-worker', nargs=5, default=None,
+                    metavar=('RANK', 'PORT', 'OUT', 'DEVICE', 'CUDNN'),
+                    help='run one rank of the DP step (dp_step_phase)')
     args = ap.parse_args(argv)
+    if args.dp_step_worker:
+        rank, port, out, device, cudnn = args.dp_step_worker
+        return dp_step_worker(int(rank), int(port), out, device,
+                              cudnn == '1')
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
@@ -2463,6 +3192,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     want['xnor_conv2d_planes'] = launches['xnor_conv2d_planes']
     print(f'model phases: {phases_s:.1f} s', flush=True)
 
+    oracle, oracle_errs = oracle_phase()
+    for kname, err in oracle_errs.items():
+        errs[kname] = max(errs[kname], err)
+    print(f'oracle phase: {oracle["s"]:.1f} s', flush=True)
+
     t0 = time.perf_counter()
     recipes = []
     for i, (build, xq, wq, recipe) in enumerate(RECIPE_PHASES):
@@ -2522,6 +3256,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            serving=served, kernels=rows,
                            serving_stack=stack,
                            model_phases=phases, model_phases_s=phases_s,
+                           oracle=oracle,
                            recipes=recipes, recipes_s=recipes_s,
                            train=train, experiment=experiment,
                            probes=records, probe_s=probe_s,

@@ -8,10 +8,11 @@ default are the JAX package's, plus one flag: --device ('cuda' by
 default, 'cpu' only when asked for), which plays the role of
 JAX_PLATFORMS and lands in config['device'].
 
-The port runs on one card: environment.nchips above 1,
-environment.tensor_parallel above 1 and environment.multihost raise
-NotImplementedError (data and tensor parallelism are Slice E of
-ROADMAP.md). nchips 0 (all visible) and 1 run on the one card.
+The port drives one card a process (`check_single_card`):
+environment.multihost runs data parallel over processes, each one rank;
+environment.tensor_parallel above 1, and nchips above 1 in a single
+process, raise NotImplementedError. nchips 0 (all visible) and 1 run on
+the one card.
 """
 
 import argparse
@@ -70,21 +71,44 @@ def parse_common_fields(args: argparse.Namespace) -> None:
 
 
 def check_single_card(config: dict) -> None:
-    """Raise NotImplementedError for an environment the port cannot run
-    yet: more than one device, tensor parallelism or several hosts."""
+    """Raise NotImplementedError for an environment the port cannot run:
+    tensor parallelism, or an nchips this process cannot take.
+
+    The port drives one card a process; data parallelism over several
+    cards is several processes (environment.multihost, or
+    platform.PodComputePlatform). So nchips is held to the world the
+    process has joined (torch.distributed): 0 or 1 for a process alone,
+    0 or the world's size for a rank. A multihost config that has not
+    joined its world yet (the CLI's parse_config) is checked again by
+    train.task once it has."""
     env = config.get('environment', {})
-    asks = []
-    if int(env.get('nchips', 0) or 0) > 1:
-        asks.append(f"nchips {env['nchips']}")
-    if int(env.get('tensor_parallel', 1) or 1) > 1:
-        asks.append(f"tensor_parallel {env['tensor_parallel']}")
-    if env.get('multihost'):
-        asks.append('multihost')
-    if asks:
+    tp = int(env.get('tensor_parallel', 1) or 1)
+    if tp > 1:
         raise NotImplementedError(
-            f"environment {', '.join(asks)}: the port runs on one card; "
-            'data and tensor parallelism over several cards or hosts are '
-            "Slice E of ROADMAP.md (set nchips to 0 or 1).")
+            f'environment tensor_parallel {tp}: tensor parallelism is '
+            'Slice E part 2 of ROADMAP.md; the port runs data parallel '
+            'only (set tensor_parallel to 1).')
+    nchips = int(env.get('nchips', 0) or 0)
+    if nchips <= 1:
+        return
+    import torch.distributed as dist
+    joined = dist.is_available() and dist.is_initialized()
+    if not joined and env.get('multihost'):
+        return
+    world = dist.get_world_size() if joined else 1
+    if world == nchips:
+        return
+    if world > 1:
+        raise NotImplementedError(
+            f'environment nchips {nchips}: the run has {world} processes '
+            f'of one card each; set nchips to 0 or {world}.')
+    raise NotImplementedError(
+        f'environment nchips {nchips}: this single process drives one '
+        f'card and cannot take {nchips}; data parallelism over '
+        f'{nchips} cards is {nchips} processes of one card each '
+        '(Slice E part 1: environment.multihost, or '
+        f'PodComputePlatform(n_processes={nchips})), or set nchips to '
+        '0 or 1.')
 
 
 def _default_experiment_name(config_path: str) -> str:

@@ -86,3 +86,14 @@ class Experiment:
         log_metrics_to_experiments_dir(train_metrics, test_metrics, exp_dir)
         return train_metrics, test_metrics
 
+
+def run_classification_experiment(
+        config: dict,
+        data_loader_cls: Optional[Type[QuantDataLoader]] = None,
+        get_hooks: Optional[Callable] = None) -> tuple[list, list]:
+    """Run `train.task.classification_task` as an Experiment of
+    `config` (the convenience wrapper of the JAX package's drivers)."""
+    from quant_tpu_torch.train.task import classification_task
+    return Experiment(classification_task, config, data_loader_cls,
+                      get_hooks).run()
+

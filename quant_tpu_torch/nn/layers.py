@@ -38,6 +38,7 @@ from torch import nn
 
 from quant_tpu_torch.ops import binary_infer as BI
 from quant_tpu_torch.ops.conv import _pair, conv2d, stem_conv_s2d
+from quant_tpu_torch.parallel import global_stats
 from quant_tpu_torch.ops.quantize import (
     get_clamp_fn, quantize_with_scheme, scheme_num_scales, solve_scales,
     validate_scheme,
@@ -162,6 +163,8 @@ class BatchNorm(nn.Module):
     statistics become 0.9 * old + 0.1 * batch (the biased batch
     variance, where F.batch_norm would update with the unbiased one);
     the output is `dtype`, else x's dtype promoted with the affine's.
+    Under a data-parallel train step (parallel.global_stats.over) the
+    batch's statistics are the global batch's, over every rank's rows.
     """
 
     momentum = 0.1  # the new statistics' weight (JAX passes 1 - 0.1)
@@ -211,8 +214,7 @@ class BatchNorm(nn.Module):
                dtype: Optional[torch.dtype]) -> torch.Tensor:
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.ndim - 1))
-        mean = xs.mean(dim=axes)
-        mean2 = (xs * xs).mean(dim=axes)
+        mean, mean2 = global_stats.batch_means([xs, xs * xs], axes)
         var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
         keep = 1.0 - self.momentum  # flax's momentum
         with torch.no_grad():
@@ -247,6 +249,9 @@ class ActivationQuantizer(nn.Module):
     `ema` ('eval_only'), and 'train_and_eval' returns the blended scales
     instead. A blend copies the first batch's scales and later takes
     momentum*old + (1-momentum)*new; `ema_count` counts the batches.
+    Under a data-parallel train step (parallel.global_stats.over) the
+    batch mean is over every rank's rows; each sample's scales stay its
+    own.
     """
 
     def __init__(self, scheme: str, moving_average_mode: str = 'off',
@@ -277,7 +282,8 @@ class ActivationQuantizer(nn.Module):
 
     def _track(self, batch_vs: torch.Tensor) -> torch.Tensor:
         """Blend the batch mean of batch_vs into the EMA; the blend."""
-        new = batch_vs.mean(dim=1)
+        new, = global_stats.batch_means([batch_vs], (1,),
+                                        differentiable=False)
         m = self.moving_average_momentum
         blended = torch.where(self.ema_count > 0,
                               m * self.ema + (1.0 - m) * new, new)

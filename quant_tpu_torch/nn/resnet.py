@@ -27,6 +27,7 @@ from quant_tpu_torch.nn.layers import (
 )
 from quant_tpu_torch.ops.conv import global_avg_pool, max_pool2d
 from quant_tpu_torch.ops.pool import max_pool_3x3_s2_p1, pool_fusable
+from quant_tpu_torch.parallel import global_stats
 
 
 def _nonlin(name: str) -> nn.Module:
@@ -297,15 +298,20 @@ def remat_block(block: nn.Module, x: torch.Tensor,
     backward pass recomputes the block's activations instead of keeping
     them. The recomputation starts from the state the forward saw and
     leaves the state the forward wrote (BN statistics, w_vs, EMA are
-    written once, and 'train_and_eval' re-blends from the same EMA)."""
+    written once, and 'train_and_eval' re-blends from the same EMA).
+    The recomputation also reduces its statistics over the group the
+    forward reduced them over (parallel.global_stats), whenever the
+    backward runs: under a data-parallel step every rank recomputes the
+    same blocks in the same order, so the collectives line up."""
     before = [(b, b.clone()) for b in block.buffers()]
+    group = global_stats.current()
     ran = []
 
     def run(inp: torch.Tensor) -> torch.Tensor:
         if not ran:
             ran.append(True)
             return block(inp, dtype)
-        with state_unchanged(block):
+        with state_unchanged(block), global_stats.over(group):
             with torch.no_grad():
                 for b, value in before:
                     b.copy_(value)

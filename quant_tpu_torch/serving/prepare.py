@@ -34,7 +34,9 @@ from typing import Any, Optional, Sequence
 import torch
 import yaml
 
-from quant_tpu_torch.device import DeviceLike, resolve_device
+from quant_tpu_torch.device import (
+    DeviceLike, full_precision, resolve_device,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -74,6 +76,7 @@ def load_experiment_model(experiment_dir: 'pathlib.Path | str',
     return model, model_cfg, ckpt
 
 
+@full_precision()
 def prepare_serving_artifact(
         experiment_dir: 'pathlib.Path | str',
         out_dir: Optional['pathlib.Path | str'] = None,
@@ -90,7 +93,9 @@ def prepare_serving_artifact(
             EMA calibration (nn.export.calibrate_ema_scales), needed for
             folded serving of 'off'-mode checkpoints.
         device: where the preparation runs ('cuda' unless 'cpu' is asked
-            for); the artifact is the same tree either way.
+            for); the artifact is the same tree either way. It runs
+            under device.full_precision (TF32 off), the caller's flags
+            back on return.
 
     Returns the artifact directory (out_dir).
     """
@@ -171,6 +176,7 @@ def calibration_batches(experiment_dir: 'pathlib.Path | str',
         loader.cleanup()
 
 
+@full_precision()
 def main(argv: Optional[list] = None) -> pathlib.Path:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--experiment', required=True)

@@ -5,6 +5,8 @@ Launched once per process (`python -c 'from quant_tpu_torch.serving.worker
 import main; main()' --spec spec.json --port-file P`); builds the model
 from the spec, wraps it in an EngineServer and serves until a shutdown
 op arrives. The bound port is written to --port-file once listening.
+The worker prepares and serves its model with TF32 off
+(device.full_precision), the float32 of the JAX package.
 
 Spec (JSON):
   model: 'lenet_random'    — seeded LeNet-5 (4 and 4 filters, ls-1 x
@@ -51,6 +53,8 @@ from typing import Optional
 
 import torch
 
+from quant_tpu_torch.device import full_precision
+
 def _seeded_model(kind: str, spec: dict) -> torch.nn.Module:
     """The spec's model on the CPU, from one generator seeded by spec
     'seed', prepared for serving."""
@@ -88,8 +92,10 @@ def _seeded_model(kind: str, spec: dict) -> torch.nn.Module:
     return export.strip_for_deployment(model)
 
 
+@full_precision()
 def build_engine_from_spec(spec: dict) -> 'object':
-    """Construct the InferenceEngine a worker serves."""
+    """Construct the InferenceEngine a worker serves (the model prepared
+    under device.full_precision; `main` serves under it too)."""
     from quant_tpu_torch.device import resolve_device
     from quant_tpu_torch.serving.engine import InferenceEngine
 
@@ -124,6 +130,7 @@ def build_engine_from_spec(spec: dict) -> 'object':
                            device=device)
 
 
+@full_precision()
 def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument('--spec', required=True,

@@ -8,9 +8,15 @@ the schedule's learning rate for this step, and the metric update on
 the device. The host loops feed batches (any iterable of (images,
 labels), numpy or torch, moved to the model's device) and fire hooks.
 
-One card: JAX's `mesh` and `donate` (make_train_step, make_eval_step)
-and `assemble` (train_epoch, evaluate) have no counterpart here; data
-parallelism over several cards is a later slice.
+Data parallel (`mesh=`, one process a rank, parallel.make_mesh): JAX's
+step is one program over the global batch sharded on 'data'; here each
+rank steps on its own rows, and the step makes them one logical batch:
+train-mode statistics over every rank's rows (parallel.global_stats),
+gradients averaged across the 'data' group by one all-reduce (equal to
+the global batch's gradient for equal local batches), and the metric
+increments summed across it, so each rank reports the global batch's
+loss and accuracy. A 'data' axis of one rank dispatches no collective.
+JAX's `donate` has no counterpart.
 """
 
 import inspect
@@ -19,9 +25,12 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from quant_tpu_torch.parallel import data_group, global_stats
 from quant_tpu_torch.train.metrics import (
-    MetricAccumulator, update_metric_state, update_metric_state_masked,
+    MetricAccumulator, init_metric_state, update_metric_state,
+    update_metric_state_masked,
 )
 from quant_tpu_torch.train.state import TrainState
 
@@ -49,10 +58,36 @@ def _on(a: Any, device: torch.device,
     return a.to(device=device, dtype=dtype)
 
 
+def _all_reduce_mean(tensors: list[torch.Tensor],
+                     group: dist.ProcessGroup) -> None:
+    """Each tensor in place to its mean across the group's ranks (one
+    all-reduce a dtype)."""
+    n = dist.get_world_size(group)
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        for t, part in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(part.view_as(t))
+
+
+def _add_global(metric_state: dict, delta: dict,
+                group: dist.ProcessGroup) -> tuple[dict, torch.Tensor]:
+    """(metric_state plus one batch's increments summed across the
+    group's ranks, the global batch's mean loss), by one all-reduce."""
+    names = list(delta)
+    flat = torch.stack([delta[k] for k in names])
+    dist.all_reduce(flat, group=group)
+    total = dict(zip(names, flat))
+    return ({k: metric_state[k].to(flat.device) + total[k] for k in names},
+            total['loss_sum'] / total['count'])
+
+
 def make_train_step(loss_fn: Callable,
                     teacher_apply: Optional[Callable] = None,
-                    phase_hook: Optional[Callable[[str], None]] = None
-                    ) -> Callable:
+                    phase_hook: Optional[Callable[[str], None]] = None,
+                    mesh: Any = None) -> Callable:
     """The train step: (state, data, target, metric_state) -> (state,
     metric_state, loss); the state is updated in place.
 
@@ -64,7 +99,12 @@ def make_train_step(loss_fn: Callable,
         phase_hook: optional, called with 'forward', 'teacher',
             'backward', 'optimizer' and 'end' as each part of the step
             starts (and it ends), e.g. to record CUDA events.
+        mesh: optional DeviceMesh (parallel.make_mesh) whose 'data' ranks
+            step together on one logical batch (module docstring); the
+            returned loss is then the global batch's.
     """
+    group = data_group(mesh)
+
     def mark(name: str) -> None:
         if phase_hook is not None:
             phase_hook(name)
@@ -75,46 +115,60 @@ def make_train_step(loss_fn: Callable,
         state.tx.set_lr(optimizer, state.step)
         optimizer.zero_grad(set_to_none=True)
         mark('forward')
-        output = model(data)
-        if teacher_apply is None:
-            loss = loss_fn(output, target)
-        else:
-            mark('teacher')
-            loss = loss_fn(output, teacher_apply(data), target)
+        with global_stats.over(group):
+            output = model(data)
+            if teacher_apply is None:
+                loss = loss_fn(output, target)
+            else:
+                mark('teacher')
+                loss = loss_fn(output, teacher_apply(data), target)
         mark('backward')
         loss.backward()
+        if group is not None:
+            _all_reduce_mean([p.grad for g in optimizer.param_groups
+                              for p in g['params'] if p.grad is not None],
+                             group)
         mark('optimizer')
         optimizer.step()
         mark('end')
         state.step += 1
         loss = loss.detach()
-        return state, update_metric_state(metric_state, loss, output,
-                                          target), loss
+        if group is None:
+            return state, update_metric_state(metric_state, loss, output,
+                                              target), loss
+        metric_state, loss = _add_global(metric_state, update_metric_state(
+            init_metric_state(), loss, output, target), group)
+        return state, metric_state, loss
 
     return step
 
 
-def make_eval_step(loss_fn: Callable) -> Callable:
+def make_eval_step(loss_fn: Callable, mesh: Any = None) -> Callable:
     """The eval step: (state, data, target, metric_state) ->
     (metric_state, output), the model in eval mode (cached and EMA
     scales, running statistics), nothing written.
 
     When loss_fn has a `.per_sample` form (the built-in losses do), rows
-    with target < 0 (padding) are left out of the metrics."""
+    with target < 0 (padding) are left out of the metrics. With a mesh,
+    the metric increments are summed across its 'data' ranks."""
     per_sample = getattr(loss_fn, 'per_sample', None)
+    group = data_group(mesh)
 
     @torch.no_grad()
     def step(state: TrainState, data: torch.Tensor, target: torch.Tensor,
              metric_state: dict) -> tuple[dict, torch.Tensor]:
         output = state.model.eval()(data)
+        base = metric_state if group is None else init_metric_state()
         if per_sample is not None:
             safe_t = torch.clamp(target, min=0)
-            return update_metric_state_masked(
-                metric_state, per_sample(output, safe_t), output,
-                target), output
-        loss = loss_fn(output, target)
-        return update_metric_state(metric_state, loss, output,
-                                   target), output
+            new = update_metric_state_masked(
+                base, per_sample(output, safe_t), output, target)
+        else:
+            new = update_metric_state(base, loss_fn(output, target),
+                                      output, target)
+        if group is not None:
+            new, _ = _add_global(metric_state, new, group)
+        return new, output
 
     return step
 

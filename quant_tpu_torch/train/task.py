@@ -1,9 +1,18 @@
 """Classification task driver (port of quant_tpu/train/task.py).
 
-Wires config -> data -> (teacher + KD) -> model -> optimizer and
-schedule -> restore -> the epoch loop of train and evaluate -> periodic,
-final and interrupt checkpoints, as the JAX task does, on one card
-(`config['device']`, 'cuda' unless the caller asks for 'cpu').
+Wires config -> process group -> data -> (teacher + KD) -> model ->
+optimizer and schedule -> restore -> the epoch loop of train and
+evaluate -> periodic, final and interrupt checkpoints, as the JAX task
+does, on one card a process (`config['device']`, 'cuda' unless the
+caller asks for 'cpu').
+
+Several processes (environment.multihost, or PodComputePlatform's
+workers): each is one rank of a data-parallel mesh. Every rank loads
+its disjoint share of each dataset (train drops the ragged tail, eval
+pads it with masked rows), the steps reduce across the ranks
+(train.engine), rank 0 alone writes checkpoints, and every rank runs
+every restore path. One process a rank means no eval padding for the
+ranks' devices (JAX's eval_pad is 1 here).
 
 Where the port differs from the JAX task:
 
@@ -31,9 +40,11 @@ import yaml
 
 from quant_tpu_torch.config.parser import check_single_card
 from quant_tpu_torch.data import DATASET_REGISTRY, QuantDataLoader
-from quant_tpu_torch.device import DeviceLike, resolve_device
-from quant_tpu_torch.nn.lenet import QLeNet5
-from quant_tpu_torch.nn.resnet import QResNet
+from quant_tpu_torch.device import (
+    DeviceLike, full_precision, resolve_device,
+)
+from quant_tpu_torch.nn import MODEL_REGISTRY
+from quant_tpu_torch.parallel import make_mesh, multihost
 from quant_tpu_torch.train.engine import (
     evaluate, make_eval_step, make_train_step, train_epoch,
 )
@@ -51,11 +62,6 @@ from quant_tpu_torch.utils.jax_import import (
 from quant_tpu_torch.utils.logging_utils import init_logging
 
 logger = logging.getLogger(__name__)
-
-MODEL_REGISTRY = {
-    'lenet5': QLeNet5,
-    'resnet': QResNet,
-}
 
 MODEL_COLLECTIONS = ('params', 'batch_stats', 'quant_state')
 
@@ -207,6 +213,7 @@ def _load_optimizer_state(state: TrainState, payload: dict) -> None:
     state.step = int(payload.get('step', 0))
 
 
+@full_precision()
 def classification_task(
         config: dict,
         experiment_root_directory: Path,
@@ -214,15 +221,28 @@ def classification_task(
         get_hooks: Optional[Callable] = None,
         restore_experiment: Optional[Path] = None,
 ) -> tuple[list[dict], list[dict]]:
-    """Run a classification experiment; returns per-epoch metric lists."""
+    """Run a classification experiment; returns per-epoch metric lists.
+
+    Runs under device.full_precision (TF32 off), the caller's flags back
+    on return."""
+    env_config = config.get('environment', {})
     data_config = dict(config['data'])
     model_config = config['model']
     optimization_config = config['optimization']
     log_config = config['log']
 
     init_logging(log_config.get('level', 'INFO'))
-    check_single_card(config)
     device = resolve_device(config.get('device', 'cuda'))
+
+    if env_config.get('multihost'):
+        multihost.initialize(env_config.get('coordinator_address'),
+                             env_config.get('num_processes'),
+                             env_config.get('process_id'), device=device)
+    check_single_card(config)
+    mesh = None
+    if multihost.world_size() > 1:
+        mesh = make_mesh(device_type=device.type)
+    is_writer = multihost.rank() == 0
 
     if data_loader_cls is None:
         data_loader_cls = DATASET_REGISTRY[data_config.pop('dataset')]
@@ -233,6 +253,16 @@ def classification_task(
     skip_training = bool(config.get('skip_training'))
     train_loader = None if skip_training else data_loader.get_train_loader()
     test_loader = data_loader.get_test_loader()
+
+    # Several processes: each loads its disjoint 1/world of every dataset
+    # and the steps make one logical global batch of the ranks' rows.
+    if mesh is not None:
+        if train_loader is not None:
+            train_loader = multihost.shard_loader_for_host(train_loader)
+        # pad=True: eval covers the FULL test set (the padded rows are
+        # masked out of the metrics); train drops the ragged tail so the
+        # ranks' steps stay in lockstep on equal batches.
+        test_loader = multihost.shard_loader_for_host(test_loader, pad=True)
 
     epochs = int(optimization_config['epochs'])
     seed = config.get('seed')
@@ -291,8 +321,8 @@ def classification_task(
             if callable(close):
                 close()
 
-    train_step = make_train_step(train_loss_fn, teacher_apply)
-    eval_step = make_eval_step(eval_loss_fn)
+    train_step = make_train_step(train_loss_fn, teacher_apply, mesh=mesh)
+    eval_step = make_eval_step(eval_loss_fn, mesh=mesh)
 
     train_epoch_metrics: list[dict] = []
     test_epoch_metrics: list[dict] = []
@@ -307,17 +337,22 @@ def classification_task(
         else:
             save_freq = int(log_config.get('save_model_freq', epochs))
 
-            def _payload(epoch: int) -> dict:
+            def _save(payload_epoch: int, tag: int) -> None:
+                """Rank 0 writes; the ranks hold the same state."""
+                if not is_writer:
+                    return
                 tree = to_jax_variables(state.model)
-                return {**{col: tree.get(col, {})
-                           for col in MODEL_COLLECTIONS},
-                        'opt_state': state.optimizer.state_dict(),
-                        'step': state.step,
-                        'epoch': epoch}
+                save_checkpoint(exp_dir / 'checkpoints',
+                                {**{col: tree.get(col, {})
+                                    for col in MODEL_COLLECTIONS},
+                                 'opt_state': state.optimizer.state_dict(),
+                                 'step': state.step,
+                                 'epoch': payload_epoch}, tag)
 
             # SIGTERM -> finish the batch, write an interrupt checkpoint,
-            # stop. The `with` restores the signal handlers even when an
-            # epoch raises.
+            # stop. With several processes the stop is a consensus
+            # (train/preemption.py). The `with` restores the signal
+            # handlers even when an epoch raises.
             with PreemptionGuard() as guard:
                 # Reference semantics: a restored run trains `epochs` MORE
                 # epochs (tasks.py:196: range(start_epoch, start+epochs)).
@@ -334,8 +369,7 @@ def classification_task(
                         # QAT tolerates the re-run). File tag = this
                         # epoch, so repeated preemptions overwrite one
                         # slot.
-                        save_checkpoint(exp_dir / 'checkpoints',
-                                        _payload(epoch - 1), epoch)
+                        _save(epoch - 1, epoch)
                         logger.warning('Interrupt checkpoint written; '
                                        'resume with --restore-experiment.')
                         break
@@ -345,8 +379,7 @@ def classification_task(
                     if guard.requested:
                         # Interrupted during eval: this epoch's training
                         # completed, so the payload resumes after it.
-                        save_checkpoint(exp_dir / 'checkpoints',
-                                        _payload(epoch), epoch)
+                        _save(epoch, epoch)
                         logger.warning('Interrupt checkpoint written; '
                                        'resume with --restore-experiment.')
                         break
@@ -356,8 +389,7 @@ def classification_task(
                     # Always checkpoint the last epoch of this run (for a
                     # resumed run: start_epoch+epochs-1, not `epochs`).
                     if epoch % save_freq == 0 or epoch == final_epoch:
-                        save_checkpoint(exp_dir / 'checkpoints',
-                                        _payload(epoch), epoch)
+                        _save(epoch, epoch)
 
     finally:
         _close_hooks()

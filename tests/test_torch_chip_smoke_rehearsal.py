@@ -9,7 +9,9 @@ serving the 'lenet_random' spec on the CPU, and the model and recipe
 phases to small models, the train phase to small models at batch 2,
 the experiment phase to a small MNIST (LeNet-5 at the recipe's widths)
 and to small ResNets at 32 px on 8 synthetic images, its torch.profiler
-reading (which needs the card's kernels) stood in for.
+reading (which needs the card's kernels) stood in for, and its pod to a
+smaller MNIST, its worlds on gloo over the CPU. The oracle phase runs
+as on the card (the oracles are small), its launch counts stood in for.
 That catches Python-level breakage of the
 script (arguments, shapes, the phases' control flow, the report's keys)
 before a run on the card.
@@ -126,7 +128,8 @@ def rehearsal(monkeypatch):
     experiment = [dict(idle, xnor_conv2d=1, pack_sign_planes=1),
                   dict(idle, max_pool_3x3_s2_p1=1),
                   dict(idle, max_pool_3x3_s2_p1=3), dict(idle, **SMALL_SERVED)]
-    counts = iter([main, frontend, *phase_counts(), *train_steps,
+    oracle = [want for *_, want in chip_smoke.ORACLE_RUNS]
+    counts = iter([main, frontend, *phase_counts(), *oracle, *train_steps,
                    train_eval, train_serve, *experiment, probe])
     monkeypatch.setattr(chip_smoke, 'PHASE_MODELS', SMALL_MODELS)
     monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
@@ -164,6 +167,8 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'cuda_event', HostEvent)
     monkeypatch.setattr(chip_smoke, 'EXPERIMENT_MNIST', dict(
         chip_smoke.EXPERIMENT_MNIST, train=128, test=64))
+    monkeypatch.setattr(chip_smoke, 'POD_MNIST', dict(
+        chip_smoke.POD_MNIST, train=256, test=64))
     imagenet = chip_smoke.EXPERIMENT_IMAGENET
     monkeypatch.setattr(chip_smoke, 'EXPERIMENT_IMAGENET', dict(
         imagenet, per_forward=SMALL_SERVED, data=dict(
@@ -308,8 +313,42 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
         assert served['launches_per_forward'] == per_forward
         assert served['requests'] == 16 and served['exit_codes'] == [0]
         assert served['cpu_max_abs_err'] == served['worker_max_abs_err'] == 0
-        assert served['worker_tf32_vs_off_max_abs_err'] == 0
+        assert served['worker_cpu_max_abs_err'] == 0
         assert served['worker_startup_s'] > 0
+    pod = experiment['pod']
+    assert [(w['world'], w['backend']) for w in pod['worlds']] == [
+        (1, 'gloo'), (2, 'gloo')]
+    for w in pod['worlds']:
+        assert w['pod_s'] > 0 and w['single_process']['epoch_s'] > 0
+        for part in ('train', 'test'):
+            assert w['diffs'][part]['loss_rel_err'] <= chip_smoke.POD_LIMITS[
+                w['world']][part][0]
+    # A world of 1 is the single process's run.
+    assert pod['worlds'][0]['train'] == pod['worlds'][0]['single_train']
+    assert set(pod['default_cudnn_spread']) == {'train', 'test'}
+    dp_step = pod['dp_step']
+    assert set(dp_step['cases']) == set(chip_smoke.DP_STEP_CASES)
+    for rec in dp_step['cases'].values():
+        assert rec['worst_excess'] == 0.0
+        assert rec['local_stats_diff'] > chip_smoke.DP_LOCAL_MIN_DIFF
+    preempt = pod['preempt']
+    assert 3 < preempt['interrupted_epoch'] < preempt['epochs']
+    assert len(preempt['checkpoints']) == preempt['interrupted_epoch']
+    assert preempt['ms_per_step'] > 0 and pod['single_process_ms_per_step'] > 0
+    oracle = report['oracle']
+    assert [(r['oracle'], r['mode'], r['sign_compute'], r['launches'])
+            for r in oracle['runs']] == [
+                (n, m, s, w) for n, m, s, w in chip_smoke.ORACLE_RUNS]
+    for r in oracle['runs']:
+        assert r['argmax_equal'] and r['held_to'] == 'reference', r
+        if r['mode'] == 'dense':
+            assert r['max_abs_err'] <= chip_smoke.ORACLE_DENSE_TOL
+            assert r['cpu_max_abs_err'] == 0
+        if r['launches']:
+            assert set(r['captured'].values()) == {0.0}
+            assert set(r['captured']) == set(r['launches'])
+    assert oracle['round_trip']['resnet']['keys'] == 100
+    assert oracle['round_trip']['lenet']['keys'] == 18
     stack = report['serving_stack']
     assert stack['frontend']['batches'] == 2
     assert stack['frontend']['launches'] == {

@@ -4,8 +4,9 @@ parse_config of quant_tpu_torch.config and quant_tpu.config give the
 same dict on every recipe under examples/ and on each CLI combination
 (the port adds config['device'], from its --device flag), raise the same
 errors with the same messages, resume the same experiments under
---auto-resume and name an unnamed experiment alike. The port runs on
-one card: nchips, tensor_parallel above 1 and multihost raise.
+--auto-resume and name an unnamed experiment alike. The port drives one
+card a process: tensor_parallel above 1, and nchips above 1 in a single
+process, raise; multihost parses (data parallel over processes).
 """
 
 import datetime
@@ -66,7 +67,9 @@ def test_multi_chip_recipe_raises_naming_slice_e():
 
 @pytest.mark.parametrize('environment,message', [
     ({'tensor_parallel': 2}, 'tensor_parallel 2'),
-    ({'multihost': True}, 'multihost'),
+    # One process asked for two cards: the refusal names the way to run
+    # them, one process a card.
+    ({'nchips': 2}, 'multihost'),
     ({'ngpus': 4}, 'nchips 4'),
 ])
 def test_parallel_environments_raise(tmp_path, environment, message):
@@ -77,6 +80,35 @@ def test_parallel_environments_raise(tmp_path, environment, message):
     want, got = both(['--config', str(path)])
     assert isinstance(want, dict)
     assert isinstance(got, NotImplementedError) and message in str(got)
+
+
+@pytest.mark.parametrize('nchips,error', [
+    (0, None), (1, None), (2, None), (4, '2 processes')])
+def test_nchips_is_held_to_the_joined_world(nchips, error):
+    """A rank of a world of 2 (a pod worker, or multihost once joined)
+    takes nchips 0 or 2, whatever the multihost flag says."""
+    from unittest import mock
+    from quant_tpu_torch.config.parser import check_single_card
+    cfg = {'environment': {'nchips': nchips}}
+    with mock.patch('torch.distributed.is_initialized', return_value=True), \
+            mock.patch('torch.distributed.get_world_size', return_value=2):
+        if error is None:
+            check_single_card(cfg)
+        else:
+            with pytest.raises(NotImplementedError, match=error):
+                check_single_card(cfg)
+
+
+@pytest.mark.parametrize('environment', [
+    {'multihost': True}, {'multihost': True, 'nchips': 4}])
+def test_multihost_environment_parses_as_jax(tmp_path, environment):
+    cfg = yaml.safe_load(open('examples/mnist/mnist_ls1.yaml'))
+    cfg['environment'] = environment
+    path = tmp_path / 'c.yaml'
+    path.write_text(yaml.safe_dump(cfg))
+    want, got = both(['--config', str(path)])
+    assert got.pop('device') == 'cuda'
+    assert got == want
 
 
 @pytest.mark.parametrize('argv', [
