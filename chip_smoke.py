@@ -125,12 +125,25 @@ the chip-probe path:
    model, serving.prepare --calibrate-synthetic, the artifact served as
    in (a) (16 xnor_conv2d, 16 pack_sign_planes, 1 pool a forward); one
    JSON line {"experiment_phase": ...};
-12. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+12. runs the tensor-parallel phase (TP_WORLD's comment): a world of 2
+   on gloo, both ranks on the card, mesh (1, 2), spawning
+   `chip_smoke.py --tp-worker RANK PORT OUT SPEC` ranks: the packed
+   ring GEMM (parallel.tp_packed_matmul_overlapped, xnor_gemm on each
+   block) at the xnor_gemm row's shape against the twin, beside the
+   naive form; the main path's ResNet-18 sharded over 'model' and
+   served by the TP InferenceEngine against the unsharded engine, bf16
+   and float32, its launches a forward a rank and its kernels on their
+   captured O/P inputs; one TP train step against this process's and
+   the summing-backward control; mnist_ls1.yaml at tensor_parallel 2
+   through PodComputePlatform against tp = 1, restored at tp = 2 and 1;
+   one JSON line {"tp_phase": ...};
+13. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
 Prints the card line, JSON lines {"oracle_phase": ...},
-{"experiment_phase": ...}, {"kernels": [...]} and {"probes": [...]}
+{"experiment_phase": ...}, {"tp_phase": ...}, {"kernels": [...]} and
+{"probes": [...]}
 and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and exits non-zero; without CUDA it exits 2 before printing
 any result.
@@ -521,6 +534,60 @@ DP_STEP_TOL = dict(rtol=2e-5, atol=2e-6)
 # PyTorch's own convs (cuBLAS, TF32 off) sum within 2e-7 at both sizes.
 DP_STEP_CUDNN = False
 DP_LOCAL_MIN_DIFF = 1e-3
+# The tensor-parallel phase (tp_phase): a world of TP_WORLD ranks on gloo
+# with every rank on the card (NCCL refuses two ranks on one card), mesh
+# (1, TP_WORLD). (a) The packed ring GEMM at the xnor_gemm row's shape
+# (M, K, N), each rank on its K/P words, held equal to the plain twin on
+# the whole operands, beside the naive form (the whole local partial,
+# then one all-reduce). (b) The main-path ResNet-18 sharded over 'model'
+# and served by the TP InferenceEngine (TP_SERVING['batch'] images a
+# forward: gloo moves the gathered maps through host memory, so a small
+# batch keeps them short), against the unsharded engine: the float32
+# chain (TF32 off) within JAX's TP test tolerance, the bf16 chain within
+# TP_BF16_REL_TOL of the logit spread (a sharded cuDNN stem may take
+# another algorithm, and a flipped sign cascades), the captured kernels
+# equal to their twins at the O/P shapes. (c) One TP train step of
+# TP_STEP_CASES (cuDNN off, as the DP step) within DP_STEP_TOL of this
+# process's step, the summing-backward control beyond
+# TP_SUMMING_MIN_DIFF; then the MNIST recipe at tensor_parallel TP_WORLD
+# through PodComputePlatform on TP_POD_MNIST (4 steps of 64, the 4 steps
+# of JAX's test_tp_task.py) against the same run at tp = 1 in this
+# process, its checkpoint restored at TP_WORLD and at 1 and evaluated
+# against the run's own test loss, all within TP_POD_LIMITS.
+TP_WORLD = 2
+TP_RING_SHAPE = (6272, 4608, 512)
+TP_SERVING = dict(model='resnet18', batch=32, input=[224, 224, 3],
+                  classes=1000, per_forward={
+                      'xnor_conv2d': 16, 'pack_sign_planes': 16,
+                      'max_pool_3x3_s2_p1': 1})
+TP_ITERS = 5
+TP_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+TP_BF16_REL_TOL = 2e-2
+TP_SUMMING_MIN_DIFF = 1e-3
+# The TP step's cases: DP_STEP_CASES' models with float activations into
+# their binary-weight convs. With binary activations the card cannot
+# hold a TP step to one process's: the stem conv sharded to O/P channels
+# rounds its float32 sums in another order (4.8e-7 from O's, cuDNN off),
+# one sign of layer1's binary activations flips and the flips cascade
+# (TP_FLIP_CASE is measured beside the gate, not gated). The CPU test
+# (tests/test_torch_port_tp.py) holds the binary-activation cases, where
+# the sums agree, to the same 2e-5.
+TP_STEP_CASES = {
+    'lenet': DP_STEP_CASES['lenet'],
+    'xnor_resnet_fp': ('xnor', 'fp', 'ls-1', 'cross_entropy', (32, 32, 3),
+                       {}),
+    'xnor_resnet_fp_remat': ('xnor', 'fp', 'ls-1', 'cross_entropy',
+                             (32, 32, 3), {'remat': True})}
+TP_FLIP_CASE = 'xnor_resnet'
+TP_POD_MNIST = dict(train=256, test=1000, epochs=1)
+# Relative loss limits of the TP pod: JAX's rtol (test_tp_task.py) on
+# the train and test losses against tp = 1 and on the restored
+# evaluations against the run's. The pods run cuDNN's deterministic
+# algorithms, so a card repeats its figures (H100 80GB HBM3, 700 W: train
+# 5.5e-5, test 3.8e-4). The recipe's binary conv2 feeds a 2x2 max pool
+# whose windows hold tied values that a float order can break the other
+# way, so other hardware moves further (the CPU: test 4.4e-3).
+TP_POD_LIMITS = {'train': 2e-3, 'test': 2e-3, 'restored': 2e-3}
 
 
 def card_line() -> str:
@@ -1037,7 +1104,7 @@ def captured_phases(conv_inputs: list) -> dict[str, float]:
                 f'xnor_conv2d captured {i} {dt}',
                 B.xnor_conv2d(*args, out_dtype=dt, **kw),
                 B.xnor_conv2d_plain(*args, out_dtype=dt, **kw)))
-    torch.cuda.synchronize()
+    _sync()
     return {'pack_sign_planes': pack_err, 'xnor_conv2d': conv_err}
 
 
@@ -2721,20 +2788,40 @@ def _pod_preempt(cfg_path: str, exps: str, env: dict) -> dict:
                 s=done - t0, stop_s=done - fired['t'], epoch3_s=epoch_s)
 
 
-def _dp_step(case: str, rows: slice, mesh: Any = None) -> dict:
+def _dp_step(case: str, rows: slice, mesh: Any = None,
+             shard: bool = False, trace: bool = False) -> dict:
     """One train step of a DP_STEP_CASES model on rows of its seeded
     batch, on the card: {'leaves': {path: array}} of the gradients and
-    the variables after the step, the loss and the metrics."""
+    the variables after the step (a model sharded over the mesh's
+    'model' axis with `shard`, gathered), the loss and the metrics; with
+    `trace`, also {'trace': {module: array}}: the stem conv's output and
+    each binary conv's input in the step's forward."""
     from quant_tpu_torch import train as T
+    from quant_tpu_torch.nn.layers import QuantConv2d
+    from quant_tpu_torch.parallel.sharding import (
+        gather_model_variables, shard_model,
+    )
     from quant_tpu_torch.train.metrics import init_metric_state
-    from quant_tpu_torch.utils.jax_import import to_jax_variables
 
-    family, xq, wq, loss_name, shape, kw = DP_STEP_CASES[case]
+    family, xq, wq, loss_name, shape, kw = {**DP_STEP_CASES,
+                                            **TP_STEP_CASES}[case]
     gen = torch.Generator().manual_seed(0)
     model = models.build(family, models.small_config(family, xq, wq),
                          device='cpu', generator=gen, **kw)
     models.seed_state(model, gen)
     model = model.to(DEVICE)
+    if shard:
+        shard_model(model, mesh)
+    traced: dict = {}
+
+    def keep(name: str) -> Callable:
+        def hook(mod: Any, args: tuple, out: torch.Tensor) -> None:
+            traced[name] = (out if name == 'conv1'
+                            else args[0]).detach().cpu()
+        return hook
+    hooks = [m.register_forward_hook(keep(name))
+             for name, m in model.named_modules()
+             if trace and (name == 'conv1' or isinstance(m, QuantConv2d))]
     tx, _ = T.make_optimizer(
         {'epochs': 1, 'optimizer': {'algorithm': 'sgd', 'lr': 0.1},
          'lr_scheduler': {'scheduler': 'step_lr', 'step_size': 1,
@@ -2747,8 +2834,9 @@ def _dp_step(case: str, rows: slice, mesh: Any = None) -> dict:
     step = T.make_train_step(T.get_loss_fn(loss_name), mesh=mesh)
     state, metric_state, loss = step(state, x[rows].to(DEVICE),
                                      y[rows].to(DEVICE), init_metric_state())
-    leaves = {f'grad/{n}': p.grad.cpu().numpy()
-              for n, p in model.named_parameters() if p.grad is not None}
+    for h in hooks:
+        h.remove()
+    leaves: dict = {}
 
     def walk(tree: Any, prefix: str) -> None:
         if isinstance(tree, dict):
@@ -2756,8 +2844,17 @@ def _dp_step(case: str, rows: slice, mesh: Any = None) -> dict:
                 walk(v, f'{prefix}/{k}')
         else:
             leaves[prefix] = np.asarray(tree)
-    walk(to_jax_variables(model), 'tree')
-    return dict(leaves=leaves, loss=float(loss),
+    walk(gather_model_variables(model), 'tree')
+    saved = [(p, p.data) for p in model.parameters()]
+    try:  # the gradients, gathered as the parameters are
+        for p in model.parameters():
+            p.data = (p.grad if p.grad is not None
+                      else torch.zeros_like(p.data))
+        walk(gather_model_variables(model)['params'], 'grad')
+    finally:
+        for p, data in saved:
+            p.data = data
+    return dict(leaves=leaves, loss=float(loss), trace=traced,
                 metrics=T.MetricAccumulator(state=metric_state).compute())
 
 
@@ -2836,23 +2933,22 @@ def cudnn_wgrad_check() -> dict:
     return out
 
 
-def dp_step_phase(root: str) -> dict:
-    """The DP step of DP_STEP_CASES on the card (a world of 2 on gloo)
-    against this process's step on the whole batch; raises past
-    DP_STEP_TOL, or if the local-statistics control does not differ."""
+def _run_ranks(root: str, name: str, world: int,
+               argv: Callable[[int, int, str], list]) -> list:
+    """Run `world` ranks of this script, rank r with argv(r, port, out)
+    (a free local port; `out` under root, where the rank saves its
+    results), one deadline of POD_TIMEOUT s; their results. Raises with a
+    failed rank's output; kills every rank that outlives the deadline."""
     import socket
 
-    t0 = time.perf_counter()
     with socket.socket() as sock:
         sock.bind(('127.0.0.1', 0))
         port = sock.getsockname()[1]
-    outs = [os.path.join(root, f'dp_step{r}.pt')
-            for r in range(DP_STEP_WORLD)]
+    outs = [os.path.join(root, f'{name}{r}.pt') for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), '--dp-step-worker',
-         str(r), str(port), outs[r], DEVICE, str(int(DP_STEP_CUDNN))],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(DP_STEP_WORLD)]
+        [sys.executable, os.path.abspath(__file__), *argv(r, port, outs[r])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -2865,8 +2961,18 @@ def dp_step_phase(root: str) -> dict:
                 p.wait()
     for p, log in zip(procs, logs):
         if p.returncode != 0:
-            raise AssertionError(f'dp step rank failed:\n{log[-3000:]}')
-    ranks = [torch.load(o, weights_only=False) for o in outs]
+            raise AssertionError(f'{name} rank failed:\n{log[-3000:]}')
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def dp_step_phase(root: str) -> dict:
+    """The DP step of DP_STEP_CASES on the card (a world of 2 on gloo)
+    against this process's step on the whole batch; raises past
+    DP_STEP_TOL, or if the local-statistics control does not differ."""
+    t0 = time.perf_counter()
+    ranks = _run_ranks(root, 'dp_step', DP_STEP_WORLD, lambda r, port, out: [
+        '--dp-step-worker', str(r), str(port), out, DEVICE,
+        str(int(DP_STEP_CUDNN))])
     out: dict = dict(batch=DP_STEP_BATCH, world=DP_STEP_WORLD,
                      backend='gloo', tol=DP_STEP_TOL, cases={})
     cudnn = torch.backends.cudnn.enabled
@@ -3020,6 +3126,470 @@ def experiment_phase(seed: int, train_record: dict) -> dict:
     return out
 
 
+def _sync() -> None:
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _host_ms(fn: Callable[[], Any], iters: int) -> float:
+    """ms a call of fn back to back, host included, after one warm-up,
+    ended by a synchronize: gloo's collectives run on the host, so this
+    is the time a caller gets. The ranks of a group call it alike."""
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def tp_serving_model(name: str, seed: int) -> torch.nn.Module:
+    """TP_SERVING's model on the CPU: the main path's ResNet-18, or
+    ('small') its small_config form (the CPU rehearsal's)."""
+    if name == 'resnet18':
+        return models.seeded_serving_resnet18('cpu', seed)
+
+    def make(x_quant: str, w_quant: str, **kw: Any) -> torch.nn.Module:
+        return models.build('xnor', models.small_config('xnor', x_quant,
+                                                        w_quant), **kw)
+    return models.seeded_model(make, 'ls-1', 'ls-1', 'cpu', seed)
+
+
+class _SummingGather(torch.autograd.Function):
+    """The all-gather of torch.distributed.nn.functional, whose backward
+    reduce-scatters (sums) the group's gradients: here an all-reduce and
+    this rank's slice (the library's gloo path scatters, which gloo takes
+    on host tensors only)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, tp: Any) -> torch.Tensor:
+        from quant_tpu_torch.parallel.sharding import all_gather_cat
+        ctx.tp = tp
+        return all_gather_cat(x, -1, tp)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple:
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.tp.group)
+        return grad.chunk(ctx.tp.size, -1)[ctx.tp.index].contiguous(), None
+
+
+def _tp_ring(mesh: Any, spec: dict) -> dict:
+    """The packed ring GEMM of this rank's K/P words against the twin on
+    the whole operands; its launches, and ms of the ring, the naive form
+    and (on the card) one block's xnor_gemm."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.ops import binary_gemm as G
+    from quant_tpu_torch.parallel import tp_packed_matmul_overlapped
+    from quant_tpu_torch.parallel.sharding import tensor_parallel
+
+    tp = tensor_parallel(mesh)
+    m, k, n = spec['ring']
+    words, wl, nb = k // 32, k // 32 // tp.size, n // tp.size
+    gen = torch.Generator().manual_seed(spec['seed'])
+    xp, wp = (torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                            dtype=torch.int32).to(DEVICE)
+              for shape in ((m, words), (words, n)))
+    mine = slice(tp.index * wl, (tp.index + 1) * wl)
+    x_loc, w_loc = xp[:, mine].contiguous(), wp[mine].contiguous()
+    ones_m, ones_n = (torch.ones(d, device=DEVICE) for d in (m, n))
+
+    def ring(gather: bool = True) -> torch.Tensor:
+        return tp_packed_matmul_overlapped(x_loc, w_loc, k, mesh,
+                                           gather_output=gather)
+
+    def naive() -> torch.Tensor:
+        part = G.xnor_gemm(x_loc, w_loc, ones_m, ones_n, k // tp.size)
+        torch.distributed.all_reduce(part, group=tp.group)
+        return part
+
+    want = G.xnor_gemm_plain(xp, wp, ones_m, ones_n, k)
+    _sync()
+    _build.reset_launch_counts()
+    got = ring()
+    _sync()
+    launches = _build.launch_counts()
+    out = dict(shape=[m, k, n], ranks=tp.size, launches=launches,
+               max_abs_err=check_equal('tp ring', got, want))
+    check_equal('tp ring scattered', ring(False),
+                want[:, tp.index * nb:(tp.index + 1) * nb])
+    check_equal('tp naive', naive(), want)
+    out.update(ring_ms=_host_ms(ring, spec['iters']),
+               naive_ms=_host_ms(naive, spec['iters']))
+    if DEVICE == 'cuda':
+        w_blk = w_loc[:, :nb].contiguous()
+        out['block_ms'] = card_ms(lambda: G.xnor_gemm(
+            x_loc, w_blk, ones_m, ones_n[:nb], k // tp.size), spec['iters'])
+    return out
+
+
+def _tp_round(model: torch.nn.Module, images: np.ndarray, leader: bool,
+              dtype: Optional[torch.dtype], iters: int) -> dict:
+    """One engine over the model in `dtype`: the leader queues every
+    image before the scheduler starts (one batch, the batch predict
+    runs), then predicts and times predict; a follower serves until the
+    leader stops. The leader's logits, its queued-vs-predict difference,
+    ms a predict and stats."""
+    from quant_tpu_torch.serving.engine import InferenceEngine
+
+    model.eval_dtype = dtype
+    engine = InferenceEngine(model, images.shape[1:], max_batch=len(images),
+                             max_wait_ms=5.0, device=DEVICE)
+    if not leader:
+        engine.start()
+        engine.stop(timeout=POD_TIMEOUT)
+        if engine.ping() or engine._thread.is_alive():
+            raise AssertionError('tp follower did not stop')
+        return {}
+    futures = [engine.submit(img) for img in images]
+    engine.start()
+    try:
+        queued = np.stack([f.result(timeout=POD_TIMEOUT) for f in futures])
+        logits = engine.predict(images)
+        ms = _host_ms(lambda: engine.predict(images), iters)
+        stats = {k: engine.stats[k] for k in ('requests', 'batches')}
+    finally:
+        engine.stop()
+    return dict(logits=logits, engine_ms=ms, stats=stats,
+                queued_max_abs_err=float(np.abs(queued - logits).max()))
+
+
+def _tp_serving(mesh: Any, spec: dict, leader: bool) -> dict:
+    """The sharded serving model through the TP engine, bf16 then
+    float32; launches and forwards of the bf16 round, the captured
+    kernels against their twins, ms of a bare forward."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.nn.layers import QuantConv2d
+    from quant_tpu_torch.ops.conv import max_pool2d
+    from quant_tpu_torch.ops.pool import max_pool_3x3_s2_p1
+    from quant_tpu_torch.parallel import shard_model
+
+    serving = spec['serving']
+    model = shard_model(tp_serving_model(serving['model'], spec['seed']).to(
+        DEVICE), mesh)
+    images = np.random.default_rng(spec['seed']).standard_normal(
+        (serving['batch'],) + tuple(serving['input'])).astype(np.float32)
+    # Forwards counted; the first one's conv inputs and pool input kept.
+    seen: list = []
+    stems: list = []
+    forwards = [0]
+
+    def count(mod: Any, args: tuple) -> None:
+        forwards[0] += 1
+
+    def first(keep: list, value: Any) -> None:
+        if forwards[0] == 1:
+            keep.append(value)
+
+    convs = [m for m in model.modules() if isinstance(m, QuantConv2d)]
+    hooks = [model.register_forward_pre_hook(count),
+             model.bn1.register_forward_hook(
+                 lambda mod, args, out: first(stems, torch.relu(out)))]
+    hooks += [m.register_forward_pre_hook(
+        lambda mod, args: first(seen, (mod, args[0]))) for m in convs]
+    _sync()
+    _build.reset_launch_counts()
+    out = dict(bf16=_tp_round(model, images, leader, torch.bfloat16,
+                              spec['iters']))
+    _sync()
+    out.update(launches=_build.launch_counts(), forwards=forwards[0])
+    for h in hooks:
+        h.remove()
+    if len(seen) != len(convs):
+        raise AssertionError(f'tp: {len(seen)} conv inputs captured of '
+                             f'{len(convs)}')
+    with torch.inference_mode():
+        out['captured'] = captured_phases(seen)
+        stem = stems[0].contiguous()
+        out['captured']['max_pool_3x3_s2_p1'] = check_equal(
+            'tp pool captured', max_pool_3x3_s2_p1(stem),
+            max_pool2d(stem, kernel_size=3, stride=2, padding=1))
+    out['conv_out_channels'] = sorted({c.w_packed.shape[-1] for c in convs})
+    x = torch.from_numpy(images).to(DEVICE)
+    with torch.inference_mode():
+        out['forward_ms'] = _host_ms(lambda: model(x), spec['iters'])
+    out['f32'] = _tp_round(model, images, leader, None, spec['iters'])
+    return out
+
+
+def tp_worker(rank: int, port: int, out: str, spec_path: str) -> int:
+    """One rank of the TP phase (chip_smoke.py --tp-worker): joins a gloo
+    world of TP_WORLD, runs the ring, the TP serving rounds (rank 0
+    leads) and the TP train steps with cuDNN off (and the summing
+    control), and saves the results at `out`."""
+    from quant_tpu_torch.nn import layers
+    from quant_tpu_torch.parallel import make_mesh, multihost
+
+    global DEVICE
+    with open(spec_path) as f:
+        spec = json.load(f)
+    DEVICE = spec['device']
+    if DEVICE == 'cuda' and not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    os.environ[multihost.BACKEND_ENV] = 'gloo'
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize(f'127.0.0.1:{port}', spec['world'], rank,
+                         device=DEVICE)
+    mesh = make_mesh(model=spec['world'], device_type=DEVICE)
+    results: dict = {}
+    gather = layers.gather_channels
+    try:
+        results['ring'] = _tp_ring(mesh, spec)
+        results['serving'] = _tp_serving(mesh, spec, rank == 0)
+        torch.backends.cudnn.enabled = spec['cudnn']
+        results['steps'] = {case: _dp_step(case, slice(None), mesh, True,
+                                           case == TP_FLIP_CASE)
+                            for case in (*TP_STEP_CASES, TP_FLIP_CASE)}
+        layers.gather_channels = _SummingGather.apply
+        results['steps']['lenet_summing'] = _dp_step('lenet', slice(None),
+                                                     mesh, True)
+    finally:
+        layers.gather_channels = gather
+        torch.distributed.destroy_process_group()
+    torch.save(results, out)
+    return 0
+
+
+def _tp_launches(got: dict, calls: int, per_call: dict) -> dict:
+    """A rank's launches over `calls` forwards (or ring calls): per call,
+    raising unless they are per_call's, and nothing else."""
+    want = {k: per_call.get(k, 0) * calls for k in got}
+    if got != want:
+        raise AssertionError(f'tp launches {got}, expected {want}')
+    return {k: v // max(calls, 1) for k, v in got.items() if v}
+
+
+def _max_err(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(np.asarray(got, np.float64) - want).max())
+
+
+def _tp_workers(root: str, seed: int) -> list[dict]:
+    """Run TP_WORLD tp_worker ranks; their results."""
+    spec = dict(seed=seed, device=DEVICE, world=TP_WORLD, ring=TP_RING_SHAPE,
+                serving=TP_SERVING, iters=TP_ITERS, cudnn=DP_STEP_CUDNN)
+    spec_path = os.path.join(root, 'tp_spec.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    return _run_ranks(root, 'tp', TP_WORLD, lambda r, port, out: [
+        '--tp-worker', str(r), str(port), out, spec_path])
+
+
+def _tp_serving_gates(ranks: list[dict], seed: int) -> dict:
+    """The TP engine's logits against the unsharded engine's on the card,
+    launches a forward, the captured kernels' errors; ms beside the
+    unsharded engine's."""
+    serving = TP_SERVING
+    model = tp_serving_model(serving['model'], seed).to(DEVICE)
+    images = np.random.default_rng(seed).standard_normal(
+        (serving['batch'],) + tuple(serving['input'])).astype(np.float32)
+    x = torch.from_numpy(images).to(DEVICE)
+    ref = {}
+    with tf32(False):
+        for name, dt in (('bf16', torch.bfloat16), ('f32', None)):
+            ref[name] = _tp_round(model, images, True, dt, TP_ITERS)
+            with torch.inference_mode():
+                ref[name]['forward_ms'] = _host_ms(lambda: model(x),
+                                                   TP_ITERS)
+    lead = ranks[0]['serving']
+    f32 = lead['f32']['logits']
+    np.testing.assert_allclose(f32, ref['f32']['logits'], **TP_F32_TOL,
+                               err_msg='tp float32 chain vs unsharded')
+    bf16, want16 = lead['bf16']['logits'], ref['bf16']['logits']
+    spread = float(want16.max() - want16.min())
+    bf16_err = _max_err(bf16, want16)
+    if not (bf16.shape == (serving['batch'], serving['classes'])
+            and np.isfinite(bf16).all()
+            and bf16_err <= TP_BF16_REL_TOL * spread):
+        raise AssertionError(f'tp bf16 chain vs unsharded: {bf16_err} of '
+                             f'spread {spread}')
+    for name in ('bf16', 'f32'):
+        if lead[name]['queued_max_abs_err'] > 1e-6:
+            raise AssertionError(f'tp {name} queued differs from predict')
+    captured = {}
+    for r in ranks:
+        for kname, err in r['serving']['captured'].items():
+            captured[kname] = max(captured.get(kname, 0.0), err)
+    per_forward = [_tp_launches(r['serving']['launches'],
+                                r['serving']['forwards'],
+                                serving['per_forward']) for r in ranks]
+    return dict(
+        batch=serving['batch'], per_forward=per_forward,
+        forwards=[r['serving']['forwards'] for r in ranks],
+        conv_out_channels=lead['conv_out_channels'], captured=captured,
+        f32_max_abs_err=_max_err(f32, ref['f32']['logits']),
+        bf16_max_abs_err=bf16_err, bf16_spread=spread,
+        bf16_rel_err=bf16_err / spread,
+        engine_ms={'tp': lead['bf16']['engine_ms'],
+                   'unsharded': ref['bf16']['engine_ms']},
+        engine_f32_ms={'tp': lead['f32']['engine_ms'],
+                       'unsharded': ref['f32']['engine_ms']},
+        forward_ms={'tp': [r['serving']['forward_ms'] for r in ranks],
+                    'unsharded': ref['bf16']['forward_ms'],
+                    'unsharded_f32': ref['f32']['forward_ms']},
+        stats=lead['bf16']['stats'])
+
+
+def _tp_step_gates(ranks: list[dict]) -> dict:
+    """Each rank's TP step against this process's step (cuDNN off), and
+    the summing control beyond TP_SUMMING_MIN_DIFF."""
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = DP_STEP_CUDNN
+    try:
+        wants = {case: _dp_step(case, slice(None), trace=case == TP_FLIP_CASE)
+                 for case in (*TP_STEP_CASES, TP_FLIP_CASE)}
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    out: dict = dict(tol=DP_STEP_TOL, cudnn=DP_STEP_CUDNN, cases={})
+    flip = wants.pop(TP_FLIP_CASE)
+    got = ranks[0]['steps'][TP_FLIP_CASE]
+    # Where the binary-activation step departs: the stem's output, then
+    # the signs of each binary conv's input, in forward order.
+    out['flip_case'] = dict(
+        case=TP_FLIP_CASE, loss_rel_err=abs(got['loss'] - flip['loss'])
+        / abs(flip['loss']), max_abs_err=max(
+            float(np.abs(got['leaves'][k] - v).max())
+            for k, v in flip['leaves'].items()),
+        stem_max_abs_err=float((got['trace']['conv1']
+                                - flip['trace']['conv1']).abs().max()),
+        sign_flips={name: int((got['trace'][name].sign()
+                               != v.sign()).sum())
+                    for name, v in flip['trace'].items() if name != 'conv1'})
+    for case, want in wants.items():
+        rec = dict(max_abs_err=0.0, worst_excess=0.0, worst=None)
+        for r in ranks:
+            got = r['steps'][case]
+            if set(got['leaves']) != set(want['leaves']):
+                raise AssertionError(f'tp step {case}: leaves differ')
+            pairs = [(k, got['leaves'][k], want['leaves'][k])
+                     for k in want['leaves']]
+            pairs.append(('loss', np.float64(got['loss']),
+                          np.float64(want['loss'])))
+            for k, g, w in pairs:
+                err = np.abs(g - w)
+                rec['max_abs_err'] = max(rec['max_abs_err'],
+                                         float(err.max(initial=0.0)))
+                excess = float((err - (DP_STEP_TOL['atol'] + DP_STEP_TOL[
+                    'rtol'] * np.abs(w))).max(initial=0.0))
+                if excess > rec['worst_excess']:
+                    rec.update(worst_excess=excess, worst=k)
+        out['cases'][case] = rec
+        if rec['worst_excess'] > 0:
+            raise AssertionError(f'tp step {case} vs the single process '
+                                 f'past {DP_STEP_TOL}: {rec}')
+    summing = ranks[0]['steps']['lenet_summing']['leaves']
+    out['summing_diff'] = max(
+        float(np.abs(summing[k] - v).max())
+        for k, v in wants['lenet']['leaves'].items() if k.startswith('grad'))
+    if not out['summing_diff'] > TP_SUMMING_MIN_DIFF:
+        raise AssertionError(f'tp step: the summing control does not '
+                             f'differ: {out["summing_diff"]}')
+    return out
+
+
+def tp_pod(root: str, seed: int) -> dict:
+    """The MNIST recipe at tensor_parallel TP_WORLD through
+    PodComputePlatform (gloo, cuDNN deterministic) against the same run
+    at tp = 1 in this process; its last checkpoint restored at TP_WORLD
+    (a pod) and at 1 (in process), each evaluated."""
+    from quant_tpu_torch.experiment import Experiment
+    from quant_tpu_torch.parallel.multihost import BACKEND_ENV
+    from quant_tpu_torch.platform import PodComputePlatform
+    from quant_tpu_torch.pod_worker import DETERMINISTIC_ENV
+    from quant_tpu_torch.train.task import classification_task
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, 'mnist_tp')
+    os.makedirs(data)
+    write_mnist(data, TP_POD_MNIST['train'], TP_POD_MNIST['test'], seed + 3)
+    exps = os.path.join(root, 'tp_experiments')
+    cfg_path = recipe_copy(EXPERIMENT_MNIST['recipe'],
+                           os.path.join(root, 'tp.yaml'), exps,
+                           TP_POD_MNIST['epochs'],
+                           data={'dataset_path': data})
+    tp_env = {'environment': {'tensor_parallel': TP_WORLD}}
+    platform = PodComputePlatform(TP_WORLD, env={
+        DETERMINISTIC_ENV: '1', BACKEND_ENV: 'gloo'}, timeout=POD_TIMEOUT)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tp1 = classification_task(_pod_config(cfg_path, 'tp1'), exps)
+        t1 = time.perf_counter()
+        tp2 = platform.run(Experiment(classification_task, _pod_config(
+            cfg_path, 'tp2', **tp_env)))
+        pod_s = time.perf_counter() - t1
+        if any(m != platform.rank_metrics[0]
+               for m in platform.rank_metrics):
+            raise AssertionError(f'tp pod: ranks disagree '
+                                 f'{platform.rank_metrics}')
+        restored = {}
+        for tp, name in ((TP_WORLD, 'tp2_restored'), (1, 'tp2_at_tp1')):
+            config = _pod_config(cfg_path, name, **(tp_env if tp > 1
+                                                    else {}))
+            config.update(restore_experiment=os.path.join(exps, 'tp2'),
+                          skip_training=True)
+            if tp > 1:
+                restored[name] = platform.run(Experiment(
+                    classification_task, config))[1][0]
+            else:
+                restored[name] = classification_task(
+                    config, exps, restore_experiment=config[
+                        'restore_experiment'])[1][0]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    out = dict(images=TP_POD_MNIST, limits=TP_POD_LIMITS, pod_s=pod_s,
+               tp1={'train': tp1[0][0], 'test': tp1[1][0]},
+               tp2={'train': tp2[0][0], 'test': tp2[1][0]},
+               restored=restored, loss_rel_err={})
+    for part in ('train', 'test'):
+        want = out['tp1'][part]['Loss']
+        out['loss_rel_err'][part] = (abs(out['tp2'][part]['Loss'] - want)
+                                     / abs(want))
+    for name, m in restored.items():
+        want = out['tp2']['test']['Loss']
+        out['loss_rel_err'][name] = abs(m['Loss'] - want) / abs(want)
+    if not all(err <= TP_POD_LIMITS[key if key in TP_POD_LIMITS
+                                     else 'restored']
+               for key, err in out['loss_rel_err'].items()):
+        raise AssertionError(f'tp pod past {TP_POD_LIMITS}: '
+                             f'{out["loss_rel_err"]}')
+    out['s'] = time.perf_counter() - t0
+    return out
+
+
+def tp_phase(seed: int) -> dict:
+    """The tensor-parallel phase (TP_WORLD's comment), in a temporary
+    directory removed after; prints one {"tp_phase": ...} line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='qtt_tp_') as root:
+        ranks = _tp_workers(root, seed)
+        out = dict(world=TP_WORLD, backend='gloo', mesh=[1, TP_WORLD])
+        ring = ranks[0]['ring']
+        out['ring'] = dict(
+            {k: ring[k] for k in ('shape', 'ranks', 'max_abs_err', 'ring_ms',
+                                  'naive_ms') + (('block_ms',) if
+                                                 'block_ms' in ring else ())},
+            launches_per_rank=[_tp_launches(r['ring']['launches'], 1, {
+                'xnor_gemm': TP_WORLD}) for r in ranks],
+            ring_ms_ranks=[r['ring']['ring_ms'] for r in ranks],
+            naive_ms_ranks=[r['ring']['naive_ms'] for r in ranks])
+        print(f'tp ring: {out["ring"]}', flush=True)
+        out['serving'] = _tp_serving_gates(ranks, seed)
+        print(f'tp serving: {out["serving"]}', flush=True)
+        out['step'] = _tp_step_gates(ranks)
+        print(f'tp step: {out["step"]}', flush=True)
+        out['pod'] = tp_pod(root, seed)
+        print(f'tp pod: {out["pod"]}', flush=True)
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'tp_phase': out}), flush=True)
+    return out
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
@@ -3030,11 +3600,17 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap.add_argument('--dp-step-worker', nargs=5, default=None,
                     metavar=('RANK', 'PORT', 'OUT', 'DEVICE', 'CUDNN'),
                     help='run one rank of the DP step (dp_step_phase)')
+    ap.add_argument('--tp-worker', nargs=4, default=None,
+                    metavar=('RANK', 'PORT', 'OUT', 'SPEC'),
+                    help='run one rank of the TP phase (tp_phase)')
     args = ap.parse_args(argv)
     if args.dp_step_worker:
         rank, port, out, device, cudnn = args.dp_step_worker
         return dp_step_worker(int(rank), int(port), out, device,
                               cudnn == '1')
+    if args.tp_worker:
+        rank, port, out, spec = args.tp_worker
+        return tp_worker(int(rank), int(port), out, spec)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
@@ -3210,6 +3786,16 @@ def main(argv: Optional[list[str]] = None) -> int:
     experiment = experiment_phase(args.seed, train['configs'][0])
     print(f'experiment phase: {experiment["s"]:.1f} s', flush=True)
 
+    tp = tp_phase(args.seed)
+    print(f'tp phase: {tp["s"]:.1f} s', flush=True)
+    for kname, err in tp['serving']['captured'].items():
+        errs[kname] = max(errs[kname], err)
+    # Each rank's launches on this slice's path: a ring call (xnor_gemm,
+    # which no earlier path runs) and a TP-served forward.
+    tp_launches = dict(tp['serving']['per_forward'][0],
+                       **tp['ring']['launches_per_rank'][0])
+    launches['xnor_gemm'] = tp_launches['xnor_gemm']
+
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
     probe_s = time.perf_counter() - t0
@@ -3237,6 +3823,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                     replaces=replaces[r['name']],
                     launches=r.get('launches', launches[r['name']]),
                     on_main_path=want[r['name']] > 0,
+                    tp_launches=tp_launches.get(r['name'], 0),
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
@@ -3258,7 +3845,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            model_phases=phases, model_phases_s=phases_s,
                            oracle=oracle,
                            recipes=recipes, recipes_s=recipes_s,
-                           train=train, experiment=experiment,
+                           train=train, experiment=experiment, tp=tp,
                            probes=records, probe_s=probe_s,
                            build_resources=resources,
                            torch=torch.__version__,

@@ -14,8 +14,11 @@ preparation with EMA calibration (`nn.export`), the serving stack
 `serving.worker`), quantization-aware training (`train`), the
 experiment entry point that runs the recipes under examples/ (`config`,
 `data`, `train.task`, `utils.checkpoints`, `experiment`, `platform`,
-the drivers in `examples`), the serving artifact (`serving.prepare`)
-and the chip probes (`probes.probe_r2`, `probes.probe_r3`). Their
+the drivers in `examples`), the serving artifact (`serving.prepare`),
+data and tensor parallelism over processes (`parallel`: a sharded
+model's explicit out-channel gathers, the ring-overlapped binary GEMM,
+the TP engine) and the chip probes (`probes.probe_r2`,
+`probes.probe_r3`). Their
 hand-written CUDA kernels live in `csrc/` and are built with nvcc at
 first use (`_build.py`); each wrapper runs its plain PyTorch twin only
 for CPU tensors.

@@ -10,9 +10,10 @@ JAX_PLATFORMS and lands in config['device'].
 
 The port drives one card a process (`check_single_card`):
 environment.multihost runs data parallel over processes, each one rank;
-environment.tensor_parallel above 1, and nchips above 1 in a single
-process, raise NotImplementedError. nchips 0 (all visible) and 1 run on
-the one card.
+environment.tensor_parallel shards the model over 'model' groups of that
+many ranks, and a process alone runs it unsharded; nchips above 1 in a
+single process raises NotImplementedError. nchips 0 (all visible) and 1
+run on the one card.
 """
 
 import argparse
@@ -72,7 +73,13 @@ def parse_common_fields(args: argparse.Namespace) -> None:
 
 def check_single_card(config: dict) -> None:
     """Raise NotImplementedError for an environment the port cannot run:
-    tensor parallelism, or an nchips this process cannot take.
+    a tensor_parallel that does not divide the world, or an nchips this
+    process cannot take.
+
+    tensor_parallel follows JAX's make_mesh: a process alone runs
+    unsharded (JAX's task has no mesh on one device), a world that tp
+    divides gets the mesh (world / tp, tp), and a world where JAX would
+    drop devices is refused, since a rank cannot be dropped.
 
     The port drives one card a process; data parallelism over several
     cards is several processes (environment.multihost, or
@@ -81,21 +88,22 @@ def check_single_card(config: dict) -> None:
     0 or the world's size for a rank. A multihost config that has not
     joined its world yet (the CLI's parse_config) is checked again by
     train.task once it has."""
+    import torch.distributed as dist
     env = config.get('environment', {})
+    joined = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if joined else 1
     tp = int(env.get('tensor_parallel', 1) or 1)
-    if tp > 1:
+    if tp < 1 or (world > 1 and world % tp):
         raise NotImplementedError(
-            f'environment tensor_parallel {tp}: tensor parallelism is '
-            'Slice E part 2 of ROADMAP.md; the port runs data parallel '
-            'only (set tensor_parallel to 1).')
+            f'environment tensor_parallel {tp}: the run has {world} '
+            f'processes of one card each, which {tp} does not divide '
+            '(a rank cannot be left out of the mesh); set tensor_parallel '
+            f'to a divisor of {world}.')
     nchips = int(env.get('nchips', 0) or 0)
     if nchips <= 1:
         return
-    import torch.distributed as dist
-    joined = dist.is_available() and dist.is_initialized()
     if not joined and env.get('multihost'):
         return
-    world = dist.get_world_size() if joined else 1
     if world == nchips:
         return
     if world > 1:

@@ -39,6 +39,9 @@ from torch import nn
 from quant_tpu_torch.ops import binary_infer as BI
 from quant_tpu_torch.ops.conv import _pair, conv2d, stem_conv_s2d
 from quant_tpu_torch.parallel import global_stats
+from quant_tpu_torch.parallel.sharding import (
+    TensorParallel, gather_channels, reduce_input_grad,
+)
 from quant_tpu_torch.ops.quantize import (
     get_clamp_fn, quantize_with_scheme, scheme_num_scales, solve_scales,
     validate_scheme,
@@ -63,6 +66,20 @@ def _uniform(shape: Sequence[int], fan_in: int,
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     t = torch.empty(tuple(shape), dtype=torch.float32)
     return t.uniform_(-bound, bound, generator=generator)
+
+
+def _gathered(module: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """y, a sharded module's slice of the output channels, gathered over
+    its 'model' group (parallel.sharding.shard_model); y as it is for a
+    module that is not sharded."""
+    return y if module.tp is None else gather_channels(y, module.tp)
+
+
+def _sharded_input(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x, the whole input of a sharded module, with its gradient summed
+    over the 'model' group (each rank's backward gives its slice's part);
+    x as it is for a module that is not sharded."""
+    return x if module.tp is None else reduce_input_grad(x, module.tp)
 
 
 @contextmanager
@@ -95,7 +112,11 @@ class PReLU(nn.Module):
 class Conv(nn.Module):
     """Full-precision NHWC conv (HWIO kernel); `dtype` downcasts x, kernel
     and bias for the computation. With `s2d` a 7x7/s2/p3 conv on even H
-    and W runs as its exact space-to-depth form (same parameters)."""
+    and W runs as its exact space-to-depth form (same parameters).
+    Sharded (`tp`), it holds its slice of the out-channels and gathers
+    its output, as Dense and QuantConv2d do."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, stride: IntOr2 = 1,
@@ -114,6 +135,7 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         kernel, bias = self.kernel, self.bias
+        x = _sharded_input(self, x)
         if dtype is not None:
             x, kernel = x.to(dtype), kernel.to(dtype)
             bias = bias.to(dtype) if bias is not None else None
@@ -121,13 +143,15 @@ class Conv(nn.Module):
                 and _pair(self.stride) == (2, 2)
                 and _pair(self.padding) == (3, 3)
                 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
-            return stem_conv_s2d(x, kernel, bias=bias)
-        return conv2d(x, kernel, stride=self.stride, padding=self.padding,
-                      bias=bias)
+            return _gathered(self, stem_conv_s2d(x, kernel, bias=bias))
+        return _gathered(self, conv2d(x, kernel, stride=self.stride,
+                                      padding=self.padding, bias=bias))
 
 
 class Dense(nn.Module):
     """Fully-connected layer with an (in, out) kernel."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True,
@@ -142,12 +166,13 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         kernel = self.kernel
+        x = _sharded_input(self, x)
         if dtype is not None:
             x, kernel = x.to(dtype), kernel.to(dtype)
         y = x @ kernel
         if self.bias is not None:
             y = y + (self.bias.to(dtype) if dtype is not None else self.bias)
-        return y
+        return _gathered(self, y)
 
 
 class BatchNorm(nn.Module):
@@ -165,9 +190,12 @@ class BatchNorm(nn.Module):
     the output is `dtype`, else x's dtype promoted with the affine's.
     Under a data-parallel train step (parallel.global_stats.over) the
     batch's statistics are the global batch's, over every rank's rows.
+    Sharded (`tp`), it holds its slice of the bias (JAX's rules shard a
+    `bias` leaf) and gathers it; all else is whole.
     """
 
     momentum = 0.1  # the new statistics' weight (JAX passes 1 - 0.1)
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, num_features: int, epsilon: float = 1e-5,
                  affine: bool = True):
@@ -200,7 +228,7 @@ class BatchNorm(nn.Module):
             mul = mul * self.weight
         y = (x.to(torch.promote_types(x.dtype, torch.float32)) - mean) * mul
         if self.bias is not None:
-            y = y + self.bias
+            y = y + _gathered(self, self.bias)
         return y
 
     def forward(self, x: torch.Tensor,
@@ -352,7 +380,17 @@ class QuantConv2d(nn.Module):
 
     `solver_mode` and `calibrate` reach the activation quantizer; its
     solves take every 3rd element of a row, as JAX's quantizers.
+
+    Sharded (`tp`, parallel.sharding.shard_model), the conv holds its
+    slice of the out-channels (kernel, bias, w_vs, w_packed, w_scales),
+    takes the matching slice of b_fold into its epilogue (b_fold is
+    replicated, as JAX leaves it), computes its slice of the output from
+    the whole input (the activation scales and the fold's thresholds are
+    per input channel: whole) and gathers it. The weight solves of train
+    mode then run on the slice: they reduce over (kh, kw, I) alone.
     """
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, *, x_quant: str = 'ls-1',
@@ -465,6 +503,17 @@ class QuantConv2d(nn.Module):
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 bn_folded: bool = False) -> torch.Tensor:
+        return _gathered(self, self._forward(_sharded_input(self, x),
+                                             out_dtype, bn_folded))
+
+    def _b_fold(self) -> torch.Tensor:
+        """b_fold, or this rank's slice of it when sharded."""
+        if self.tp is None:
+            return self.b_fold
+        return self.b_fold.chunk(self.tp.size)[self.tp.index]
+
+    def _forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype],
+                 bn_folded: bool) -> torch.Tensor:
         if self.training:
             return self._train(x, out_dtype)
         if not self.packed:
@@ -503,7 +552,7 @@ class QuantConv2d(nn.Module):
             w_packed, w_scales = self.pack()
         common = dict(w_packed=w_packed, w_vs=w_scales,
                       in_channels=self.in_channels,
-                      bias=self.b_fold if has_fold else self.bias,
+                      bias=self._b_fold() if has_fold else self.bias,
                       stride=self.stride, padding=self.padding,
                       out_dtype=out_dtype or torch.float32,
                       fused=self.pass_fusion)

@@ -2,7 +2,9 @@
 
 One process drives one card, so a mesh's devices are the processes'
 ranks: a `torch.distributed.device_mesh.DeviceMesh` with dimensions
-('data', 'model') over the initialized process group.
+('data', 'model') over the initialized process group, laid out row
+major as JAX's `reshape(data, model)`: the ranks of one 'model' group
+are consecutive.
 """
 
 from typing import Optional, Sequence
@@ -10,6 +12,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+MESH_DIMS = ('data', 'model')
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
@@ -19,29 +23,38 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
 
     Args:
         data: size of the data axis; defaults to len(devices) // model.
-        model: size of the model (tensor-parallel) axis; only 1 runs.
+        model: size of the model (tensor-parallel) axis.
         devices: the ranks, one card each (defaults to every rank).
         device_type: 'cuda' or 'cpu', the cards' type.
+
+    Raises ValueError where the ranks cannot fill the grid: unlike JAX's
+    devices, a rank left out of the mesh cannot be dropped.
     """
-    if model > 1:
-        raise NotImplementedError(
-            f'mesh model axis {model}: tensor parallelism is Slice E part 2 '
-            'of ROADMAP.md; the port runs data parallel only (model=1).')
     world = dist.get_world_size() if dist.is_initialized() else 1
     devices = list(devices if devices is not None else range(world))
     if data is None:
         data = len(devices) // model
-    if data * model > len(devices):
+    if data < 1 or model < 1 or data * model > len(devices):
         raise ValueError(
-            f'mesh {data}x{model} needs {data * model} devices, '
+            f'mesh {data}x{model} needs {max(data, 1) * model} devices, '
             f'have {len(devices)}')
     grid = torch.tensor(devices[:data * model]).reshape(data, model)
-    return DeviceMesh(device_type, grid, mesh_dim_names=('data', 'model'))
+    return DeviceMesh(device_type, grid, mesh_dim_names=MESH_DIMS)
+
+
+def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
+    """The size of a mesh axis; 1 without a mesh."""
+    return 1 if mesh is None else mesh[axis].size()
+
+
+def axis_index(mesh: Optional[DeviceMesh], axis: str) -> int:
+    """This rank's coordinate along a mesh axis; 0 without a mesh."""
+    return 0 if mesh is None else mesh[axis].get_local_rank()
 
 
 def data_size(mesh: Optional[DeviceMesh]) -> int:
     """The 'data' axis' size; 1 without a mesh."""
-    return 1 if mesh is None else mesh['data'].size()
+    return axis_size(mesh, 'data')
 
 
 def data_group(mesh: Optional[DeviceMesh]
@@ -51,3 +64,12 @@ def data_group(mesh: Optional[DeviceMesh]
     if data_size(mesh) == 1:
         return None
     return mesh.get_group('data')
+
+
+def model_group(mesh: Optional[DeviceMesh]
+                ) -> Optional[dist.ProcessGroup]:
+    """The process group of this rank's 'model' axis, or None where the
+    axis has one rank (the model runs unsharded: no collective)."""
+    if axis_size(mesh, 'model') == 1:
+        return None
+    return mesh.get_group('model')

@@ -16,6 +16,11 @@ runs one process a card under torch.distributed:
   step's collectives (train.engine, parallel.global_stats) make the
   ranks' rows one logical batch, laid out in rank order.
 * `collective_any(flag)`: a consensus across processes.
+
+Given a mesh with a 'model' axis, a process's share is indexed by its
+'data' coordinate among the 'data' axis' size, not by its rank among
+all ranks: the ranks of one 'model' group compute one batch together,
+so they read the same rows.
 """
 
 import logging
@@ -25,6 +30,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from quant_tpu_torch.parallel.mesh import axis_index, axis_size
 
 logger = logging.getLogger(__name__)
 
@@ -113,10 +120,23 @@ def collective_any(flag: bool) -> bool:
     return bool(t.item())
 
 
+def _share(process_index: Optional[int], process_count: Optional[int],
+           mesh: Any) -> tuple[int, int]:
+    """(index, count) of this process's share of a dataset: the given
+    ones, else the mesh's 'data' coordinate and size, else the rank and
+    the world size."""
+    if mesh is not None:
+        pi, pc = axis_index(mesh, 'data'), axis_size(mesh, 'data')
+    else:
+        pi, pc = rank(), world_size()
+    return (pi if process_index is None else process_index,
+            pc if process_count is None else process_count)
+
+
 def host_shard(num_examples: int,
                process_index: Optional[int] = None,
                process_count: Optional[int] = None,
-               equal: bool = False) -> tuple[int, int]:
+               equal: bool = False, mesh: Any = None) -> tuple[int, int]:
     """Contiguous [start, stop) slice of the dataset owned by a process.
 
     equal=True drops the remainder so every process owns exactly
@@ -124,9 +144,9 @@ def host_shard(num_examples: int,
     process must dispatch the same number of identically-shaped steps
     (a ragged tail would deadlock the collectives, and the mean of the
     ranks' gradients is the global batch's only for equal batches).
+    `mesh`: index the share by the 'data' coordinate (module docstring).
     """
-    pi = rank() if process_index is None else process_index
-    pc = world_size() if process_count is None else process_count
+    pi, pc = _share(process_index, process_count, mesh)
     per = num_examples // pc
     start = pi * per
     stop = start + per if (equal or pi != pc - 1) else num_examples
@@ -216,7 +236,7 @@ def _padded_host_slice(images: np.ndarray, labels: np.ndarray,
 def shard_loader_for_host(loader: Any,
                           process_index: Optional[int] = None,
                           process_count: Optional[int] = None,
-                          pad: bool = False) -> Any:
+                          pad: bool = False, mesh: Any = None) -> Any:
     """Give this process its disjoint 1/process_count of a batched loader.
 
     The config's batch size is GLOBAL (one logical batch scattered over
@@ -228,10 +248,12 @@ def shard_loader_for_host(loader: Any,
     dispatches identically-shaped steps. pad=True (eval): every process
     is padded to ceil coverage with sentinel target -1 rows, so the
     masked eval metrics cover the FULL set exactly.
+
+    mesh: index the share by the 'data' coordinate, so the ranks of one
+    'model' group get the same rows (module docstring).
     """
     from quant_tpu_torch.data.loaders import BatchIterable
-    pi = rank() if process_index is None else process_index
-    pc = world_size() if process_count is None else process_count
+    pi, pc = _share(process_index, process_count, mesh)
     if pc == 1:
         return loader
     if isinstance(loader, BatchIterable):
@@ -258,10 +280,11 @@ def global_batch(local: Any, mesh: Any = None) -> torch.Tensor:
     The JAX package assembles one array sharded over the mesh's 'data'
     axis (make_array_from_process_local_data); here each rank keeps its
     own rows, and the step's collectives make them one logical
-    (process_count * local_rows, ...) batch in rank order: gradients and
-    metrics summed across the 'data' group, train-mode statistics over
-    every rank's rows. `mesh` (a DeviceMesh, or None for the CPU) names
-    the card's type. It only moves the rows, as train.engine's loops do
+    (data_size * local_rows, ...) batch in the order of the ranks' 'data'
+    coordinates: gradients and metrics summed across the 'data' group,
+    train-mode statistics over every rank's rows; the ranks of one
+    'model' group hold the same rows. `mesh` (a DeviceMesh, or None for
+    the CPU) names the card's type. It only moves the rows, as train.engine's loops do
     for every batch, so they take no such step; it serves a caller's own
     loop.
     """

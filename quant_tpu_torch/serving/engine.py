@@ -9,6 +9,16 @@ its logits. PyTorch runs eagerly, so buckets only bound the padding;
 `warmup` runs each bucket once so first requests do not pay the
 kernels' build.
 
+A model sharded over a 'model' group (parallel.sharding.shard_model)
+is served by one engine a rank of the group. The group's first rank
+(the leader) owns the queue, the batching and the futures: each batch
+it runs goes to the group by broadcast, and the other ranks'
+engines (followers) run a loop that takes the same batch and runs the
+same forward, so the forward's gathers line up. `predict`, `submit` and
+`warmup` are the leader's; `start()` starts the follower's loop, and the
+leader's `stop()` ends every rank's (a follower's `stop()` waits for
+it). The results are the unsharded engine's.
+
 `ServingFrontend` dispatches requests over backends with the engine's
 surface: in-process engines, or `serving.rpc.RemoteEngineClient`s of
 engines in worker processes (`serving.worker`).
@@ -24,6 +34,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from quant_tpu_torch import _build
 from quant_tpu_torch.device import DeviceLike, resolve_device
@@ -32,6 +43,8 @@ logger = logging.getLogger(__name__)
 
 # Ring-buffer depth for latency percentiles: recent-window stats, O(1) mem.
 _LATENCY_WINDOW = 2048
+# The header a leader broadcasts to its followers: (op, rows).
+_STOP, _RUN = 0, 1
 
 
 def _latency_stats(windows: list[np.ndarray]) -> dict:
@@ -65,6 +78,9 @@ class InferenceEngine:
             max_wait_ms: batching window after the first pending request.
             device: where the model runs ('cuda' by default; raises if
                 CUDA is missing).
+
+        A tensor-parallel model (its `tp` set) makes this rank's engine
+        its group's leader or a follower (module docstring).
         """
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
@@ -74,6 +90,9 @@ class InferenceEngine:
             raise ValueError(f'model lives on {model_device}, engine '
                              f'device is {self.device}')
         self.model = model.eval()
+        self._model_device = model_device
+        self._tp = getattr(model, 'tp', None)
+        self.leader = self._tp is None or self._tp.index == 0
         self.input_shape = tuple(input_shape)
         self.max_batch = max_batch
         self.buckets = sorted(set(
@@ -84,7 +103,11 @@ class InferenceEngine:
         # Guards the stats counters and the latency window.
         self._lock = threading.Lock()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        # One forward (and its broadcast) at a time: a sharded model's
+        # collectives must reach the group in one order.
+        self._run_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._loop if self.leader else self._follow, daemon=True)
         self._stats = {'requests': 0, 'batches': 0, 'padded': 0}
         self._latencies: collections.deque = collections.deque(
             maxlen=_LATENCY_WINDOW)
@@ -96,20 +119,37 @@ class InferenceEngine:
         return self
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run each bucket once (builds the kernels on first use)."""
+        """Run each bucket once (builds the kernels on first use); a
+        follower runs the leader's warm-up batches through its loop."""
+        if not self.leader:
+            return
         for b in (buckets or self.buckets):
             if b not in self.buckets:
                 raise ValueError(f'{b} is not a configured bucket '
                                  f'({self.buckets})')
             self._run(np.zeros((b,) + self.input_shape, np.float32))
 
-    def stop(self) -> None:
+    def stop(self, timeout: Optional[float] = 10) -> None:
+        """End the scheduler; a leader then ends its followers' loops, a
+        follower waits (up to `timeout` s) for its leader to."""
+        if not self.leader:
+            self._thread.join(timeout=timeout)
+            return
         self._stop.set()
         if self._thread.is_alive():
-            self._thread.join(timeout=10)
+            self._thread.join(timeout=timeout)
+        if self._tp is not None:
+            with self._run_lock:
+                self._send(None)
+
+    def _leading(self) -> None:
+        if not self.leader:
+            raise RuntimeError('a follower engine takes no requests: its '
+                               "group's leader (model rank 0) serves")
 
     def submit(self, image: np.ndarray) -> Future:
         """Enqueue one image; returns a Future resolving to its logits."""
+        self._leading()
         if tuple(image.shape) != self.input_shape:
             raise ValueError(
                 f'expected shape {self.input_shape}, got {image.shape}')
@@ -123,6 +163,7 @@ class InferenceEngine:
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Synchronous batch prediction (bypasses the queue); inputs
         larger than max_batch are chunked."""
+        self._leading()
         outs = []
         for start in range(0, images.shape[0], self.max_batch):
             chunk = images[start:start + self.max_batch]
@@ -169,9 +210,47 @@ class InferenceEngine:
         return self.buckets[-1]
 
     def _run(self, batch: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device)
+        with self._run_lock, torch.inference_mode():
+            x = torch.from_numpy(batch).to(self._model_device)
+            if self._tp is not None:
+                self._send(x)
             return self.model(x).to(torch.float32).cpu().numpy()
+
+    def _header(self, op: int, rows: int) -> torch.Tensor:
+        """(op, rows) from the leader, by broadcast over the group."""
+        head = torch.tensor([op, rows], dtype=torch.int64,
+                            device=self._model_device)
+        dist.broadcast(head, dist.get_global_rank(self._tp.group, 0),
+                       group=self._tp.group)
+        return head
+
+    def _send(self, x: Optional[torch.Tensor]) -> None:
+        """The leader's batch (None: stop) to its followers."""
+        self._header(_STOP if x is None else _RUN,
+                     0 if x is None else x.shape[0])
+        if x is not None:
+            dist.broadcast(x, dist.get_global_rank(self._tp.group, 0),
+                           group=self._tp.group)
+
+    def _receive(self) -> Optional[torch.Tensor]:
+        """A follower's next batch from its leader (None: stop)."""
+        op, rows = self._header(_STOP, 0).tolist()
+        if op == _STOP:
+            return None
+        x = torch.empty((rows,) + self.input_shape, dtype=torch.float32,
+                        device=self._model_device)
+        dist.broadcast(x, dist.get_global_rank(self._tp.group, 0),
+                       group=self._tp.group)
+        return x
+
+    def _follow(self) -> None:
+        """A follower's loop: the leader's batches, each through the
+        same forward, until the leader stops."""
+        if self._model_device.type == 'cuda':
+            torch.cuda.set_device(self._model_device)
+        with torch.inference_mode():
+            while (x := self._receive()) is not None:
+                self.model(x)
 
     def _loop(self) -> None:
         while not self._stop.is_set():

@@ -17,6 +17,16 @@ the global batch's gradient for equal local batches), and the metric
 increments summed across it, so each rank reports the global batch's
 loss and accuracy. A 'data' axis of one rank dispatches no collective.
 JAX's `donate` has no counterpart.
+
+Tensor parallel (a mesh with a 'model' axis, the model sharded by
+parallel.sharding.shard_model): the ranks of one 'model' group step on
+the same rows; the model's forward gathers its sharded outputs and the
+gathers' backward leaves each rank its own slice's gradient. So
+gradients are averaged over the 'data' group only: a sharded leaf's
+gradient is its own slice's, neither summed nor averaged across the
+'model' ranks, and a replicated leaf's is the same on each of them.
+Statistics and metrics reduce over 'data' alike, so the ranks of one
+'model' group hold equal metrics.
 """
 
 import inspect
@@ -100,7 +110,8 @@ def make_train_step(loss_fn: Callable,
             'backward', 'optimizer' and 'end' as each part of the step
             starts (and it ends), e.g. to record CUDA events.
         mesh: optional DeviceMesh (parallel.make_mesh) whose 'data' ranks
-            step together on one logical batch (module docstring); the
+            step together on one logical batch, and whose 'model' ranks
+            hold a model sharded over them (module docstring); the
             returned loss is then the global batch's.
     """
     group = data_group(mesh)

@@ -14,6 +14,16 @@ pads it with masked rows), the steps reduce across the ranks
 every restore path. One process a rank means no eval padding for the
 ranks' devices (JAX's eval_pad is 1 here).
 
+environment.tensor_parallel (tp) above 1 in a world of several
+processes: the mesh is (world / tp, tp), the ranks of one 'model' group
+load the same share (their 'data' coordinate's), and the model is
+sharded over the group (parallel.sharding.shard_model) after init and
+after every restore path, as JAX's `_place`. Rank 0 writes checkpoints
+of the gathered tree, the optimizer's moments gathered too, so a
+checkpoint has one layout whatever the sharding: a tp = 2 run restores
+at tp = 1 and the reverse. A process alone runs unsharded, as JAX on
+one device.
+
 Where the port differs from the JAX task:
 
 - `build_model` gives a config without inference_mode JAX's default,
@@ -45,6 +55,10 @@ from quant_tpu_torch.device import (
 )
 from quant_tpu_torch.nn import MODEL_REGISTRY
 from quant_tpu_torch.parallel import make_mesh, multihost
+from quant_tpu_torch.parallel.sharding import (
+    gather_model_variables, gather_optimizer_state, place_optimizer_state,
+    shard_model,
+)
 from quant_tpu_torch.train.engine import (
     evaluate, make_eval_step, make_train_step, train_epoch,
 )
@@ -193,8 +207,10 @@ def get_teacher_apply(kd_config: dict, seed: Optional[int],
 def _load_optimizer_state(state: TrainState, payload: dict) -> None:
     """The payload's optimizer state and step into `state`, the
     hyperparameters staying the config's; a state of another optimizer
-    is refused with a warning and the optimizer starts fresh."""
-    saved = payload['opt_state']
+    is refused with a warning and the optimizer starts fresh. A sharded
+    model takes its slices of the (unsharded) moments."""
+    saved = place_optimizer_state(state.model, state.optimizer,
+                                  payload['opt_state'])
     fresh_groups = [{k: v for k, v in g.items() if k != 'params'}
                     for g in state.optimizer.param_groups]
     if [set(g) - {'params'} for g in saved.get('param_groups', [])] != [
@@ -239,9 +255,10 @@ def classification_task(
                              env_config.get('num_processes'),
                              env_config.get('process_id'), device=device)
     check_single_card(config)
+    tp = int(env_config.get('tensor_parallel', 1) or 1)
     mesh = None
     if multihost.world_size() > 1:
-        mesh = make_mesh(device_type=device.type)
+        mesh = make_mesh(model=tp, device_type=device.type)
     is_writer = multihost.rank() == 0
 
     if data_loader_cls is None:
@@ -254,15 +271,18 @@ def classification_task(
     train_loader = None if skip_training else data_loader.get_train_loader()
     test_loader = data_loader.get_test_loader()
 
-    # Several processes: each loads its disjoint 1/world of every dataset
-    # and the steps make one logical global batch of the ranks' rows.
+    # Several processes: each 'data' coordinate loads its disjoint share
+    # of every dataset and the steps make one logical global batch of
+    # the shares' rows.
     if mesh is not None:
         if train_loader is not None:
-            train_loader = multihost.shard_loader_for_host(train_loader)
+            train_loader = multihost.shard_loader_for_host(train_loader,
+                                                           mesh=mesh)
         # pad=True: eval covers the FULL test set (the padded rows are
         # masked out of the metrics); train drops the ragged tail so the
         # ranks' steps stay in lockstep on equal batches.
-        test_loader = multihost.shard_loader_for_host(test_loader, pad=True)
+        test_loader = multihost.shard_loader_for_host(test_loader, pad=True,
+                                                      mesh=mesh)
 
     epochs = int(optimization_config['epochs'])
     seed = config.get('seed')
@@ -290,6 +310,9 @@ def classification_task(
     elif config.get('init_from_checkpoint'):
         _restore_into(model, restore_checkpoint(
             Path(config['init_from_checkpoint'])), strict)
+    # After init and every restore (a checkpoint is unsharded): this
+    # rank's slices, when the mesh has a 'model' axis.
+    shard_model(model, mesh)
 
     if skip_training:
         state = TrainState(model=model, optimizer=None, tx=None)
@@ -338,14 +361,20 @@ def classification_task(
             save_freq = int(log_config.get('save_model_freq', epochs))
 
             def _save(payload_epoch: int, tag: int) -> None:
-                """Rank 0 writes; the ranks hold the same state."""
+                """Rank 0 writes the unsharded state (a sharded model's
+                slices gathered: every rank of its group takes part)."""
+                sharded = getattr(state.model, 'tp', None) is not None
+                if not (is_writer or sharded):
+                    return
+                tree = gather_model_variables(state.model)
+                opt_state = gather_optimizer_state(state.model,
+                                                   state.optimizer)
                 if not is_writer:
                     return
-                tree = to_jax_variables(state.model)
                 save_checkpoint(exp_dir / 'checkpoints',
                                 {**{col: tree.get(col, {})
                                     for col in MODEL_COLLECTIONS},
-                                 'opt_state': state.optimizer.state_dict(),
+                                 'opt_state': opt_state,
                                  'step': state.step,
                                  'epoch': payload_epoch}, tag)
 

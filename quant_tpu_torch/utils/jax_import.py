@@ -11,7 +11,7 @@ load into a port model that trains on from there, and
 not carried).
 """
 
-from typing import Any, Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -44,6 +44,20 @@ _LEAVES: dict[str, list[tuple[str, str, tuple[str, ...], bool]]] = {
         ('x_va', 'packed_params', ('x_va',), True),
         ('b_fold', 'packed_params', ('b_fold',), True)],
 }
+
+
+def leaf_slots(model: nn.Module
+               ) -> Iterator[tuple[nn.Module, str, str, tuple[str, ...],
+                                   bool]]:
+    """(module, attribute, collection, the leaf's path in that
+    collection, optional) for every leaf slot of the model, by the leaf
+    map below; a module at dotted path `a.b` holds the leaves under
+    `a/b`."""
+    for name, module in model.named_modules():
+        prefix = tuple(name.split('.')) if name else ()
+        for attr, coll, path, optional in _LEAVES.get(
+                type(module).__name__, ()):
+            yield module, attr, coll, prefix + path, optional
 
 
 def _lookup(tree: Mapping[str, Any], path: list[str]) -> Optional[Any]:
@@ -105,34 +119,28 @@ def from_jax_variables(model: nn.Module,
     Serve a folded tree with model.bn_fold = True.
     """
     device = next(model.parameters()).device
-    for name, module in model.named_modules():
-        rows = _LEAVES.get(type(module).__name__)
-        if rows is None:
+    for module, attr, coll, path, optional in leaf_slots(model):
+        where = f"{coll}/{'/'.join(path)}"
+        current = getattr(module, attr)
+        value = _lookup(variables.get(coll, {}), list(path))
+        if value is None:
+            if optional:
+                setattr(module, attr, None)
+            elif current is not None:
+                raise KeyError(f'required leaf missing: {where}')
             continue
-        prefix = name.split('.') if name else []
-        for attr, coll, path, optional in rows:
-            current = getattr(module, attr)
-            value = _lookup(variables.get(coll, {}), prefix + list(path))
-            if value is None:
-                if optional:
-                    setattr(module, attr, None)
-                elif current is not None:
-                    raise KeyError(f"required leaf missing: "
-                                   f"{coll}/{'/'.join(prefix + list(path))}")
-                continue
-            t = torch.from_numpy(np.array(value)).to(device)
-            if current is None and not optional:
-                raise ValueError(
-                    f"{coll}/{'/'.join(prefix + list(path))}: the tree has "
-                    'it, the module has no such state (config mismatch)')
-            if current is not None and current.shape != t.shape:
-                raise ValueError(
-                    f"{coll}/{'/'.join(prefix + list(path))}: shape "
-                    f'{tuple(t.shape)} != {tuple(current.shape)}')
-            if attr in module._parameters:
-                setattr(module, attr, nn.Parameter(t))
-            else:
-                setattr(module, attr, t)
+        t = torch.from_numpy(np.array(value)).to(device)
+        if current is None and not optional:
+            raise ValueError(
+                f'{where}: the tree has it, the module has no such state '
+                '(config mismatch)')
+        if current is not None and current.shape != t.shape:
+            raise ValueError(
+                f'{where}: shape {tuple(t.shape)} != {tuple(current.shape)}')
+        if attr in module._parameters:
+            setattr(module, attr, nn.Parameter(t))
+        else:
+            setattr(module, attr, t)
     return model
 
 
@@ -142,17 +150,12 @@ def to_jax_variables(model: nn.Module) -> dict[str, Any]:
     that is None is left out of the tree. The arrays are copies, so the
     tree stays as it was while the model trains on."""
     tree: dict[str, Any] = {}
-    for name, module in model.named_modules():
-        rows = _LEAVES.get(type(module).__name__)
-        if rows is None:
+    for module, attr, coll, path, _ in leaf_slots(model):
+        value = getattr(module, attr)
+        if value is None:
             continue
-        prefix = name.split('.') if name else []
-        for attr, coll, path, _ in rows:
-            value = getattr(module, attr)
-            if value is None:
-                continue
-            node = tree.setdefault(coll, {})
-            for key in prefix + list(path[:-1]):
-                node = node.setdefault(key, {})
-            node[path[-1]] = value.detach().cpu().numpy().copy()
+        node = tree.setdefault(coll, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value.detach().cpu().numpy().copy()
     return tree

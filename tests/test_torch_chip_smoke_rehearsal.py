@@ -10,7 +10,9 @@ phases to small models, the train phase to small models at batch 2,
 the experiment phase to a small MNIST (LeNet-5 at the recipe's widths)
 and to small ResNets at 32 px on 8 synthetic images, its torch.profiler
 reading (which needs the card's kernels) stood in for, and its pod to a
-smaller MNIST, its worlds on gloo over the CPU. The oracle phase runs
+smaller MNIST, its worlds on gloo over the CPU, and the TP phase to a
+small ring GEMM, the small XNOR ResNet served at batch 2 and a smaller
+MNIST, its world of 2 on gloo over the CPU. The oracle phase runs
 as on the card (the oracles are small), its launch counts stood in for.
 That catches Python-level breakage of the
 script (arguments, shapes, the phases' control flow, the report's keys)
@@ -63,6 +65,21 @@ def worker_launches(before: dict, after: dict, per_batch=None) -> dict:
         got)
     assert not any(got.values()), got
     return got
+
+
+def tp_launches(got: dict, calls: int, per_call: dict) -> dict:
+    """The CPU ranks of the TP phase launch no kernel: their counts stay
+    0; the card's per-call counts are taken as expected."""
+    assert calls > 0 and set(per_call) <= set(got), (got, per_call)
+    assert not any(got.values()), got
+    return dict(per_call)
+
+
+# The TP phase's served model: small_config's XNOR ResNet at 32 px.
+SMALL_SERVED_TP = {'xnor_conv2d': 8, 'pack_sign_planes': 8,
+                   'max_pool_3x3_s2_p1': 1}
+SMALL_TP_SERVING = dict(model='small', batch=2, input=[32, 32, 3],
+                        classes=10, per_forward=SMALL_SERVED_TP)
 
 
 # The experiment phase's ImageNet recipes narrowed to small_config's
@@ -178,6 +195,18 @@ def rehearsal(monkeypatch):
         imagenet['teacher']: SMALL_RECIPE, imagenet['student']: SMALL_RECIPE})
     monkeypatch.setattr(chip_smoke, 'loader_profile', lambda step, state,
                         batches: dict(steps=len(batches), idle_share=None))
+    monkeypatch.setattr(chip_smoke, 'TP_RING_SHAPE', (64, 256, 32))
+    monkeypatch.setattr(chip_smoke, 'TP_SERVING', SMALL_TP_SERVING)
+    monkeypatch.setattr(chip_smoke, 'TP_ITERS', 1)
+    monkeypatch.setattr(chip_smoke, 'TP_POD_MNIST', dict(
+        chip_smoke.TP_POD_MNIST, test=64))
+    monkeypatch.setattr(chip_smoke, '_tp_launches', tp_launches)
+    # On the CPU the MNIST recipe's 4 TP steps move its test loss by
+    # 4.4e-3 from tp = 1 (tied max-pool windows after the binary conv2
+    # break the other way under another float order), the card's 3.8e-4:
+    # the rehearsal holds the test loss to 5e-2, the card to 2e-3.
+    monkeypatch.setattr(chip_smoke, 'TP_POD_LIMITS', dict(
+        chip_smoke.TP_POD_LIMITS, test=5e-2))
     # The small student's bf16 chain is 7-13% of the logit spread from its
     # float32 one (few channels, a 1x1 last map the pool cannot average):
     # its served bf16 logits are held to 20% here, the card's full-width
@@ -217,7 +246,11 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
         assert k['launches'] == (
             rehearsal[k['name']] if on_main else
             headline[k['name']] if k['name'] == 'xnor_conv2d_planes' else
-            1 if k['name'] in chip_smoke.PROBE_KERNELS else 0)
+            1 if k['name'] in chip_smoke.PROBE_KERNELS else
+            chip_smoke.TP_WORLD)
+        assert k['tp_launches'] == (
+            SMALL_SERVED_TP[k['name']] if on_main else
+            chip_smoke.TP_WORLD if k['name'] == 'xnor_gemm' else 0)
     assert headline['xnor_conv2d_planes'] == 8
     # One multi-plane row for each phase that launches the kernel, with
     # the registers and blocks an SM of the instance it takes; a library
@@ -335,6 +368,30 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     assert 3 < preempt['interrupted_epoch'] < preempt['epochs']
     assert len(preempt['checkpoints']) == preempt['interrupted_epoch']
     assert preempt['ms_per_step'] > 0 and pod['single_process_ms_per_step'] > 0
+    tp = report['tp']
+    assert [json.loads(ln)['tp_phase'] for ln in lines
+            if ln.startswith('{"tp_phase"')] == [tp]
+    assert tp['ring']['max_abs_err'] == 0.0
+    assert tp['ring']['launches_per_rank'] == [{'xnor_gemm': 2}] * 2
+    serving = tp['serving']
+    assert serving['per_forward'] == [SMALL_SERVED_TP] * 2
+    assert serving['forwards'][0] == serving['forwards'][1] > 1
+    assert serving['conv_out_channels'] == [4, 8, 16, 32]
+    assert set(serving['captured'].values()) == {0.0}
+    assert serving['f32_max_abs_err'] == serving['bf16_max_abs_err'] == 0.0
+    assert serving['stats'] == {'requests': 2, 'batches': 1}
+    step = tp['step']
+    assert set(step['cases']) == set(chip_smoke.TP_STEP_CASES)
+    assert all(r['worst_excess'] == 0.0 for r in step['cases'].values())
+    # The CPU's sums agree: the binary-activation case is within the step
+    # tolerance here; the card measures it without a gate.
+    assert step['flip_case']['case'] == chip_smoke.TP_FLIP_CASE
+    assert step['flip_case']['max_abs_err'] < 1e-5
+    assert step['summing_diff'] > chip_smoke.TP_SUMMING_MIN_DIFF
+    pod_tp = tp['pod']
+    assert set(pod_tp['loss_rel_err']) == {'train', 'test', 'tp2_restored',
+                                           'tp2_at_tp1'}
+    assert pod_tp['loss_rel_err']['tp2_restored'] == 0.0
     oracle = report['oracle']
     assert [(r['oracle'], r['mode'], r['sign_compute'], r['launches'])
             for r in oracle['runs']] == [

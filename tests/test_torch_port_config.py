@@ -5,8 +5,10 @@ same dict on every recipe under examples/ and on each CLI combination
 (the port adds config['device'], from its --device flag), raise the same
 errors with the same messages, resume the same experiments under
 --auto-resume and name an unnamed experiment alike. The port drives one
-card a process: tensor_parallel above 1, and nchips above 1 in a single
-process, raise; multihost parses (data parallel over processes).
+card a process: nchips above 1 in a single process raises; multihost
+parses (data parallel over processes); tensor_parallel parses, a process
+alone running unsharded as JAX does on one device, and a world it does
+not divide is refused.
 """
 
 import datetime
@@ -73,13 +75,45 @@ def test_multi_chip_recipe_raises_naming_slice_e():
     ({'ngpus': 4}, 'nchips 4'),
 ])
 def test_parallel_environments_raise(tmp_path, environment, message):
+    from unittest import mock
     cfg = yaml.safe_load(open('examples/mnist/mnist_ls1.yaml'))
     cfg['environment'] = environment
     path = tmp_path / 'c.yaml'
     path.write_text(yaml.safe_dump(cfg))
     want, got = both(['--config', str(path)])
     assert isinstance(want, dict)
+    if 'tensor_parallel' in environment:
+        # A process alone parses as JAX's and runs unsharded; a world of
+        # 3 ranks, which tp = 2 does not divide, is refused.
+        assert got.pop('device') == 'cuda' and got == want
+        with mock.patch('torch.distributed.is_initialized',
+                        return_value=True), \
+                mock.patch('torch.distributed.get_world_size',
+                           return_value=3):
+            with pytest.raises(NotImplementedError, match=message):
+                tparser.check_single_card(got)
+        return
     assert isinstance(got, NotImplementedError) and message in str(got)
+
+
+@pytest.mark.parametrize('world,tp,error', [
+    (1, 2, None), (1, 4, None), (2, 2, None), (4, 2, None), (4, 4, None),
+    (8, 2, None), (2, 4, 'does not divide'), (6, 4, 'does not divide'),
+    (3, 2, 'does not divide')])
+def test_tensor_parallel_is_held_to_the_world(world, tp, error):
+    """JAX's make_mesh semantics: alone unsharded, a world tp divides
+    gets the mesh (world / tp, tp), another world is refused."""
+    from unittest import mock
+    cfg = {'environment': {'tensor_parallel': tp}}
+    with mock.patch('torch.distributed.is_initialized',
+                    return_value=world > 1), \
+            mock.patch('torch.distributed.get_world_size',
+                       return_value=world):
+        if error is None:
+            tparser.check_single_card(cfg)
+        else:
+            with pytest.raises(NotImplementedError, match=error):
+                tparser.check_single_card(cfg)
 
 
 @pytest.mark.parametrize('nchips,error', [

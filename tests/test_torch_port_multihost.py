@@ -281,7 +281,9 @@ def test_make_mesh_rejects_oversized_grid():
 
 
 def test_make_mesh_refuses_a_model_axis_naming_part_2():
-    with pytest.raises(NotImplementedError, match='Slice E part 2'):
+    """A 'model' axis is built (tests/test_torch_port_tp.py); one the
+    ranks cannot fill is refused, since a rank cannot be dropped."""
+    with pytest.raises(ValueError, match='needs 2 devices, have 1'):
         make_mesh(model=2, device_type='cpu')
 
 
