@@ -137,12 +137,27 @@ the chip-probe path:
    the summing-backward control; mnist_ls1.yaml at tensor_parallel 2
    through PodComputePlatform against tp = 1, restored at tp = 2 and 1;
    one JSON line {"tp_phase": ...};
-13. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+13. runs the spatial phase (SPACE_WORLD's comment): the TP phase's
+   served ResNet-18 banded over 'space' in a world of 2 on gloo (both
+   ranks on the card, `chip_smoke.py --par-worker` ranks), served by the
+   banded InferenceEngine against the unsharded engine, bf16 and
+   float32, its launches a forward a rank and every kernel call of a
+   banded forward against its twin on the same band, with the halo
+   bytes a forward; and in this process the banded conv, multi-plane
+   conv and pool at each band geometry of that path against their twins
+   and the whole map's rows, and the raw-zero-edge control; then the
+   pipeline phase (PIPE_STAGES' comment): layer1's packed blocks as two
+   stages over 'pipe', equal to the blocks in sequence, 2 xnor_conv2d
+   and 2 producers a stage a microbatch, and one step of JAX's quantized
+   stage against the sequential one, with the summing-backward control;
+   one JSON line {"spatial_phase": ...} and one {"pipeline_phase": ...};
+14. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
 Prints the card line, JSON lines {"oracle_phase": ...},
-{"experiment_phase": ...}, {"tp_phase": ...}, {"kernels": [...]} and
+{"experiment_phase": ...}, {"tp_phase": ...}, {"spatial_phase": ...},
+{"pipeline_phase": ...}, {"kernels": [...]} and
 {"probes": [...]}
 and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and exits non-zero; without CUDA it exits 2 before printing
@@ -153,6 +168,7 @@ Usage: python3 chip_smoke.py [--batch 128] [--iters 10] [--seed 0]
 """
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -161,7 +177,7 @@ import re
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -588,6 +604,54 @@ TP_POD_MNIST = dict(train=256, test=1000, epochs=1)
 # whose windows hold tied values that a float order can break the other
 # way, so other hardware moves further (the CPU: test 4.4e-3).
 TP_POD_LIMITS = {'train': 2e-3, 'test': 2e-3, 'restored': 2e-3}
+
+# The spatial phase (spatial_phase): a world of SPACE_WORLD on gloo with
+# both ranks on the card, mesh ('space',), spawning `chip_smoke.py
+# --par-worker RANK PORT OUT SPEC` ranks. The TP phase's served model
+# (TP_SERVING: the main path's ResNet-18 at full width and depth, 224 px,
+# batch 32) banded over 'space' (parallel.band_model) and served by the
+# banded InferenceEngine, bf16 then float32, against the unsharded engine
+# (the TP phase's gates: float32 within TP_F32_TOL, bf16 within
+# TP_BF16_REL_TOL of the logit spread); the launches a forward a rank
+# (TP_SERVING's: at 224 px over two bands the stem, the pool and
+# layer1-3 run on bands, layer4 on the gathered map); every kernel call
+# of the first banded forward held to its twin on the same band; the
+# halo bytes a forward. In this process: the banded kernels at each
+# band geometry of that path (BAND_CONVS, the multi-plane conv at
+# BAND_PLANES, the stem pool at BAND_POOL_SHAPE with NaN and +-inf
+# planted), each band cut from a whole map with the rows its halo
+# exchange brings, against the twin on the band and the whole map's
+# rows; and the control: raw activations exchanged with zero-filled
+# edge rows (JAX's fill for an fp conv) into the binary conv must differ
+# from the whole map's result.
+SPACE_WORLD = 2
+# (C in, H of the whole map, stride) of each banded 3x3 binary conv's
+# input: layer1; layer2's first conv and the rest; layer3's.
+BAND_CONVS = ((64, 56, 1), (64, 56, 2), (128, 28, 1), (128, 28, 2),
+              (256, 14, 1))
+BAND_PLANES = (64, 56, 1)  # ls-2 x ls-1 int8: two activation planes
+BAND_CHECK_BATCH = 4
+BAND_POOL_SHAPE = (4, 112, 112, 64)
+# The pipeline phase (pipeline_phase): the same world over mesh
+# ('pipe',), S = PIPE_STAGES. (a) layer1's two packed XnorBasicBlocks of
+# that ResNet-18 as the two stages (torch.func.functional_call over each
+# block's parameters and buffers, bf16, threshold-folded), its batch as
+# PIPE_MICROBATCHES microbatches of its layer1 input: the outputs equal
+# to the blocks applied in sequence, 2 xnor_conv2d and 2 producers a
+# stage a microbatch. (b) One step of JAX's quantized stage
+# (tests/parallel/test_pipeline.py:90-113: ls-1 activations and weights
+# by the STE, a 3x3 conv, x + tanh) at PIPE_STEP, float32 with cuDNN off
+# as the DP step: the stacked weights' gradients within PIPE_STEP_TOL of
+# the sequential composition's, the summing-backward control beyond
+# PIPE_SUMMING_MIN_DIFF, both relative to the gradient's largest element
+# (the pipeline sums its microbatches' weight gradients, the sequential
+# step one batch's, in other orders).
+PIPE_STAGES = 2
+PIPE_MICROBATCHES = 4
+PIPE_STEP = dict(microbatches=4, rows=8, hw=16, channels=16)
+PIPE_STEP_TOL = 1e-5
+PIPE_SUMMING_MIN_DIFF = 1e-3
+PAR_ITERS = 5
 
 
 def card_line() -> str:
@@ -3590,6 +3654,514 @@ def tp_phase(seed: int) -> dict:
     return out
 
 
+def band_rows(t: torch.Tensor, rank: int, world: int, kernel: int,
+              stride: int, pad: int) -> tuple[torch.Tensor, int, int]:
+    """Rank's band of a whole map t (H on dim -3) with the halo rows its
+    exchange brings, and the band's (pad_top, pad_bottom): what a rank of
+    an H-banded forward hands a kernel, cut here without a collective."""
+    from quant_tpu_torch.parallel.spatial import _halo_geometry
+
+    h = t.shape[-3] // world
+    top, bot = _halo_geometry(h, kernel, stride, pad, world)
+    top, bot = (top if rank > 0 else 0), (bot if rank < world - 1 else 0)
+    ext = t.narrow(-3, rank * h - top, h + top + bot).contiguous()
+    return ext, (pad if rank == 0 else 0), (pad if rank == world - 1 else 0)
+
+
+def _out_rows(y: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    h = y.shape[-3] // world
+    return y.narrow(-3, rank * h, h).contiguous()
+
+
+def band_kernel_checks(seed: int) -> dict:
+    """The banded kernels on each band of SPACE_WORLD at the spatial
+    path's geometries against their twins on the band and the whole
+    map's rows, and the raw-zero-edge control (SPACE_WORLD's comment):
+    {kernel: max abs err, 'control_differ': elements the control
+    changes}."""
+    from quant_tpu_torch.ops import binary_infer as B
+    from quant_tpu_torch.ops import pool as P
+
+    gen = torch.Generator().manual_seed(seed)
+    n, bf16 = BAND_CHECK_BATCH, torch.bfloat16
+
+    def words(*shape: int) -> torch.Tensor:
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             dtype=torch.int32).to(DEVICE)
+
+    def scales(*shape: int, lo: float = 0.1) -> torch.Tensor:
+        return (torch.rand(shape, generator=gen) + lo).to(DEVICE)
+
+    errs = dict(xnor_conv2d=0.0, xnor_conv2d_planes=0.0,
+                max_pool_3x3_s2_p1=0.0)
+
+    def hold(name: str, kernel: Callable, plain: Callable, x: torch.Tensor,
+             stride: int, nan_ok: bool = False) -> None:
+        whole = plain(x, None, None)
+        for r in range(SPACE_WORLD):
+            ext, top, bottom = band_rows(x, r, SPACE_WORLD, 3, stride, 1)
+            got = kernel(ext, top, bottom)
+            errs[name] = max(
+                errs[name],
+                check_equal(f'{name} band {r} ({top}, {bottom})', got,
+                            plain(ext, top, bottom), nan_ok),
+                check_equal(f'{name} band {r} vs the whole map', got,
+                            _out_rows(whole, r, SPACE_WORLD), nan_ok))
+
+    for c, h, s in BAND_CONVS:
+        wc, o = c // 32, c * s
+        args = (words(3, 3, wc, o), scales(n), scales(o, lo=0.0) * 0.05,
+                torch.randn(o, generator=gen).to(DEVICE, bf16))
+        kw = dict(in_channels=c, stride=s, padding=1, out_dtype=bf16)
+        hold('xnor_conv2d', lambda e, t, b: B.xnor_conv2d(
+            e, *args, pad_top=t, pad_bottom=b, **kw),
+            lambda e, t, b: B.xnor_conv2d_plain(
+                e, *args, pad_top=t, pad_bottom=b, **kw),
+            words(n, h, h, wc), s)
+    c, h, s = BAND_PLANES
+    wc, o = c // 32, c * s
+    args = (words(1, 3, 3, wc, o), scales(2, n), scales(1, o, lo=0.0) * 0.05,
+            None)
+    kw = dict(in_channels=c, stride=s, padding=1, out_dtype=bf16)
+    hold('xnor_conv2d_planes', lambda e, t, b: B.xnor_conv2d_planes(
+        e, *args, pad_top=t, pad_bottom=b, **kw),
+        lambda e, t, b: B.xnor_conv2d_planes_plain(
+            e, *args, pad_top=t, pad_bottom=b, **kw),
+        words(2, n, h, h, wc), s)
+    for dt in (bf16, torch.float32):
+        x = plant_specials(torch.randn(BAND_POOL_SHAPE, generator=gen).to(
+            DEVICE, dt), seed)
+        hold('max_pool_3x3_s2_p1',
+             lambda e, t, b: P.max_pool_3x3_s2_p1(e, 1 if t is None else t),
+             lambda e, t, b: P.max_pool_3x3_s2_p1_plain(
+                 e, 1 if t is None else t), x, 2, nan_ok=True)
+    # The control: rank 0's band of real activations with its received
+    # bottom row, and JAX's fill for an fp conv (a 0.0 row at the image's
+    # edge) in place of the kernel's own top padding. A 0.0 packs to a +1
+    # bit, not to the zero the binary operand is padded with.
+    c, h, _ = BAND_CONVS[0]
+    act = torch.randn(n, h, h, c, generator=gen).to(DEVICE, bf16)
+    args = (words(3, 3, c // 32, c), scales(n), scales(c, lo=0.0) * 0.05,
+            None)
+    kw = dict(in_channels=c, stride=1, padding=1, out_dtype=bf16)
+    want = _out_rows(B.xnor_conv2d(B.pack_sign_planes(act, 1)[0], *args,
+                                   **kw), 0, SPACE_WORLD)
+    ext, top, bottom = band_rows(act, 0, SPACE_WORLD, 3, 1, 1)
+    check_equal('band words route', B.xnor_conv2d(
+        B.pack_sign_planes(ext, 1)[0], *args, pad_top=top,
+        pad_bottom=bottom, **kw), want)
+    filled = torch.cat([torch.zeros_like(ext[:, :1]), ext], dim=1)
+    got = B.xnor_conv2d(B.pack_sign_planes(filled, 1)[0], *args, pad_top=0,
+                        pad_bottom=bottom, **kw)
+    errs['control_differ'] = int((got != want).sum())
+    if not errs['control_differ']:
+        raise AssertionError('control: zero-filled raw rows into the binary '
+                             'conv agree with the whole map')
+    _sync()
+    return errs
+
+
+def band_kernel_times(seed: int, iters: int) -> dict:
+    """Card ms of xnor_conv2d at layer1's 3x3 conv and of the stem pool,
+    TP_SERVING's batch in bf16, on each band of SPACE_WORLD beside the
+    whole map's call: {kernel: {'whole': ms, 'bands': [ms a rank]}}."""
+    from quant_tpu_torch.ops import binary_infer as B
+    from quant_tpu_torch.ops import pool as P
+
+    gen = torch.Generator().manual_seed(seed)
+    n, c, bf16 = TP_SERVING['batch'], BAND_CONVS[0][0], torch.bfloat16
+    h, w = (d // 4 for d in TP_SERVING['input'][:2])
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, h, w, c // 32),
+                          generator=gen, dtype=torch.int32).to(DEVICE)
+    args = (torch.randint(-2 ** 31, 2 ** 31 - 1, (3, 3, c // 32, c),
+                          generator=gen, dtype=torch.int32).to(DEVICE),
+            (torch.rand(n, generator=gen) + 0.1).to(DEVICE),
+            (torch.rand(c, generator=gen) * 0.05).to(DEVICE), None)
+    kw = dict(in_channels=c, stride=1, padding=1, out_dtype=bf16)
+    stem = torch.randn((n, 2 * h, 2 * w, c), generator=gen).to(DEVICE, bf16)
+    out: dict = {}
+    for name, x, call in (
+            ('xnor_conv2d', words, lambda e, t, b: B.xnor_conv2d(
+                e, *args, pad_top=t, pad_bottom=b, **kw)),
+            ('max_pool_3x3_s2_p1', stem,
+             lambda e, t, b: P.max_pool_3x3_s2_p1(e, t))):
+        stride = 1 if name == 'xnor_conv2d' else 2
+        bands = [band_rows(x, r, SPACE_WORLD, 3, stride, 1)
+                 for r in range(SPACE_WORLD)]
+        out[name] = dict(
+            shape=list(x.shape),
+            whole=card_ms(lambda: call(x, 1, 1), iters),
+            bands=[card_ms(lambda b=b: call(*b), iters) for b in bands],
+            band_pad_top=[b[1] for b in bands])
+    return out
+
+
+@contextlib.contextmanager
+def kernel_calls() -> Iterator[list]:
+    """Record (name, args, kwargs) of every call of the banded path's
+    kernel wrappers inside (the module attributes the forward calls)."""
+    from quant_tpu_torch.nn import resnet
+    from quant_tpu_torch.ops import binary_infer as B
+
+    calls: list = []
+    slots = [(B, 'xnor_conv2d'), (B, 'xnor_conv2d_planes'),
+             (B, 'pack_sign_planes'), (resnet, 'max_pool_3x3_s2_p1')]
+    saved = [getattr(m, a) for m, a in slots]
+
+    def wrap(name: str, fn: Callable) -> Callable:
+        def call(*args: Any, **kw: Any) -> Any:
+            calls.append((name, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for (m, a), fn in zip(slots, saved):
+        setattr(m, a, wrap(a, fn))
+    try:
+        yield calls
+    finally:
+        for (m, a), fn in zip(slots, saved):
+            setattr(m, a, fn)
+
+
+def band_captured(calls: list) -> dict:
+    """Each recorded kernel call again, against its twin on the same
+    arguments (the band and its halo rows): {kernel: max abs err},
+    and the calls by name and top padding."""
+    from quant_tpu_torch.ops import binary_infer as B
+    from quant_tpu_torch.ops import pool as P
+
+    kernels = {'xnor_conv2d': (B.xnor_conv2d, B.xnor_conv2d_plain),
+               'xnor_conv2d_planes': (B.xnor_conv2d_planes,
+                                      B.xnor_conv2d_planes_plain),
+               'pack_sign_planes': (B.pack_sign_planes,
+                                    B.pack_sign_planes_plain),
+               'max_pool_3x3_s2_p1': (P.max_pool_3x3_s2_p1,
+                                      P.max_pool_3x3_s2_p1_plain)}
+    errs: dict = {}
+    calls_by: dict = {}
+    for i, (name, args, kw) in enumerate(calls):
+        kernel, plain = kernels[name]
+        errs[name] = max(errs.get(name, 0.0), check_equal(
+            f'{name} banded call {i}', kernel(*args, **kw),
+            plain(*args, **kw), nan_ok=name == 'max_pool_3x3_s2_p1'))
+        top = kw.get('pad_top', args[1] if name == 'max_pool_3x3_s2_p1'
+                     and len(args) > 1 else None)
+        key = f'{name} pad_top={top}'
+        calls_by[key] = calls_by.get(key, 0) + 1
+    _sync()
+    return dict(errs=errs, calls=calls_by)
+
+
+def _space_serving(mesh: Any, spec: dict, leader: bool) -> dict:
+    """The banded serving model through the banded engine, bf16 then
+    float32: launches and forwards of the bf16 round; one more forward
+    whose kernel calls are held to their twins, its halo and gathered
+    bytes and which convs ran banded; ms of a bare forward."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.nn.layers import Conv, QuantConv2d
+    from quant_tpu_torch.parallel import band_model, local_band
+
+    serving = spec['serving']
+    model = band_model(tp_serving_model(serving['model'], spec['seed']).to(
+        DEVICE), mesh)
+    space = model.space
+    images = np.random.default_rng(spec['seed']).standard_normal(
+        (serving['batch'],) + tuple(serving['input'])).astype(np.float32)
+    forwards = [0]
+    hook = model.register_forward_pre_hook(
+        lambda mod, args: forwards.__setitem__(0, forwards[0] + 1))
+    _sync()
+    _build.reset_launch_counts()
+    out = dict(bf16=_tp_round(model, images, leader, torch.bfloat16,
+                              spec['iters']))
+    _sync()
+    out.update(launches=_build.launch_counts(), forwards=forwards[0])
+    hook.remove()
+    banded: list = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, y, name=name: banded.append(
+            [name, mod.space.banded]))
+        for name, m in model.named_modules()
+        if isinstance(m, (Conv, QuantConv2d))]
+    x = local_band(torch.from_numpy(images).to(DEVICE), mesh)
+    sent, gathered = space.sent_bytes, space.gathered_bytes
+    with kernel_calls() as calls, torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    out.update(halo_bytes=space.sent_bytes - sent,
+               gathered_bytes=space.gathered_bytes - gathered,
+               banded=banded)
+    with torch.inference_mode():
+        out['captured'] = band_captured(calls)
+        out['forward_ms'] = _host_ms(lambda: model(x), spec['iters'])
+    del calls
+    out['f32'] = _tp_round(model, images, leader, None, spec['iters'])
+    return out
+
+
+def pipe_blocks(model: torch.nn.Module, stages: int) -> list:
+    """The pipeline phase's stages: layer1's blocks of the served model
+    (a model with fewer, such as the small rehearsal model's one, repeats
+    them)."""
+    blocks = [b for name, b in model.blocks() if name.startswith('layer1_')]
+    return (blocks * stages)[:stages]
+
+
+def _pipe_packed(mesh: Any, spec: dict) -> dict:
+    """Layer1's packed blocks pipelined against the blocks in sequence:
+    equal outputs, launches a call, ms a call against sequential."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.parallel import pipeline_apply, stack_stage_params
+
+    serving, stages, m = spec['serving'], spec['world'], spec['microbatches']
+    model = tp_serving_model(serving['model'], spec['seed']).to(DEVICE)
+    blocks = pipe_blocks(model, stages)
+    dt, fold = torch.bfloat16, model.bn_fold
+    h, w = serving['input'][0] // 4, serving['input'][1] // 4
+    c = blocks[0].conv1.in_channels
+    gen = torch.Generator().manual_seed(spec['seed'])
+    x = torch.randn((serving['batch'], h, w, c), generator=gen).to(DEVICE, dt)
+    mb = x.reshape((m, -1) + x.shape[1:])
+    params = stack_stage_params([
+        {k: v.detach() for k, v in (*b.named_parameters(),
+                                     *b.named_buffers())} for b in blocks])
+
+    def stage(p: dict, xb: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(blocks[0], p, (xb, dt, fold))
+
+    def sequential() -> torch.Tensor:
+        y = x
+        for b in blocks:
+            y = b(y, dt, fold)
+        return y
+
+    def pipelined() -> torch.Tensor:
+        return pipeline_apply(stage, params, mb, mesh=mesh)
+
+    with torch.no_grad():
+        _sync()
+        _build.reset_launch_counts()
+        got = pipelined()
+        _sync()
+        launches = _build.launch_counts()
+        out = dict(shape=list(mb.shape), launches=launches,
+                   max_abs_err=check_equal('pipeline packed blocks',
+                                           got.reshape(x.shape),
+                                           sequential()))
+        out.update(pipeline_ms=_host_ms(pipelined, spec['iters']),
+                   sequential_ms=_host_ms(sequential, spec['iters']))
+    return out
+
+
+def _pipe_step(mesh: Any, spec: dict) -> dict:
+    """One step of JAX's quantized stage (PIPE_STEP): the stacked
+    weights' gradients through the pipeline against the sequential
+    composition's, and with the summing backward."""
+    from quant_tpu_torch.ops.conv import conv2d
+    from quant_tpu_torch.ops.quantize import quantizer_ls_1
+    from quant_tpu_torch.parallel import pipeline, pipeline_apply
+
+    cfg, stages = spec['step'], spec['world']
+    c = cfg['channels']
+    rng = np.random.default_rng(spec['seed'])
+    w0 = rng.standard_normal((stages, 3, 3, c, c)) * 0.2
+    mb = torch.tensor(rng.standard_normal(
+        (cfg['microbatches'], cfg['rows'], cfg['hw'], cfg['hw'], c)),
+        dtype=torch.float32, device=DEVICE)
+
+    def stage(p: dict, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        xq = quantizer_ls_1(x.reshape(n, -1))[1].reshape(x.shape)
+        wq = quantizer_ls_1(p['w'].reshape(c, -1))[1].reshape(p['w'].shape)
+        return x + torch.tanh(conv2d(xq, wq, stride=1, padding=1))
+
+    def grad(pipelined: bool) -> torch.Tensor:
+        w = torch.tensor(w0, dtype=torch.float32, device=DEVICE,
+                         requires_grad=True)
+        if pipelined:
+            y = pipeline_apply(stage, {'w': w}, mb, mesh=mesh)
+        else:
+            y = mb.reshape((-1,) + mb.shape[2:])
+            for i in range(stages):
+                y = stage({'w': w[i]}, y)
+        (y ** 2).sum().backward()
+        return w.grad
+
+    def summing(g: torch.Tensor, pipe: Any) -> torch.Tensor:
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=pipe.group)
+        return g
+
+    want = grad(False)
+    scale = float(want.abs().max())
+    err = float((grad(True) - want).abs().max())
+    out = dict(max_abs_err=err, rel_err=err / scale, grad_max=scale)
+    saved = pipeline._replicated_grad
+    pipeline._replicated_grad = summing
+    try:
+        out['summing_diff'] = float((grad(True) - want).abs().max()) / scale
+    finally:
+        pipeline._replicated_grad = saved
+    return out
+
+
+def par_worker(rank: int, port: int, out: str, spec_path: str) -> int:
+    """One rank of the spatial or the pipeline phase (chip_smoke.py
+    --par-worker): joins a gloo world, runs spec['phase'] over a mesh of
+    its one axis ('space' or 'pipe') and saves the results at `out`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from quant_tpu_torch.parallel import multihost
+
+    global DEVICE
+    with open(spec_path) as f:
+        spec = json.load(f)
+    DEVICE = spec['device']
+    if DEVICE == 'cuda' and not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    os.environ[multihost.BACKEND_ENV] = 'gloo'
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f'127.0.0.1:{port}', spec['world'], rank,
+                         device=DEVICE)
+    mesh = DeviceMesh(DEVICE, torch.arange(spec['world']),
+                      mesh_dim_names=(spec['phase'],))
+    try:
+        if spec['phase'] == 'space':
+            results = dict(serving=_space_serving(mesh, spec, rank == 0))
+        else:
+            results = dict(packed=_pipe_packed(mesh, spec))
+            torch.backends.cudnn.enabled = spec['cudnn']
+            results['step'] = _pipe_step(mesh, spec)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(results, out)
+    return 0
+
+
+def _par_workers(root: str, seed: int, phase: str, **extra: Any) -> list:
+    """Run SPACE_WORLD par_worker ranks of `phase`; their results."""
+    spec = dict(seed=seed, device=DEVICE, world=SPACE_WORLD, phase=phase,
+                serving=TP_SERVING, iters=PAR_ITERS, **extra)
+    spec_path = os.path.join(root, f'{phase}_spec.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    return _run_ranks(root, phase, SPACE_WORLD, lambda r, port, out: [
+        '--par-worker', str(r), str(port), out, spec_path])
+
+
+def spatial_phase(seed: int) -> dict:
+    """The spatial phase (SPACE_WORLD's comment), in a temporary
+    directory removed after; prints one {"spatial_phase": ...} line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out: dict = dict(world=SPACE_WORLD, backend='gloo', mesh=['space'])
+    out['band_checks'] = band_kernel_checks(seed)
+    print(f'banded kernels vs plain twins: {out["band_checks"]}', flush=True)
+    out['band_ms'] = band_kernel_times(seed, PAR_ITERS)
+    with tempfile.TemporaryDirectory(prefix='qtt_space_') as root:
+        ranks = [r['serving'] for r in _par_workers(root, seed, 'space')]
+    serving = TP_SERVING
+    model = tp_serving_model(serving['model'], seed).to(DEVICE)
+    images = np.random.default_rng(seed).standard_normal(
+        (serving['batch'],) + tuple(serving['input'])).astype(np.float32)
+    x = torch.from_numpy(images).to(DEVICE)
+    ref = {}
+    with tf32(False):
+        for name, dt in (('bf16', torch.bfloat16), ('f32', None)):
+            ref[name] = _tp_round(model, images, True, dt, PAR_ITERS)
+            with torch.inference_mode():
+                ref[name]['forward_ms'] = _host_ms(lambda: model(x),
+                                                   PAR_ITERS)
+    lead = ranks[0]
+    f32 = lead['f32']['logits']
+    np.testing.assert_allclose(f32, ref['f32']['logits'], **TP_F32_TOL,
+                               err_msg='banded float32 chain vs whole')
+    bf16, want16 = lead['bf16']['logits'], ref['bf16']['logits']
+    spread = float(want16.max() - want16.min())
+    bf16_err = _max_err(bf16, want16)
+    if not (bf16.shape == (serving['batch'], serving['classes'])
+            and np.isfinite(bf16).all()
+            and bf16_err <= TP_BF16_REL_TOL * spread):
+        raise AssertionError(f'banded bf16 chain vs whole: {bf16_err} of '
+                             f'spread {spread}')
+    for name in ('bf16', 'f32'):
+        if lead[name]['queued_max_abs_err'] > 1e-6:
+            raise AssertionError(f'banded {name} queued differs from '
+                                 'predict')
+    if any(r['banded'] != lead['banded'] for r in ranks):
+        raise AssertionError('the ranks banded different layers')
+    captured: dict = {}
+    for r in ranks:
+        for kname, err in r['captured']['errs'].items():
+            captured[kname] = max(captured.get(kname, 0.0), err)
+    out.update(
+        batch=serving['batch'],
+        per_forward=[_tp_launches(r['launches'], r['forwards'],
+                                  serving['per_forward']) for r in ranks],
+        forwards=[r['forwards'] for r in ranks], captured=captured,
+        calls=[r['captured']['calls'] for r in ranks],
+        banded=[name for name, b in lead['banded'] if b],
+        whole=[name for name, b in lead['banded'] if not b],
+        halo_bytes=[r['halo_bytes'] for r in ranks],
+        gathered_bytes=[r['gathered_bytes'] for r in ranks],
+        f32_max_abs_err=_max_err(f32, ref['f32']['logits']),
+        bf16_max_abs_err=bf16_err, bf16_spread=spread,
+        bf16_rel_err=bf16_err / spread,
+        engine_ms={'banded': lead['bf16']['engine_ms'],
+                   'whole': ref['bf16']['engine_ms']},
+        engine_f32_ms={'banded': lead['f32']['engine_ms'],
+                       'whole': ref['f32']['engine_ms']},
+        forward_ms={'banded': [r['forward_ms'] for r in ranks],
+                    'whole': ref['bf16']['forward_ms'],
+                    'whole_f32': ref['f32']['forward_ms']},
+        stats=lead['bf16']['stats'])
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'spatial_phase': out}), flush=True)
+    return out
+
+
+def pipeline_phase(seed: int) -> dict:
+    """The pipeline phase (PIPE_STAGES' comment), in a temporary
+    directory removed after; prints one {"pipeline_phase": ...} line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='qtt_pipe_') as root:
+        ranks = _par_workers(root, seed, 'pipe',
+                             microbatches=PIPE_MICROBATCHES, step=PIPE_STEP,
+                             cudnn=DP_STEP_CUDNN)
+    packed = ranks[0]['packed']
+    out = dict(
+        world=SPACE_WORLD, backend='gloo', mesh=['pipe'],
+        stages=PIPE_STAGES, shape=packed['shape'],
+        max_abs_err=max(r['packed']['max_abs_err'] for r in ranks),
+        per_microbatch=[_tp_launches(r['packed']['launches'],
+                                     PIPE_MICROBATCHES,
+                                     {'xnor_conv2d': 2,
+                                      'pack_sign_planes': 2})
+                        for r in ranks],
+        pipeline_ms=[r['packed']['pipeline_ms'] for r in ranks],
+        sequential_ms=[r['packed']['sequential_ms'] for r in ranks],
+        step=dict(tol=PIPE_STEP_TOL, cudnn=DP_STEP_CUDNN, shape=PIPE_STEP,
+                  max_abs_err=max(r['step']['max_abs_err'] for r in ranks),
+                  rel_err=max(r['step']['rel_err'] for r in ranks),
+                  grad_max=ranks[0]['step']['grad_max'],
+                  summing_diff=min(r['step']['summing_diff']
+                                   for r in ranks)))
+    if not out['step']['rel_err'] <= PIPE_STEP_TOL:
+        raise AssertionError(f'pipeline step vs sequential: {out["step"]}')
+    if not out['step']['summing_diff'] > PIPE_SUMMING_MIN_DIFF:
+        raise AssertionError(f'pipeline: the summing control does not '
+                             f'differ: {out["step"]}')
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'pipeline_phase': out}), flush=True)
+    return out
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
@@ -3603,6 +4175,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap.add_argument('--tp-worker', nargs=4, default=None,
                     metavar=('RANK', 'PORT', 'OUT', 'SPEC'),
                     help='run one rank of the TP phase (tp_phase)')
+    ap.add_argument('--par-worker', nargs=4, default=None,
+                    metavar=('RANK', 'PORT', 'OUT', 'SPEC'),
+                    help='run one rank of the spatial or pipeline phase')
     args = ap.parse_args(argv)
     if args.dp_step_worker:
         rank, port, out, device, cudnn = args.dp_step_worker
@@ -3611,6 +4186,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.tp_worker:
         rank, port, out, spec = args.tp_worker
         return tp_worker(int(rank), int(port), out, spec)
+    if args.par_worker:
+        rank, port, out, spec = args.par_worker
+        return par_worker(int(rank), int(port), out, spec)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
@@ -3796,6 +4374,20 @@ def main(argv: Optional[list[str]] = None) -> int:
                        **tp['ring']['launches_per_rank'][0])
     launches['xnor_gemm'] = tp_launches['xnor_gemm']
 
+    space = spatial_phase(args.seed)
+    print(f'spatial phase: {space["s"]:.1f} s', flush=True)
+    pipe = pipeline_phase(args.seed)
+    print(f'pipeline phase: {pipe["s"]:.1f} s', flush=True)
+    for kname, err in space['captured'].items():
+        errs[kname] = max(errs[kname], err)
+    for kname in ('xnor_conv2d', 'xnor_conv2d_planes', 'max_pool_3x3_s2_p1'):
+        errs[kname] = max(errs[kname], space['band_checks'][kname])
+    # Each rank's launches on the spatial and pipeline paths: a banded
+    # forward and a pipeline call (per microbatch x PIPE_MICROBATCHES).
+    space_launches = space['per_forward'][0]
+    pipe_launches = {k: v * PIPE_MICROBATCHES
+                     for k, v in pipe['per_microbatch'][0].items()}
+
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
     probe_s = time.perf_counter() - t0
@@ -3824,6 +4416,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                     launches=r.get('launches', launches[r['name']]),
                     on_main_path=want[r['name']] > 0,
                     tp_launches=tp_launches.get(r['name'], 0),
+                    space_launches=space_launches.get(r['name'], 0),
+                    pipe_launches=pipe_launches.get(r['name'], 0),
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
@@ -3846,6 +4440,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            oracle=oracle,
                            recipes=recipes, recipes_s=recipes_s,
                            train=train, experiment=experiment, tp=tp,
+                           spatial=space, pipeline=pipe,
                            probes=records, probe_s=probe_s,
                            build_resources=resources,
                            torch=torch.__version__,

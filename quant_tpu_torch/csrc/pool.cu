@@ -1,5 +1,9 @@
-// 3x3 / stride-2 / pad-1 max pool over NHWC, -inf padding, H and W even:
-// the ResNet stem pool.
+// 3x3 / stride-2 / pad-1 max pool over NHWC, -inf padding, W even: the
+// ResNet stem pool. With pad_top = 1 (the image) H is even; with
+// pad_top = 0 (a row band of an H-banded model, parallel/spatial.py) the
+// input is the band with the one row above it that the rank received
+// from its neighbour, so H is odd and output row oy reads rows 2oy..2oy+2.
+// Either way the output has H / 2 rows and nothing pads the bottom.
 //
 // Replaces the TPU kernel quant_tpu/ops/pool.py `_pool_kernel` (via
 // `max_pool_3x3_s2_p1`). The TPU version's W-stage/H-stage relayout
@@ -25,7 +29,9 @@
 //   - a vertical carry: input row 2oy+1 is row 2(oy+1)-1 of the next
 //     output, so its horizontal 3-max stays in registers and each output
 //     row reads two new input rows. A tile's first row reads its halo
-//     row 2oy-1, or -inf at oy = 0, as the Pallas kernel's halo block;
+//     row 2oy-1, or -inf at oy = 0, as the Pallas kernel's halo block
+//     (with pad_top = 0 every row is shifted down by one and row 0 is
+//     real: the first tile reads it too);
 //   - the horizontal overlap: column 2ox+1 is column 2(ox+1)-1 of the
 //     neighbouring item, cv lanes away; L1 serves that second read
 //     (ld.global.nc). Handing it over by __shfl_up_sync instead (the
@@ -116,7 +122,8 @@ __device__ __forceinline__ uint16_t fill<uint16_t>(uint32_t w) {
 template <typename T, typename E>
 __global__ void __launch_bounds__(kPoolMaxThreads)
     max_pool_3x3_s2_p1_kernel(const E* __restrict__ x, E* __restrict__ out,
-                              int h, int w, int cv, int chunks) {
+                              int h, int w, int cv, int chunks,
+                              int pad_top) {
   const int oh = h / 2, items = (w / 2) * cv;
   const int img = blockIdx.x / chunks;
   const int item = (blockIdx.x - img * chunks) * blockDim.x + threadIdx.x;
@@ -143,9 +150,9 @@ __global__ void __launch_bounds__(kPoolMaxThreads)
   for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
     const int oy0 = tile * kPoolRows;
     const int oy1 = min(oy0 + kPoolRows, oh);
-    const E* p = xi + 2LL * oy0 * row;
+    const E* p = xi + (2LL * oy0 + 1 - pad_top) * row;
     E* o = oi + static_cast<long long>(oy0) * items;
-    E carry = oy0 > 0 ? hmax(p - row) : lo;
+    E carry = oy0 > 0 || pad_top == 0 ? hmax(p - row) : lo;
     for (int oy = oy0; oy < oy1; ++oy) {
       const E a = hmax(p), b = hmax(p + row);
       if (live) *o = vmax<T>(vmax<T>(carry, a), b);
@@ -168,7 +175,7 @@ int vector_bytes(long long row_bytes, const void* x, const void* out) {
 
 template <typename T, typename E>
 int launch_as(const void* x, void* out, int n, int h, int w, int c,
-              cudaStream_t stream) {
+              int pad_top, cudaStream_t stream) {
   const long long cv = static_cast<long long>(c) * sizeof(T) / sizeof(E);
   const long long items = (w / 2) * cv;
   if (static_cast<long long>(w) * cv > INT32_MAX)
@@ -183,26 +190,28 @@ int launch_as(const void* x, void* out, int n, int h, int w, int c,
             static_cast<unsigned>(tiles < kMaxGridY ? tiles : kMaxGridY));
   max_pool_3x3_s2_p1_kernel<T, E><<<grid, threads, 0, stream>>>(
       static_cast<const E*>(x), static_cast<E*>(out), h, w,
-      static_cast<int>(cv), static_cast<int>(chunks));
+      static_cast<int>(cv), static_cast<int>(chunks), pad_top);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, void* out, int n, int h, int w, int c,
-           void* stream) {
+           int pad_top, void* stream) {
+  if (pad_top != 0 && pad_top != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || h < 2 || w < 2 || c <= 0)
     return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   switch (vector_bytes(static_cast<long long>(c) * sizeof(T), x, out)) {
     case 16:
-      return launch_as<T, uint4>(x, out, n, h, w, c, s);
+      return launch_as<T, uint4>(x, out, n, h, w, c, pad_top, s);
     case 8:
-      return launch_as<T, uint2>(x, out, n, h, w, c, s);
+      return launch_as<T, uint2>(x, out, n, h, w, c, pad_top, s);
     case 4:
-      return launch_as<T, uint32_t>(x, out, n, h, w, c, s);
+      return launch_as<T, uint32_t>(x, out, n, h, w, c, pad_top, s);
     default:
       if constexpr (sizeof(T) == 2)
-        return launch_as<T, uint16_t>(x, out, n, h, w, c, s);
+        return launch_as<T, uint16_t>(x, out, n, h, w, c, pad_top, s);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -210,14 +219,15 @@ int launch(const void* x, void* out, int n, int h, int w, int c,
 }  // namespace
 
 extern "C" int qtt_max_pool_3x3_s2_p1_f32(const void* x, void* out, int n,
-                                          int h, int w, int c, void* stream) {
-  return launch<float>(x, out, n, h, w, c, stream);
+                                          int h, int w, int c, int pad_top,
+                                          void* stream) {
+  return launch<float>(x, out, n, h, w, c, pad_top, stream);
 }
 
 extern "C" int qtt_max_pool_3x3_s2_p1_bf16(const void* x, void* out, int n,
-                                           int h, int w, int c,
+                                           int h, int w, int c, int pad_top,
                                            void* stream) {
-  return launch<__nv_bfloat16>(x, out, n, h, w, c, stream);
+  return launch<__nv_bfloat16>(x, out, n, h, w, c, pad_top, stream);
 }
 
 extern "C" int qtt_max_pool_vector_bytes(long long row_bytes, const void* x,

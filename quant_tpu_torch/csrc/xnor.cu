@@ -62,6 +62,13 @@
 //   word of each tap are masked to 0 bytes in B, so stray pad bits in
 //   either operand add nothing. With both masks no K correction is
 //   needed; ragged M, O (odd included) and K are masked, not refused.
+//   Row bands: `pad_top` is the H padding above row 0 (`pad` pads W, and
+//   H by default). A rank of an H-banded model (parallel/spatial.py) runs
+//   the conv on its band with the halo rows it received from its
+//   neighbours: pad_top = 0 where a halo sits above (those rows are real,
+//   not padding), and the rows past the band's end are padding only where
+//   no bottom halo was received (the valid test iy < h does that, with
+//   `oh` as the caller passes it).
 //   Epilogue as the JAX int8 branch, bit-exact (_rn intrinsics):
 //   float(dot) * (vx[n] * vw[o]) in f32, rounded to bf16 (nearest even)
 //   or kept f32, then + bias in the out dtype. Each warp stages a 16x32
@@ -338,7 +345,7 @@ static_assert(kConvThreads == kConvBM, "the A loader takes one row a thread");
 
 struct ConvShape {
   long long m;            // N*OH*OW, the GEMM's rows
-  int h, w, wc, o, oh, ow, kh, kw, stride, pad;
+  int h, w, wc, o, oh, ow, kh, kw, stride, pad, pad_top;  // pad: W
   int ktot;               // kh*kw*Wc, the GEMM's depth in words
   int cr;                 // channels in the last word of a tap (1..32)
   int va, vb;             // cp.async width in words for A and for B
@@ -459,7 +466,7 @@ __device__ __forceinline__ RowCursor row_cursor(long long m, bool live,
     long long r = m / s.ow;
     int oy = static_cast<int>(r % s.oh);
     c.img = (r / s.oh) * s.h * s.w;
-    c.iy0 = oy * s.stride - s.pad;
+    c.iy0 = oy * s.stride - s.pad_top;
     c.ix0 = ox * s.stride - s.pad;
   }
   return c;
@@ -1215,11 +1222,12 @@ int piece_words(int n, const void* base) {
 
 ConvShape conv_shape(const void* x, const void* w, int n, int h, int wd,
                      int wc, int c, int o, int oh, int ow, int kh, int kw,
-                     int stride, int pad) {
+                     int stride, int pad, int pad_top) {
   ConvShape s;
   s.m = static_cast<long long>(n) * oh * ow;
   s.h = h; s.w = wd; s.wc = wc; s.o = o; s.oh = oh; s.ow = ow;
   s.kh = kh; s.kw = kw; s.stride = stride; s.pad = pad;
+  s.pad_top = pad_top;
   s.ktot = kh * kw * wc;
   s.cr = c - (wc - 1) * 32;
   s.va = piece_words(wc, x);
@@ -1412,10 +1420,11 @@ extern "C" int qtt_xnor_gemm(const void* a, const void* bt, const void* vx,
       const void* x, const void* w, const void* vx, const void* vw,          \
       const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
       int o, int oh, int ow, int kh, int kw, int stride, int pad,            \
-      void* stream) {                                                        \
+      int pad_top, void* stream) {                                           \
     return launch_conv<OUT_T>(                                               \
         x, w, vx, vw, bias, out,                                             \
-        conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad),   \
+        conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad,    \
+                   pad_top),                                                 \
         stream);                                                             \
   }
 QTT_CONV(f32, float)
@@ -1425,13 +1434,14 @@ QTT_CONV(bf16, __nv_bfloat16)
   extern "C" int qtt_xnor_conv2d_planes_##SUFFIX(                              \
       const void* x, const void* w, const void* vx, const void* vw,          \
       const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
-      int o, int oh, int ow, int kh, int kw, int stride, int pad, int ga,    \
-      int pa, int gw, int pw, void* stream) {                                \
+      int o, int oh, int ow, int kh, int kw, int stride, int pad,            \
+      int pad_top, int ga, int pa, int gw, int pw, void* stream) {           \
     PlaneShape pl{ga, pa, gw, pw, n, static_cast<long long>(n) * h * wd * wc,  \
                   static_cast<long long>(kh) * kw * wc * o};                 \
     return planes_call<OUT_T>(PlanesCall{                                    \
         x, w, vx, vw, bias, out,                                             \
-        conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad),   \
+        conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad,    \
+                   pad_top),                                                 \
         pl, static_cast<cudaStream_t>(stream), nullptr, nullptr});           \
   }
 QTT_CONV_PLANES(f32, float)

@@ -38,7 +38,7 @@ from torch import nn
 
 from quant_tpu_torch.ops import binary_infer as BI
 from quant_tpu_torch.ops.conv import _pair, conv2d, stem_conv_s2d
-from quant_tpu_torch.parallel import global_stats
+from quant_tpu_torch.parallel import global_stats, spatial
 from quant_tpu_torch.parallel.sharding import (
     TensorParallel, gather_channels, reduce_input_grad,
 )
@@ -114,9 +114,12 @@ class Conv(nn.Module):
     and bias for the computation. With `s2d` a 7x7/s2/p3 conv on even H
     and W runs as its exact space-to-depth form (same parameters).
     Sharded (`tp`), it holds its slice of the out-channels and gathers
-    its output, as Dense and QuantConv2d do."""
+    its output, as Dense and QuantConv2d do. Banded (`space`,
+    parallel.spatial.band_model), it convolves its row band and the halo
+    rows its neighbours send."""
 
     tp: Optional[TensorParallel] = None
+    space: Optional[spatial.SpatialParallel] = None
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, stride: IntOr2 = 1,
@@ -126,6 +129,7 @@ class Conv(nn.Module):
         super().__init__()
         kh, kw = _pair(kernel_size)
         fan_in = in_channels * kh * kw
+        self.kernel_size = (kh, kw)
         self.stride, self.padding, self.s2d = stride, padding, s2d
         self.kernel = nn.Parameter(_uniform(
             (kh, kw, in_channels, features), fan_in, generator))
@@ -134,11 +138,16 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        x, band = spatial.conv_band(self.space, x, self.kernel_size,
+                                    self.stride, self.padding)
         kernel, bias = self.kernel, self.bias
         x = _sharded_input(self, x)
         if dtype is not None:
             x, kernel = x.to(dtype), kernel.to(dtype)
             bias = bias.to(dtype) if bias is not None else None
+        if band is not None:
+            return spatial.conv_rows(x, kernel, band, self.stride,
+                                     self.padding, bias)
         if (self.s2d and kernel.shape[:2] == (7, 7)
                 and _pair(self.stride) == (2, 2)
                 and _pair(self.padding) == (3, 3)
@@ -388,9 +397,17 @@ class QuantConv2d(nn.Module):
     the whole input (the activation scales and the fold's thresholds are
     per input channel: whole) and gathers it. The weight solves of train
     mode then run on the slice: they reduce over (kh, kw, I) alone.
+
+    Banded (`space`, parallel.spatial.band_model), a packed conv runs on
+    its row band: the int8 route exchanges the halo rows of its packed
+    sign words, the other routes those of x, and each conv pads only the
+    image's own edges; a per-batch solve reads the whole sample, gathered
+    over 'space'. A dense conv runs on the gathered map and keeps its
+    band.
     """
 
     tp: Optional[TensorParallel] = None
+    space: Optional[spatial.SpatialParallel] = None
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, *, x_quant: str = 'ls-1',
@@ -412,6 +429,7 @@ class QuantConv2d(nn.Module):
             raise ValueError(f'invalid inference_mode {inference_mode!r}')
         kh, kw = _pair(kernel_size)
         fan_in = in_channels * kh * kw
+        self.kernel_size = (kh, kw)
         self.in_channels, self.features = in_channels, features
         self.x_quant, self.w_quant = x_quant, w_quant
         self.clamp = dict(clamp) if clamp else {'kind': 'identity'}
@@ -503,6 +521,10 @@ class QuantConv2d(nn.Module):
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 bn_folded: bool = False) -> torch.Tensor:
+        x, band = spatial.conv_band(self.space, x, self.kernel_size,
+                                    self.stride, self.padding)
+        if band is not None:
+            return self._forward(x, out_dtype, bn_folded, band)
         return _gathered(self, self._forward(_sharded_input(self, x),
                                              out_dtype, bn_folded))
 
@@ -513,11 +535,15 @@ class QuantConv2d(nn.Module):
         return self.b_fold.chunk(self.tp.size)[self.tp.index]
 
     def _forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype],
-                 bn_folded: bool) -> torch.Tensor:
+                 bn_folded: bool,
+                 band: Optional[BI.RowBand] = None) -> torch.Tensor:
         if self.training:
             return self._train(x, out_dtype)
         if not self.packed:
-            return self._dense(x)
+            if band is None:
+                return self._dense(x)
+            whole = self._dense(spatial.gather_rows(x, self.space))
+            return spatial.output_band(self.space, whole)
         has_fold = self.b_fold is not None
         has_thresh = self.x_thresh is not None
         if bn_folded and not (has_fold or has_thresh):
@@ -545,7 +571,10 @@ class QuantConv2d(nn.Module):
                              x_va=self.x_va)
         else:
             x = self.clamp_fn()(x)
-        x_vs = self.x_quantizer(x)
+        q = self.x_quantizer
+        solves = q.ema is None or q.calibrate  # reads x's values
+        x_vs = q(spatial.solve_input(self.space, x) if band is not None
+                 and solves else x)
         if self.w_packed is not None:
             w_packed, w_scales = self.w_packed, self.w_scales
         else:
@@ -555,7 +584,7 @@ class QuantConv2d(nn.Module):
                       bias=self._b_fold() if has_fold else self.bias,
                       stride=self.stride, padding=self.padding,
                       out_dtype=out_dtype or torch.float32,
-                      fused=self.pass_fusion)
+                      fused=self.pass_fusion, band=band)
         if self.x_quant == 'fp':
             if has_thresh:
                 raise ValueError(

@@ -9,7 +9,9 @@ kernel. With `bn_fold`, bn_conv2 lives in conv2's thresholds
 (nn.export.fold_xnor_thresholds). Built in eval mode; after
 `train()` the forward is JAX's train=True apply (BN on batch
 statistics, the dense QAT conv2, the chain in `train_dtype`), whose
-log-probabilities feed the MNIST recipes' nll_loss.
+log-probabilities feed the MNIST recipes' nll_loss. Banded
+(parallel.spatial.band_model), conv1 (VALID, not shape-preserving)
+gathers the images' bands and the forward runs whole on every rank.
 """
 
 from typing import Any, Optional
@@ -22,6 +24,7 @@ from quant_tpu_torch.nn.layers import (
     BatchNorm, Conv, Dense, DtypeLike, QuantConv2d, as_dtype,
 )
 from quant_tpu_torch.ops.conv import max_pool2d
+from quant_tpu_torch.parallel import spatial
 
 _BN_EPS = 1e-4
 
@@ -31,6 +34,8 @@ class QLeNet5(nn.Module):
     reach its activation quantizer and `eval_dtype` and `bn_fold` are
     plain attributes, as on QResNet. Builds on `device` ('cuda' by
     default; raises if CUDA is missing)."""
+
+    space: Optional[spatial.SpatialParallel] = None
 
     def __init__(self, conv1_filters: int = 20, conv2_filters: int = 50,
                  output_classes: int = 10, x_quant: str = 'fp',
@@ -90,6 +95,11 @@ class QLeNet5(nn.Module):
 
     def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
                  fold: bool) -> torch.Tensor:
+        with spatial.forward(self.space, self.training):
+            return self._layers(x, dt, fold)
+
+    def _layers(self, x: torch.Tensor, dt: Optional[torch.dtype],
+                fold: bool) -> torch.Tensor:
         if dt is not None:
             x = x.to(dt)
         x = self.bn_conv1(torch.relu(self.conv1(x, dt)))

@@ -25,9 +25,9 @@ from quant_tpu_torch.nn.layers import (
     BatchNorm, Conv, Dense, DtypeLike, PReLU, QuantConv2d, as_dtype,
     state_unchanged,
 )
-from quant_tpu_torch.ops.conv import global_avg_pool, max_pool2d
+from quant_tpu_torch.ops.conv import max_pool2d
 from quant_tpu_torch.ops.pool import max_pool_3x3_s2_p1, pool_fusable
-from quant_tpu_torch.parallel import global_stats
+from quant_tpu_torch.parallel import global_stats, spatial
 
 
 def _nonlin(name: str) -> nn.Module:
@@ -358,8 +358,16 @@ class QResNet(nn.Module):
     each block under torch.utils.checkpoint (`remat_block`). State
     (BN statistics, w_vs, EMA) is written once a forward.
 
+    Banded (`space`, parallel.spatial.band_model), a forward takes this
+    rank's row band of the images: the stem, its pool and every block
+    whose convs band at their heights run on bands, the map is gathered
+    before the first block that does not, and the global average pool
+    reduces over the group (serving only).
+
     Builds on `device` ('cuda' by default; raises if CUDA is missing).
     """
+
+    space: Optional[spatial.SpatialParallel] = None
 
     def __init__(self, block: str, layer0: dict[str, Any],
                  layer1: dict[str, Any], layer2: dict[str, Any],
@@ -439,20 +447,36 @@ class QResNet(nn.Module):
 
     def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
                  bn_fold: bool) -> torch.Tensor:
+        with spatial.forward(self.space, self.training):
+            return self._layers(x, dt, bn_fold)
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem pool, of x or of its row band."""
+        mp = self.maxpool
+        k, s, p = mp['kernel_size'], mp['stride'], mp['padding']
+        x, band = spatial.conv_band(self.space, x, k, s, p)
+        pad_top = 1
+        if band is not None:
+            x, pad_top = band.extend(x), band.pad_top
+        if pool_fusable(tuple(x.shape), k, s, p, pad_top) and not (
+                torch.is_grad_enabled() and x.requires_grad):
+            if band is None:
+                return max_pool_3x3_s2_p1(x.contiguous())
+            return max_pool_3x3_s2_p1(x.contiguous(), pad_top)
+        if band is not None:
+            return spatial.max_pool_rows(x, band, k, s, p)
+        return max_pool2d(x, kernel_size=k, stride=s, padding=p)
+
+    def _layers(self, x: torch.Tensor, dt: Optional[torch.dtype],
+                bn_fold: bool) -> torch.Tensor:
         if dt is not None:
             x = x.to(dt)
         x = torch.relu(self.bn1(self.conv1(x, dt), dt))
-        mp = self.maxpool
-        grad = torch.is_grad_enabled()
-        if mp['type'] == 'maxpool2d':
-            if pool_fusable(tuple(x.shape), mp['kernel_size'], mp['stride'],
-                            mp['padding']) and not (grad and x.requires_grad):
-                x = max_pool_3x3_s2_p1(x.contiguous())
-            else:
-                x = max_pool2d(x, kernel_size=mp['kernel_size'],
-                               stride=mp['stride'], padding=mp['padding'])
-        remat = self.remat and self.training and grad
+        if self.maxpool['type'] == 'maxpool2d':
+            x = self._pool(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for _, blk in self.blocks():
+            x = spatial.block_input(self.space, blk, x)
             x = remat_block(blk, x, dt) if remat else blk(x, dt, bn_fold)
-        logits = self.fc(global_avg_pool(x), dt)
+        logits = self.fc(spatial.global_avg_pool(self.space, x), dt)
         return logits.to(torch.float32)

@@ -33,10 +33,20 @@ JAX (`quant_conv2d_infer`):
 
 For CPU tensors every kernel wrapper runs its plain twin, which repeats
 JAX's ops; for CUDA tensors it launches its kernel or raises.
+
+Row bands (parallel/spatial.py): a rank of an H-banded model runs a conv
+on its band of rows and the halo rows its neighbours sent it. The conv
+then pads H by its own `pad_top` and `pad_bottom` (the symmetric pad by
+default: the whole image), which are the image's padding where the band
+touches the image's edge and 0 where a halo lies. The routes take a
+`RowBand`: the int8 route extends the packed words by the halo rows (a
+pixel's words depend on that pixel alone), the bf16 and fp-activation
+routes extend their input x before the sign step; every conv's operand
+is zero-padded, so the padding rows stay exact.
 """
 
 import ctypes
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -48,8 +58,8 @@ from quant_tpu_torch.ops.ste import binary_sign
 
 SIGN_COMPUTE_DTYPE = torch.bfloat16
 
-_CONV_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-_PLANES_CONV_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
+_CONV_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_PLANES_CONV_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
                     + [ctypes.c_void_p])
 _PLANES_PACK_SIG = ([ctypes.c_void_p] * 5
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -67,6 +77,24 @@ _DTYPE_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 conv_launches = _build.LaunchCounter('xnor_conv2d')
 planes_conv_launches = _build.LaunchCounter('xnor_conv2d_planes')
 pack_launches = _build.LaunchCounter('pack_sign_planes')
+
+
+class RowBand(NamedTuple):
+    """A conv's row band (module docstring): `extend(t)` returns t (H on
+    dim -3) with the halo rows this rank received above and below it;
+    the extended band is padded by pad_top and pad_bottom rows."""
+
+    extend: Callable[[torch.Tensor], torch.Tensor]
+    pad_top: int
+    pad_bottom: int
+
+
+def _row_pads(padding: IntOr2, pad_top: Optional[int],
+              pad_bottom: Optional[int]) -> tuple[int, int]:
+    """(pad_top, pad_bottom), each the symmetric H pad where not given."""
+    ph = _pair(padding)[0]
+    return (ph if pad_top is None else pad_top,
+            ph if pad_bottom is None else pad_bottom)
 
 
 def sign_planes(scheme: str) -> int:
@@ -125,15 +153,22 @@ def unpack_weights_int8(packed: torch.Tensor, in_channels: int,
 
 
 def binary_conv_int8(x_signs: torch.Tensor, w_signs: torch.Tensor, *,
-                     stride: IntOr2 = 1, padding: IntOr2 = 0
-                     ) -> torch.Tensor:
+                     stride: IntOr2 = 1, padding: IntOr2 = 0,
+                     pad_top: Optional[int] = None,
+                     pad_bottom: Optional[int] = None) -> torch.Tensor:
     """Sign-plane conv with exact accumulation: int8 operands give the
     int32 dot, bf16 (or float32) operands the float32 sum of their
     products, computed on float32 copies (see the module docstring). A
     float32 conv may run a transform algorithm (Winograd) that lands a
-    little off the integer, so the int8 dot is rounded, not truncated."""
-    y = conv2d(x_signs.to(torch.float32), w_signs.to(torch.float32),
-               stride=stride, padding=padding)
+    little off the integer, so the int8 dot is rounded, not truncated.
+    H is padded by pad_top and pad_bottom zero rows (default: padding)."""
+    xf = x_signs.to(torch.float32)
+    rows = _row_pads(padding, pad_top, pad_bottom)
+    if rows != (_pair(padding)[0],) * 2:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0) + rows)
+        padding = (0, _pair(padding)[1])
+    y = conv2d(xf, w_signs.to(torch.float32), stride=stride,
+               padding=padding)
     if x_signs.dtype == torch.int8:
         return y.round().to(torch.int32)
     return y
@@ -297,23 +332,27 @@ def _epilogue(dots: list[list[torch.Tensor]], vx: torch.Tensor,
 
 
 def _plane_dot(x_words: torch.Tensor, w_packed: torch.Tensor,
-               in_channels: int, stride: IntOr2, padding: IntOr2
-               ) -> torch.Tensor:
+               in_channels: int, stride: IntOr2, padding: IntOr2,
+               pad_top: Optional[int] = None,
+               pad_bottom: Optional[int] = None) -> torch.Tensor:
     xs = unpack_signs(x_words, in_channels)
     ws = unpack_weights_int8(w_packed, in_channels, dtype=torch.float32)
     return binary_conv_int8(xs.to(torch.int8), ws.to(torch.int8),
-                            stride=stride, padding=padding)
+                            stride=stride, padding=padding, pad_top=pad_top,
+                            pad_bottom=pad_bottom)
 
 
 def xnor_conv2d_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
                       vx: torch.Tensor, vw: torch.Tensor,
                       bias: Optional[torch.Tensor], *, in_channels: int,
                       stride: IntOr2 = 1, padding: IntOr2 = 1,
-                      out_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.float32,
+                      pad_top: Optional[int] = None,
+                      pad_bottom: Optional[int] = None) -> torch.Tensor:
     """Plain twin of xnor_conv2d: the integer conv over unpacked +-1
     planes (zero padding), then the kernel's epilogue."""
-    dot = _plane_dot(x_words, w_packed, in_channels, stride, padding)
+    dot = _plane_dot(x_words, w_packed, in_channels, stride, padding,
+                     pad_top, pad_bottom)
     return _epilogue([[dot]], vx[None], vw[None], bias, out_dtype)
 
 
@@ -336,10 +375,10 @@ def _conv_checks(x_words: torch.Tensor, w_packed: torch.Tensor,
 
 
 def _conv_out(x_words: torch.Tensor, w_packed: torch.Tensor, s: int, p: int,
-              out_dtype: torch.dtype) -> torch.Tensor:
+              rows: tuple[int, int], out_dtype: torch.dtype) -> torch.Tensor:
     n, h, w = x_words.shape[-4:-1]
     kh, kw, _, o = w_packed.shape[-4:]
-    oh, ow = (h + 2 * p - kh) // s + 1, (w + 2 * p - kw) // s + 1
+    oh, ow = (h + sum(rows) - kh) // s + 1, (w + 2 * p - kw) // s + 1
     return torch.empty((n, oh, ow, o), dtype=out_dtype,
                        device=x_words.device)
 
@@ -348,7 +387,9 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
                 vx: torch.Tensor, vw: torch.Tensor,
                 bias: Optional[torch.Tensor], *, in_channels: int,
                 stride: IntOr2 = 1, padding: IntOr2 = 1,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                pad_top: Optional[int] = None,
+                pad_bottom: Optional[int] = None) -> torch.Tensor:
     """Binary conv over packed words, NHWC out.
 
     Args:
@@ -358,6 +399,8 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
         bias: optional (O,) bias, added in out_dtype after rounding.
         in_channels: C. Taps outside the image contribute nothing (the
             +-1 operand is zero-padded).
+        pad_top / pad_bottom: H padding of a row band (module
+            docstring); `padding` pads W, and H where these are None.
     """
     _build.require(x_words.ndim == 4 and w_packed.ndim == 4,
                    'x_words must be (N,H,W,Wc) and w_packed (kh,kw,Wc,O)')
@@ -368,14 +411,17 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
     _build.require(vx.shape == (n,) and vw.shape == (o,)
                    and (bias is None or bias.shape == (o,)),
                    'vx must be (N,), vw and bias (O,)')
+    rows = _row_pads(padding, pad_top, pad_bottom)
+    _build.require(min(rows) >= 0, f'row pads {rows}')
     tensors = (x_words, w_packed, vx, vw) + (() if bias is None else (bias,))
     if _build.on_cpu(*tensors):
         return xnor_conv2d_plain(x_words, w_packed, vx, vw, bias,
                                  in_channels=in_channels, stride=stride,
-                                 padding=padding, out_dtype=out_dtype)
+                                 padding=padding, out_dtype=out_dtype,
+                                 pad_top=rows[0], pad_bottom=rows[1])
     _build.require(x_words.is_contiguous() and w_packed.is_contiguous(),
                    'packed operands must be contiguous')
-    out = _conv_out(x_words, w_packed, s, p, out_dtype)
+    out = _conv_out(x_words, w_packed, s, p, rows, out_dtype)
     vx = vx.to(torch.float32).contiguous()
     vw = vw.to(torch.float32).contiguous()
     if bias is not None:
@@ -385,7 +431,7 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
     status = entry(_build.ptr(x_words), _build.ptr(w_packed),
                    _build.ptr(vx), _build.ptr(vw), _build.ptr(bias),
                    _build.ptr(out), n, h, wd, wc, in_channels, o,
-                   out.shape[1], out.shape[2], kh, kw, s, p,
+                   out.shape[1], out.shape[2], kh, kw, s, p, rows[0],
                    _build.stream(x_words))
     _build.check(lib, status, 'xnor_conv2d')
     conv_launches.bump()
@@ -398,7 +444,9 @@ def xnor_conv2d_planes_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
                              in_channels: int, x_group: int = 1,
                              w_group: int = 1, stride: IntOr2 = 1,
                              padding: IntOr2 = 1,
-                             out_dtype: torch.dtype = torch.float32
+                             out_dtype: torch.dtype = torch.float32,
+                             pad_top: Optional[int] = None,
+                             pad_bottom: Optional[int] = None
                              ) -> torch.Tensor:
     """Plain twin of xnor_conv2d_planes: the integer dot of every plane
     pair, summed within each (weight group, activation group), then the
@@ -411,7 +459,7 @@ def xnor_conv2d_planes_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
             row.append(sum(
                 _plane_dot(x_words[i * x_group + a],
                            w_packed[j * w_group + b], in_channels, stride,
-                           padding)
+                           padding, pad_top, pad_bottom)
                 for b in range(w_group) for a in range(x_group)))
         dots.append(row)
     return _epilogue(dots, vx, vw, bias, out_dtype)
@@ -422,8 +470,9 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
                        bias: Optional[torch.Tensor], *, in_channels: int,
                        x_group: int = 1, w_group: int = 1,
                        stride: IntOr2 = 1, padding: IntOr2 = 1,
-                       out_dtype: torch.dtype = torch.float32
-                       ) -> torch.Tensor:
+                       out_dtype: torch.dtype = torch.float32,
+                       pad_top: Optional[int] = None,
+                       pad_bottom: Optional[int] = None) -> torch.Tensor:
     """Multi-plane binary conv over packed words: JAX's int8 route, bit
     for bit (see the module docstring).
 
@@ -433,6 +482,7 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
         vx: (k_a / x_group, N) per-sample scales, one per group.
         vw: (k_w / w_group, O) per-out-channel scales, one per group.
         x_group / w_group: planes a scale covers, 1 or 2 (ls-T).
+        pad_top / pad_bottom: as xnor_conv2d's.
     """
     _build.require(x_words.ndim == 5 and w_packed.ndim == 5,
                    'x_words must be (k_a,N,H,W,Wc) and w_packed '
@@ -449,15 +499,17 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
                    and (bias is None or bias.shape == (o,)),
                    f'vx must be ({ga}, N), vw ({gw}, O) and bias (O,)')
     tensors = (x_words, w_packed, vx, vw) + (() if bias is None else (bias,))
+    rows = _row_pads(padding, pad_top, pad_bottom)
+    _build.require(min(rows) >= 0, f'row pads {rows}')
     kw_args = dict(in_channels=in_channels, x_group=x_group,
                    w_group=w_group, stride=stride, padding=padding,
-                   out_dtype=out_dtype)
+                   out_dtype=out_dtype, pad_top=rows[0], pad_bottom=rows[1])
     if _build.on_cpu(*tensors):
         return xnor_conv2d_planes_plain(x_words, w_packed, vx, vw, bias,
                                         **kw_args)
     _build.require(x_words.is_contiguous() and w_packed.is_contiguous(),
                    'packed operands must be contiguous')
-    out = _conv_out(x_words, w_packed, s, p, out_dtype)
+    out = _conv_out(x_words, w_packed, s, p, rows, out_dtype)
     vx = vx.to(torch.float32).contiguous()
     vw = vw.to(torch.float32).contiguous()
     if bias is not None:
@@ -467,8 +519,8 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
     status = entry(_build.ptr(x_words), _build.ptr(w_packed),
                    _build.ptr(vx), _build.ptr(vw), _build.ptr(bias),
                    _build.ptr(out), n, h, wd, wc, in_channels, o,
-                   out.shape[1], out.shape[2], kh, kw, s, p, ga, x_group,
-                   gw, w_group, _build.stream(x_words))
+                   out.shape[1], out.shape[2], kh, kw, s, p, rows[0], ga,
+                   x_group, gw, w_group, _build.stream(x_words))
     _build.check(lib, status, 'xnor_conv2d_planes')
     planes_conv_launches.bump()
     return out
@@ -497,9 +549,10 @@ def conv_occupancy(out_dtype: torch.dtype, ga: int = 1, pa: int = 1,
 def _int8_route(x: torch.Tensor, x_scheme: str, x_vs: torch.Tensor,
                 w_packed: torch.Tensor, w_vs: torch.Tensor, w_group: int,
                 folded: bool, conv_kw: dict, x_thresh: Optional[torch.Tensor],
-                x_flip: Optional[torch.Tensor],
-                x_va: Optional[torch.Tensor]) -> torch.Tensor:
-    """Producer + conv kernels: the bit-exact pass loop."""
+                x_flip: Optional[torch.Tensor], x_va: Optional[torch.Tensor],
+                band: Optional[RowBand]) -> torch.Tensor:
+    """Producer + conv kernels: the bit-exact pass loop; a band's halo
+    rows are exchanged as packed words."""
     k_a, k_w = sign_planes(x_scheme), w_packed.shape[0]
     x_group = 2 if x_scheme == 'ls-T' else 1
     x = x.contiguous()
@@ -507,6 +560,10 @@ def _int8_route(x: torch.Tensor, x_scheme: str, x_vs: torch.Tensor,
         words = pack_sign_planes(x, k_a, x_va, x_thresh, x_flip)
     else:
         words = pack_sign_planes(x, k_a, x_vs)
+    if band is not None:
+        words = band.extend(words).contiguous()
+        conv_kw = dict(conv_kw, pad_top=band.pad_top,
+                       pad_bottom=band.pad_bottom)
     vx, vw = x_vs[:k_a // x_group], w_vs[:k_w // w_group]
     w_packed = w_packed.contiguous()
     if k_a == 1 and k_w == 1:
@@ -518,14 +575,17 @@ def _int8_route(x: torch.Tensor, x_scheme: str, x_vs: torch.Tensor,
 def _bf16_route(x_planes: list, x_scales: list,
                 w_sign_sets: list[tuple[torch.Tensor, torch.Tensor]],
                 fused: bool, stride: IntOr2, padding: IntOr2,
-                out_dtype: torch.dtype) -> torch.Tensor:
+                out_dtype: torch.dtype, rows: tuple = (None, None)
+                ) -> torch.Tensor:
     """JAX's bf16 sign-plane convs (binary_infer.py:288-321), before the
-    bias: the fused bake or the pass loop."""
+    bias: the fused bake or the pass loop; H padded by rows (top,
+    bottom), the symmetric pad where None."""
     n = x_planes[0].shape[0]
     f32 = torch.float32
 
     def conv(xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-        return binary_conv_int8(xs, ws, stride=stride, padding=padding)
+        return binary_conv_int8(xs, ws, stride=stride, padding=padding,
+                                pad_top=rows[0], pad_bottom=rows[1])
 
     if fused:
         if len(x_planes) == 1:
@@ -577,7 +637,8 @@ def quant_conv2d_infer(x: torch.Tensor, *,
                        compute_dtype: Any = None,
                        x_thresh: Optional[torch.Tensor] = None,
                        x_flip: Optional[torch.Tensor] = None,
-                       x_va: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       x_va: Optional[torch.Tensor] = None,
+                       band: Optional[RowBand] = None) -> torch.Tensor:
     """Packed-weight quantized conv (JAX's quant_conv2d_infer).
 
     Args:
@@ -591,6 +652,8 @@ def quant_conv2d_infer(x: torch.Tensor, *,
         fused: the bf16 route's single baked conv (False: the pass loop).
         compute_dtype: 'int8' (or torch.int8) runs the kernels, exact and
             never fused; None or 'bf16' the bf16 route.
+        band: x is a row band (module docstring); x_vs are the whole
+            samples' scales.
     """
     if w_packed.ndim == 4:
         w_packed = w_packed[None]
@@ -603,7 +666,10 @@ def quant_conv2d_infer(x: torch.Tensor, *,
                    out_dtype=out_dtype, bias=bias)
     if _compute_is_int8(compute_dtype):
         return _int8_route(x, x_scheme, x_vs, w_packed, w_vs, w_group,
-                           folded, conv_kw, x_thresh, x_flip, x_va)
+                           folded, conv_kw, x_thresh, x_flip, x_va, band)
+    rows = (None, None)
+    if band is not None:
+        x, rows = band.extend(x), (band.pad_top, band.pad_bottom)
     cdt = SIGN_COMPUTE_DTYPE
     if folded:
         x_planes, x_scales = threshold_sign_planes(
@@ -620,7 +686,7 @@ def quant_conv2d_infer(x: torch.Tensor, *,
                                             dtype=cdt), w_vs[j])
                        for j in range(k_w)]
     acc = _bf16_route(x_planes, x_scales, w_sign_sets, fused, stride,
-                      padding, out_dtype)
+                      padding, out_dtype, rows)
     if bias is not None:
         acc = acc + bias.to(out_dtype)
     return acc
@@ -633,11 +699,15 @@ def fp_activation_conv_infer(x: torch.Tensor, *,
                              stride: IntOr2 = 1, padding: IntOr2 = 0,
                              clamp_fn: Optional[Callable] = None,
                              out_dtype: torch.dtype = torch.float32,
-                             fused: bool = True) -> torch.Tensor:
+                             fused: bool = True,
+                             band: Optional[RowBand] = None) -> torch.Tensor:
     """fp activations x binary weights: a conv of bf16(x) against the
     unpacked signs (float32 sums, see the module docstring) with the
     per-channel scale epilogue; fused collapses k_w > 1 planes into one
-    scale-baked bf16 kernel."""
+    scale-baked bf16 kernel. With `band`, x is a row band."""
+    rows = (None, None)
+    if band is not None:
+        x, rows = band.extend(x), (band.pad_top, band.pad_bottom)
     if clamp_fn is not None:
         x = clamp_fn(x)
     if w_packed.ndim == 4:
@@ -646,7 +716,8 @@ def fp_activation_conv_infer(x: torch.Tensor, *,
     x16 = x.to(torch.bfloat16)
 
     def conv(ws: torch.Tensor) -> torch.Tensor:
-        return binary_conv_int8(x16, ws, stride=stride, padding=padding)
+        return binary_conv_int8(x16, ws, stride=stride, padding=padding,
+                                pad_top=rows[0], pad_bottom=rows[1])
 
     if fused and k_w > 1:
         wa = sum(unpack_weights_int8(w_packed[j], in_channels,

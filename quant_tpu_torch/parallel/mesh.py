@@ -73,3 +73,48 @@ def model_group(mesh: Optional[DeviceMesh]
     if axis_size(mesh, 'model') == 1:
         return None
     return mesh.get_group('model')
+
+
+class AxisGroup:
+    """This rank's place along a mesh axis: the axis' process group, its
+    size, this rank's index in it, and the mesh and axis. `exchange`
+    runs point-to-point ops on the group; `sent_bytes` counts what this
+    rank sent."""
+
+    def __init__(self, mesh: DeviceMesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.group = mesh.get_group(axis)
+        self.size = dist.get_world_size(self.group)
+        self.index = dist.get_rank(self.group)
+        self.sent_bytes = 0
+
+    def __deepcopy__(self, memo: dict) -> 'AxisGroup':
+        return self  # a copied model shares the process group
+
+    def rank(self, index: int) -> int:
+        """The global rank of the group's member `index`."""
+        return dist.get_global_rank(self.group, index)
+
+    def exchange(self, sends: list, recvs: list) -> list[torch.Tensor]:
+        """Send each (tensor, member index) of `sends` and receive a
+        tensor shaped like each (tensor, member index) of `recvs`, in one
+        batch of point-to-point ops; the received tensors, on their
+        likes' devices. A group whose backend moves only host memory
+        point to point (gloo) sends and receives through host copies."""
+        host = dist.get_backend(self.group) == 'gloo'
+        ops, bufs = [], []
+        for t, peer in sends:
+            t = t.contiguous()
+            self.sent_bytes += t.numel() * t.element_size()
+            ops.append(dist.P2POp(dist.isend, t.cpu() if host else t,
+                                  self.rank(peer), self.group))
+        for like, peer in recvs:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device='cpu' if host else like.device)
+            ops.append(dist.P2POp(dist.irecv, buf, self.rank(peer),
+                                  self.group))
+            bufs.append(buf)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [b.to(like.device) for b, (like, _) in zip(bufs, recvs)]

@@ -1,0 +1,420 @@
+"""Spatial partitioning: H-banded convs and pools with halo exchange (port
+of quant_tpu/parallel/spatial.py).
+
+Each rank of a 'space' group holds an H/P row band of the NHWC
+activations and trades the boundary rows a window needs with its
+neighbours (non-cyclic: the image's own top and bottom rows are padding,
+not halos). JAX has two forms, and so has the port:
+
+* `halo_exchange_conv2d` / `halo_exchange_max_pool2d` take this rank's
+  band (JAX's take the global array, H sharded over `axis`) and return
+  its band of the output: the halo rows exchanged (`halo_rows`, a
+  differentiable exchange whose backward sends each halo row's gradient
+  back to its owner, as JAX's ppermute transposes), the image's edges
+  filled with the pad value, then a local conv or pool.
+* `spatial_sharding(mesh)` is how JAX serves a whole packed model: the
+  input H-banded, GSPMD partitioning every layer. The port has no
+  GSPMD, so `band_model` bands a model in place, layer by layer: the fp
+  convs, the packed convs, the stem pool and the global average pool
+  run on bands, each exchanging its own halo rows. A packed conv
+  exchanges its input's packed sign words, not the activations (a
+  pixel's words depend on that pixel alone: C/32 int32 a pixel instead
+  of C values), and runs its kernel with the band's own top padding
+  (ops.binary_infer.RowBand): the binary operand is zero-padded, a 0 a
+  packed word cannot hold, so the edges are the kernel's padding and
+  never a filled row. Where a layer's geometry does not hold on the band
+  (a stride that does not divide the band's height, a conv that is not
+  shape-preserving), the map is all-gathered over 'space' once and the
+  rest of the forward runs whole on every rank: for the ResNets at 224
+  px and P = 2 the stem, the pool and layer1-3 band and layer4 and the
+  head run whole; LeNet-5's VALID convs gather before conv1. The global
+  average pool all-reduces its band's sums; a per-batch activation solve
+  (moving_average_mode 'off') solves on the sample gathered over
+  'space', so every rank has the same scales. Serving (eval) only: a
+  banded model in train mode raises.
+
+Geometry contract (JAX's): output height H // stride ("shape-preserving
+modulo stride"); 3x3/s1/p1, 3x3/s2/p1, 1x1/s2/p0, 7x7/s2/p3, 5x5/s1/p2
+and the 3x3/s2/p1 pool hold. A group whose backend moves only host
+memory point to point (gloo) sends the rows through host copies.
+"""
+
+import contextlib
+from typing import Any, Iterator, Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Shard
+
+from quant_tpu_torch.ops.binary_infer import RowBand
+from quant_tpu_torch.ops import conv as C
+from quant_tpu_torch.ops.conv import IntOr2, _pair, conv2d, max_pool2d
+from quant_tpu_torch.parallel.mesh import AxisGroup, axis_index, axis_size
+from quant_tpu_torch.parallel.sharding import (
+    Placements, all_gather_cat, replicated,
+)
+
+H = -3  # the H axis of NHWC maps and of (k, N, H, W, Wc) packed words
+
+
+def spatial_sharding(mesh: DeviceMesh, axis: str = 'space',
+                     batch_axis: Optional[str] = None) -> Placements:
+    """NHWC activation placements with the H axis split over `axis` (and
+    the batch over `batch_axis`)."""
+    out = list(replicated(mesh))
+    out[mesh.mesh_dim_names.index(axis)] = Shard(1)
+    if batch_axis is not None:
+        out[mesh.mesh_dim_names.index(batch_axis)] = Shard(0)
+    return tuple(out)
+
+
+class SpatialParallel(AxisGroup):
+    """This rank's place in its 'space' group (AxisGroup) and whether the
+    model's current forward still runs on bands (`banded`, set by
+    `forward`); `sent_bytes` counts the halo rows this rank sent,
+    `gathered_bytes` its bands of the maps it gathered."""
+
+    def __init__(self, mesh: DeviceMesh, axis: str):
+        super().__init__(mesh, axis)
+        self.banded = False
+        self.gathered_bytes = 0
+
+    def band(self, halo_top: int, halo_bot: int, pad: int) -> RowBand:
+        """The RowBand of a conv with these halos and H pad: the image's
+        pad at the group's first (top) and last (bottom) rank, halos
+        elsewhere."""
+        first, last = self.index == 0, self.index == self.size - 1
+        return RowBand(
+            extend=lambda t: halo_rows(t, self, halo_top, halo_bot),
+            pad_top=pad if first else 0, pad_bottom=pad if last else 0)
+
+
+def space_parallel(mesh: Optional[DeviceMesh], axis: str = 'space'
+                   ) -> Optional[SpatialParallel]:
+    """This rank's group along `axis`, None where it has one rank."""
+    if axis_size(mesh, axis) == 1:
+        return None
+    return SpatialParallel(mesh, axis)
+
+
+def _halo_geometry(h_loc: int, kh: int, sh: int, ph: int, p: int
+                   ) -> tuple[int, int]:
+    """Validate the sharded-H geometry and return (halo_top, halo_bot).
+
+    Rank d owns input rows [d*h_loc, (d+1)*h_loc) and produces output
+    rows [d*h_loc//sh, (d+1)*h_loc//sh). The first local output window
+    starts at global row d*h_loc - ph (needs ph rows from above); the
+    last reaches kh - sh - ph rows below the band.
+    """
+    if h_loc % sh:
+        raise ValueError(
+            f'local height {h_loc} must divide by stride {sh}')
+    if ph >= kh:
+        raise ValueError(f'padding {ph} >= kernel {kh} unsupported')
+    h = h_loc * p
+    out_global = (h + 2 * ph - kh) // sh + 1
+    if out_global != h // sh:
+        raise ValueError(
+            f'conv geometry (kh={kh}, stride={sh}, pad={ph}) is not '
+            f'shape-preserving modulo stride on H={h}; spatial '
+            f'partitioning needs out_H == H // stride')
+    halo_top = ph
+    halo_bot = max(0, kh - sh - ph)
+    if max(halo_top, halo_bot) > h_loc:
+        raise ValueError(
+            f'halo ({halo_top}, {halo_bot}) exceeds the local band '
+            f'{h_loc}; use fewer spatial shards')
+    return halo_top, halo_bot
+
+
+def _rows(t: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    return t.narrow(H, start, n)
+
+
+class _HaloExchange(torch.autograd.Function):
+    """t with the `top` rows of the member above and the `bottom` rows of
+    the member below put around it (none at the group's edges); the
+    backward sends each halo row's gradient to its owner, which adds it
+    to the row's own (JAX's ppermute transposed)."""
+
+    @staticmethod
+    def forward(ctx: Any, t: torch.Tensor, space: SpatialParallel,
+                top: int, bottom: int) -> torch.Tensor:
+        h, d = t.shape[H], space.index
+        up = d > 0
+        down = d < space.size - 1
+        ctx.space, ctx.h = space, h
+        ctx.top, ctx.bottom = top, bottom
+        ctx.got_top, ctx.got_bottom = top if up else 0, bottom if down else 0
+        sends, recvs = [], []
+        if top and down:
+            sends.append((_rows(t, h - top, top), d + 1))
+        if bottom and up:
+            sends.append((_rows(t, 0, bottom), d - 1))
+        if ctx.got_top:
+            recvs.append((_rows(t, 0, top), d - 1))
+        if ctx.got_bottom:
+            recvs.append((_rows(t, 0, bottom), d + 1))
+        got = space.exchange(sends, recvs)
+        parts = got[:1] if ctx.got_top else []
+        parts.append(t)
+        if ctx.got_bottom:
+            parts.append(got[-1])
+        return torch.cat(parts, dim=H) if len(parts) > 1 else t.clone()
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple:
+        space, h, d = ctx.space, ctx.h, ctx.space.index
+        top, bottom = ctx.top, ctx.bottom
+        up, down = d > 0, d < space.size - 1
+        sends, recvs = [], []
+        if ctx.got_top:
+            sends.append((_rows(grad, 0, top), d - 1))
+        if ctx.got_bottom:
+            sends.append((_rows(grad, ctx.got_top + h, bottom), d + 1))
+        gx = _rows(grad, ctx.got_top, h).clone()
+        if top and down:
+            recvs.append((_rows(gx, h - top, top), d + 1))
+        if bottom and up:
+            recvs.append((_rows(gx, 0, bottom), d - 1))
+        got = iter(space.exchange(sends, recvs))
+        if top and down:
+            _rows(gx, h - top, top).add_(next(got))
+        if bottom and up:
+            _rows(gx, 0, bottom).add_(next(got))
+        return gx, None, None, None
+
+
+def halo_rows(t: torch.Tensor, space: SpatialParallel, top: int,
+              bottom: int) -> torch.Tensor:
+    """t (H on dim -3) with the halo rows its neighbours hold: `top` rows
+    from the member above, `bottom` from the member below, none at the
+    group's edges. Differentiable (the module docstring)."""
+    return _HaloExchange.apply(t, space, top, bottom)
+
+
+def gather_rows(x: torch.Tensor, space: SpatialParallel) -> torch.Tensor:
+    """The group's bands of x (H on dim -3) concatenated in rank order:
+    the whole map, on every rank."""
+    space.gathered_bytes += x.numel() * x.element_size()
+    return all_gather_cat(x, H, space)
+
+
+def local_band(x: torch.Tensor, mesh: DeviceMesh, axis: str = 'space',
+               batch_axis: Optional[str] = None) -> torch.Tensor:
+    """This rank's part of a whole (N, H, W, C) tensor under
+    spatial_sharding(mesh, axis, batch_axis): its H/P row band (and its
+    N/D rows of the batch), contiguous."""
+    p, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    if x.shape[1] % p:
+        raise ValueError(f'H={x.shape[1]} must divide by shards {p}')
+    h = x.shape[1] // p
+    x = x[:, i * h:(i + 1) * h]
+    if batch_axis is not None:
+        d, j = axis_size(mesh, batch_axis), axis_index(mesh, batch_axis)
+        if x.shape[0] % d:
+            raise ValueError(f'N={x.shape[0]} must divide by shards {d}')
+        n = x.shape[0] // d
+        x = x[j * n:(j + 1) * n]
+    return x.contiguous()
+
+
+def _pad_rows(x: torch.Tensor, band: RowBand, value: float) -> torch.Tensor:
+    """An extended band padded by its pad rows of `value` (the image's
+    edges)."""
+    if band.pad_top or band.pad_bottom:
+        x = F.pad(x, (0, 0, 0, 0, band.pad_top, band.pad_bottom),
+                  value=value)
+    return x
+
+
+def conv_rows(x: torch.Tensor, w: torch.Tensor, band: RowBand,
+              stride: IntOr2, padding: IntOr2,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ops.conv.conv2d of a band: its halo rows, its zero pad rows, then
+    the conv with W padding only."""
+    return conv2d(_pad_rows(band.extend(x), band, 0.0), w, stride=stride,
+                  padding=(0, _pair(padding)[1]), bias=bias)
+
+
+def max_pool_rows(x_ext: torch.Tensor, band: RowBand, kernel_size: IntOr2,
+                  stride: IntOr2, padding: IntOr2) -> torch.Tensor:
+    """Max pool of a band extended by its halo rows (band.extend): its
+    -inf pad rows, then the pool with -inf W padding only."""
+    pw = _pair(padding)[1]
+    xp = F.pad(_pad_rows(x_ext, band, float('-inf')), (0, 0, pw, pw),
+               value=float('-inf'))
+    y = F.max_pool2d(xp.permute(0, 3, 1, 2), kernel_size=_pair(kernel_size),
+                     stride=_pair(stride))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _band_of(space: SpatialParallel, h_loc: int, kernel_size: IntOr2,
+             stride: IntOr2, padding: IntOr2) -> RowBand:
+    kh, sh, ph = _pair(kernel_size)[0], _pair(stride)[0], _pair(padding)[0]
+    return space.band(*_halo_geometry(h_loc, kh, sh, ph, space.size), ph)
+
+
+def halo_exchange_conv2d(x: torch.Tensor, w: torch.Tensor, *,
+                         mesh: DeviceMesh, axis: str = 'space',
+                         batch_axis: Optional[str] = None,
+                         stride: IntOr2 = 1, padding: IntOr2 = 0,
+                         bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Conv2d of an H-banded map (halo exchange).
+
+    Args:
+        x: this rank's (N, H/P, W, Cin) band (of its batch rows under
+            `batch_axis`), as local_band cuts it.
+        w: (kh, kw, Cin, Cout) filters, the same on every rank.
+        stride/padding: ints or (h, w) pairs, symmetric integer padding.
+
+    Returns:
+        this rank's (N, H/P // stride_h, W_out, Cout) band of the output.
+    """
+    space = space_parallel(mesh, axis)
+    if space is None:
+        return conv2d(x, w, stride=stride, padding=padding, bias=bias)
+    band = _band_of(space, x.shape[1], w.shape[0], stride, padding)
+    return conv_rows(x, w, band, stride, padding, bias)
+
+
+def halo_exchange_max_pool2d(x: torch.Tensor, *, mesh: DeviceMesh,
+                             axis: str = 'space',
+                             batch_axis: Optional[str] = None,
+                             kernel_size: IntOr2, stride: IntOr2,
+                             padding: IntOr2 = 0) -> torch.Tensor:
+    """Max pool of an H-banded map (halo exchange); x and the result as
+    in halo_exchange_conv2d."""
+    space = space_parallel(mesh, axis)
+    if space is None:
+        return max_pool2d(x, kernel_size=kernel_size, stride=stride,
+                          padding=padding)
+    band = _band_of(space, x.shape[1], kernel_size, stride, padding)
+    return max_pool_rows(band.extend(x), band, kernel_size, stride, padding)
+
+
+# ------------------------------------------------------ banded models
+
+
+def band_model(model: nn.Module, mesh: Optional[DeviceMesh],
+               axis: str = 'space') -> nn.Module:
+    """Serve the model H-banded over `axis` (module docstring); in place,
+    returns the model. Sets `space` (a SpatialParallel) on the model and
+    on every module that bands (those with a `space` attribute: the fp
+    and packed convs, the models' pools and global average pool). A
+    forward then takes this rank's band of the input (local_band) and
+    returns the whole logits on every rank of the group. An axis of one
+    rank leaves the model as it is."""
+    space = space_parallel(mesh, axis)
+    if space is None:
+        return model
+    if getattr(model, 'space', None) is not None:
+        raise ValueError('the model is banded already')
+    if getattr(model, 'tp', None) is not None:
+        raise ValueError('a tensor-parallel model cannot be banded too')
+    for module in model.modules():
+        if hasattr(module, 'space'):
+            module.space = space
+    return model
+
+
+@contextlib.contextmanager
+def forward(space: Optional[SpatialParallel],
+            training: bool) -> Iterator[None]:
+    """The body of a model's forward: banded until it gathers or ends
+    where the model is banded. Raises in train mode."""
+    if space is None:
+        yield
+        return
+    if training:
+        raise ValueError(
+            'a banded model serves only (eval mode): its train-mode '
+            "statistics would need reductions over 'space'")
+    space.banded = True
+    try:
+        yield
+    finally:
+        space.banded = False
+
+
+def _whole(x: torch.Tensor, space: SpatialParallel) -> torch.Tensor:
+    """x gathered; the rest of the forward runs whole."""
+    space.banded = False
+    return gather_rows(x, space)
+
+
+def conv_band(space: Optional[SpatialParallel], x: torch.Tensor,
+              kernel_size: IntOr2, stride: IntOr2, padding: IntOr2
+              ) -> tuple[torch.Tensor, Optional[RowBand]]:
+    """(x, its RowBand) where the forward runs banded and the conv's
+    geometry holds on the band; (x gathered, None) where it does not, and
+    the rest of the forward runs whole; (x, None) in a forward that is
+    not banded."""
+    if space is None or not space.banded:
+        return x, None
+    try:
+        band = _band_of(space, x.shape[H], kernel_size, stride, padding)
+    except ValueError:
+        return _whole(x, space), None
+    return x, band
+
+
+def block_input(space: Optional[SpatialParallel], block: nn.Module,
+                x: torch.Tensor) -> torch.Tensor:
+    """The input of a residual block: x where every conv of the block
+    bands at the height it sees, else x gathered (the block's shortcut
+    and body must see the same map). The body's convs are the block's
+    children in order (each dividing the height by its stride), the
+    shortcut's conv sees x."""
+    if space is None or not space.banded:
+        return x
+    h = x.shape[H]
+    convs = []
+    for m in block.children():
+        if hasattr(m, 'kernel_size') and hasattr(m, 'space'):
+            convs.append((m, h))
+            h //= _pair(m.stride)[0]
+    shortcut = getattr(getattr(block, 'shortcut', None), 'conv', None)
+    if shortcut is not None:
+        convs.append((shortcut, x.shape[H]))
+    for m, h_in in convs:
+        try:
+            _halo_geometry(h_in, _pair(m.kernel_size)[0],
+                           _pair(m.stride)[0], _pair(m.padding)[0],
+                           space.size)
+        except ValueError:
+            return _whole(x, space)
+    return x
+
+
+def solve_input(space: Optional[SpatialParallel],
+                x: torch.Tensor) -> torch.Tensor:
+    """The map a per-sample activation solve reads: x, or the whole
+    sample gathered where x is a band."""
+    if space is None or not space.banded:
+        return x
+    return gather_rows(x, space)
+
+
+def output_band(space: SpatialParallel, y: torch.Tensor) -> torch.Tensor:
+    """This rank's band of a whole map y."""
+    h = y.shape[H] // space.size
+    return _rows(y, space.index * h, h).contiguous()
+
+
+def global_avg_pool(space: Optional[SpatialParallel],
+                    x: torch.Tensor) -> torch.Tensor:
+    """ops.conv.global_avg_pool of a map or of a band: a band's sums
+    all-reduced over the group, over the whole H * W. Reduced-precision
+    inputs sum in float32 and round once."""
+    if space is None or not space.banded:
+        return C.global_avg_pool(x)
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    sums = (x.float() if low else x).sum(dim=(1, 2))
+    dist.all_reduce(sums, group=space.group)
+    mean = sums / (x.shape[1] * space.size * x.shape[2])
+    return mean.to(x.dtype) if low else mean

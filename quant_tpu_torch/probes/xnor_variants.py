@@ -57,7 +57,9 @@ f32. Each in the order baseline, current, current, baseline (the pool
 and the add: baseline, current, library, library, current, baseline),
 on two timers: card time behind a head start (`common.card_ms`) and
 back to back, host launch time included (bare launches, no Python
-wrapper). Both libraries' results must equal the plain twins'.
+wrapper). Both libraries' results must equal the plain twins'. The
+conv and pool entry points take a row band's `pad_top` after `pad` (the
+pool after C): an older source without it does not share the interface.
 
 `--parts` picks what runs, of conv (conv knock-outs and SASS), planes
 (the multi-plane variants, SASS and occupancy), gemm (wgmma knock-outs
@@ -474,7 +476,7 @@ def knockouts(libs: dict[str, dict[str, ctypes.CDLL]],
                 continue
             got = torch.empty_like(want)
             args = [_build.ptr(v) for v in (x, w, vx, vw, bias, got)] + [
-                n, hw, hw, c // 32, c, o, hw, hw, 3, 3, 1, 1,
+                n, hw, hw, c // 32, c, o, hw, hw, 3, 3, 1, 1, 1,
                 _build.stream(x)]
             lib = libs[name]['xnor']
             ms = common.card_ms(lambda: lib.qtt_xnor_conv2d_bf16(*args),
@@ -599,8 +601,8 @@ def planes_calls(lib: ctypes.CDLL, seen: list
                           device=xin.device)
         convs.append(launcher(
             lib.qtt_xnor_conv2d_planes_bf16, (words, wp, vx, vw, bias, out),
-            (n, h, w, wp.shape[-2], c, o, oh, ow, kk, kk, s, p, k // xg, xg,
-             wp.shape[0] // wg, wg, _build.stream(xin))))
+            (n, h, w, wp.shape[-2], c, o, oh, ow, kk, kk, s, p, p, k // xg,
+             xg, wp.shape[0] // wg, wg, _build.stream(xin))))
         want = B.xnor_conv2d_planes_plain(
             words, wp, vx, vw, bias, in_channels=c, x_group=xg, w_group=wg,
             stride=s, padding=p, out_dtype=torch.bfloat16)
@@ -698,7 +700,7 @@ def lib_calls(lib: ctypes.CDLL, seen: list
                           device=xin.device)
         convs.append(launcher(
             lib.qtt_xnor_conv2d_bf16, (want_words, wp, vx, vw, bias, out),
-            (n, h, w, wc, c, o, oh, ow, 3, 3, s, 1, _build.stream(xin))))
+            (n, h, w, wc, c, o, oh, ow, 3, 3, s, 1, 1, _build.stream(xin))))
         want_out = B.xnor_conv2d_plain(want_words, wp, vx, vw, bias,
                                        in_channels=c, stride=s, padding=1,
                                        out_dtype=torch.bfloat16)
@@ -808,7 +810,7 @@ def bw_calls(part: str, dev: torch.device
             calls[f'pool {str(dt)[6:]}'] = (
                 lambda lib, e=entry, x=x, out=out: launcher(
                     getattr(lib['pool'], e), (x, out),
-                    (*POOL_SHAPE, _build.stream(x))),
+                    (*POOL_SHAPE, 1, _build.stream(x))),
                 out, max_pool2d(x, kernel_size=3, stride=2, padding=1),
                 lambda x=x: F.max_pool2d(common.nchw(x), 3, 2, 1))
         return calls

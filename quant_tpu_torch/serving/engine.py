@@ -19,6 +19,16 @@ same forward, so the forward's gathers line up. `predict`, `submit` and
 leader's `stop()` ends every rank's (a follower's `stop()` waits for
 it). The results are the unsharded engine's.
 
+A model banded over a 'space' group (parallel.spatial.band_model) is
+served the same way over that group: the leader broadcasts each batch,
+every rank takes its band of the images' rows and runs the same forward
+(its halo exchanges line up), and the leader returns the logits, which
+every rank of the group holds. JAX's engine takes
+`input_sharding=spatial_sharding(mesh)` and lets GSPMD band the input;
+here the banded model carries its group, and `input_sharding`, where
+given, must be `parallel.spatial_sharding` of the model's own mesh and
+axis.
+
 `ServingFrontend` dispatches requests over backends with the engine's
 surface: in-process engines, or `serving.rpc.RemoteEngineClient`s of
 engines in worker processes (`serving.worker`).
@@ -38,6 +48,7 @@ import torch.distributed as dist
 
 from quant_tpu_torch import _build
 from quant_tpu_torch.device import DeviceLike, resolve_device
+from quant_tpu_torch.parallel import spatial
 
 logger = logging.getLogger(__name__)
 
@@ -66,7 +77,8 @@ class InferenceEngine:
     def __init__(self, model: torch.nn.Module, input_shape: Sequence[int],
                  max_batch: int = 64,
                  batch_buckets: Optional[Sequence[int]] = None,
-                 max_wait_ms: float = 2.0, device: DeviceLike = 'cuda'):
+                 max_wait_ms: float = 2.0, device: DeviceLike = 'cuda',
+                 input_sharding: Optional[tuple] = None):
         """
         Args:
             model: an eval-ready (packed, folded) model on `device`,
@@ -78,9 +90,13 @@ class InferenceEngine:
             max_wait_ms: batching window after the first pending request.
             device: where the model runs ('cuda' by default; raises if
                 CUDA is missing).
+            input_sharding: JAX's keyword: None, or the placements
+                `parallel.spatial_sharding(mesh, axis)` of the banded
+                model's own mesh and axis (raises otherwise).
 
-        A tensor-parallel model (its `tp` set) makes this rank's engine
-        its group's leader or a follower (module docstring).
+        A tensor-parallel model (its `tp` set) or a banded one (`space`)
+        makes this rank's engine its group's leader or a follower
+        (module docstring).
         """
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
@@ -91,8 +107,17 @@ class InferenceEngine:
                              f'device is {self.device}')
         self.model = model.eval()
         self._model_device = model_device
-        self._tp = getattr(model, 'tp', None)
-        self.leader = self._tp is None or self._tp.index == 0
+        self._space = getattr(model, 'space', None)
+        if input_sharding is not None and (
+                self._space is None or input_sharding != spatial.
+                spatial_sharding(self._space.mesh, self._space.axis)):
+            raise ValueError(
+                f'input_sharding {input_sharding} is not the placements of '
+                "the model's own 'space' axis: band the model with "
+                'parallel.band_model and pass spatial_sharding of its mesh')
+        # The group whose leader serves: the model's 'model' or 'space'.
+        self._group = getattr(model, 'tp', None) or self._space
+        self.leader = self._group is None or self._group.index == 0
         self.input_shape = tuple(input_shape)
         self.max_batch = max_batch
         self.buckets = sorted(set(
@@ -138,7 +163,7 @@ class InferenceEngine:
         self._stop.set()
         if self._thread.is_alive():
             self._thread.join(timeout=timeout)
-        if self._tp is not None:
+        if self._group is not None:
             with self._run_lock:
                 self._send(None)
 
@@ -212,16 +237,22 @@ class InferenceEngine:
     def _run(self, batch: np.ndarray) -> np.ndarray:
         with self._run_lock, torch.inference_mode():
             x = torch.from_numpy(batch).to(self._model_device)
-            if self._tp is not None:
+            if self._group is not None:
                 self._send(x)
-            return self.model(x).to(torch.float32).cpu().numpy()
+            return self.model(self._band(x)).to(torch.float32).cpu().numpy()
+
+    def _band(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's band of a batch for a banded model; x otherwise."""
+        if self._space is None:
+            return x
+        return spatial.output_band(self._space, x)
 
     def _header(self, op: int, rows: int) -> torch.Tensor:
         """(op, rows) from the leader, by broadcast over the group."""
         head = torch.tensor([op, rows], dtype=torch.int64,
                             device=self._model_device)
-        dist.broadcast(head, dist.get_global_rank(self._tp.group, 0),
-                       group=self._tp.group)
+        dist.broadcast(head, dist.get_global_rank(self._group.group, 0),
+                       group=self._group.group)
         return head
 
     def _send(self, x: Optional[torch.Tensor]) -> None:
@@ -229,8 +260,8 @@ class InferenceEngine:
         self._header(_STOP if x is None else _RUN,
                      0 if x is None else x.shape[0])
         if x is not None:
-            dist.broadcast(x, dist.get_global_rank(self._tp.group, 0),
-                           group=self._tp.group)
+            dist.broadcast(x, dist.get_global_rank(self._group.group, 0),
+                           group=self._group.group)
 
     def _receive(self) -> Optional[torch.Tensor]:
         """A follower's next batch from its leader (None: stop)."""
@@ -239,8 +270,8 @@ class InferenceEngine:
             return None
         x = torch.empty((rows,) + self.input_shape, dtype=torch.float32,
                         device=self._model_device)
-        dist.broadcast(x, dist.get_global_rank(self._tp.group, 0),
-                       group=self._tp.group)
+        dist.broadcast(x, dist.get_global_rank(self._group.group, 0),
+                       group=self._group.group)
         return x
 
     def _follow(self) -> None:
@@ -250,7 +281,7 @@ class InferenceEngine:
             torch.cuda.set_device(self._model_device)
         with torch.inference_mode():
             while (x := self._receive()) is not None:
-                self.model(x)
+                self.model(self._band(x))
 
     def _loop(self) -> None:
         while not self._stop.is_set():

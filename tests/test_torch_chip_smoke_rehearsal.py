@@ -12,7 +12,10 @@ and to small ResNets at 32 px on 8 synthetic images, its torch.profiler
 reading (which needs the card's kernels) stood in for, and its pod to a
 smaller MNIST, its worlds on gloo over the CPU, and the TP phase to a
 small ring GEMM, the small XNOR ResNet served at batch 2 and a smaller
-MNIST, its world of 2 on gloo over the CPU. The oracle phase runs
+MNIST, its world of 2 on gloo over the CPU, and the spatial and pipeline
+phases to that model (banded at 32 px; its layer1 block as both stages
+at 2 microbatches of 1 image) and their kernel checks to small bands,
+their worlds of 2 on gloo over the CPU. The oracle phase runs
 as on the card (the oracles are small), its launch counts stood in for.
 That catches Python-level breakage of the
 script (arguments, shapes, the phases' control flow, the report's keys)
@@ -201,6 +204,12 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'TP_POD_MNIST', dict(
         chip_smoke.TP_POD_MNIST, test=64))
     monkeypatch.setattr(chip_smoke, '_tp_launches', tp_launches)
+    monkeypatch.setattr(chip_smoke, 'PAR_ITERS', 1)
+    monkeypatch.setattr(chip_smoke, 'PIPE_MICROBATCHES', 2)
+    monkeypatch.setattr(chip_smoke, 'BAND_CONVS', ((64, 8, 1), (64, 8, 2)))
+    monkeypatch.setattr(chip_smoke, 'BAND_PLANES', (64, 8, 1))
+    monkeypatch.setattr(chip_smoke, 'BAND_POOL_SHAPE', (2, 8, 8, 64))
+    monkeypatch.setattr(chip_smoke, 'BAND_CHECK_BATCH', 2)
     # On the CPU the MNIST recipe's 4 TP steps move its test loss by
     # 4.4e-3 from tp = 1 (tied max-pool windows after the binary conv2
     # break the other way under another float order), the card's 3.8e-4:
@@ -251,6 +260,10 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
         assert k['tp_launches'] == (
             SMALL_SERVED_TP[k['name']] if on_main else
             chip_smoke.TP_WORLD if k['name'] == 'xnor_gemm' else 0)
+        assert k['space_launches'] == (SMALL_SERVED_TP[k['name']]
+                                       if on_main else 0)
+        assert k['pipe_launches'] == (
+            4 if k['name'] in ('xnor_conv2d', 'pack_sign_planes') else 0)
     assert headline['xnor_conv2d_planes'] == 8
     # One multi-plane row for each phase that launches the kernel, with
     # the registers and blocks an SM of the instance it takes; a library
@@ -388,6 +401,35 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     assert step['flip_case']['case'] == chip_smoke.TP_FLIP_CASE
     assert step['flip_case']['max_abs_err'] < 1e-5
     assert step['summing_diff'] > chip_smoke.TP_SUMMING_MIN_DIFF
+    space = report['spatial']
+    assert [json.loads(ln)['spatial_phase'] for ln in lines
+            if ln.startswith('{"spatial_phase"')] == [space]
+    assert space['per_forward'] == [SMALL_SERVED_TP] * 2
+    assert space['forwards'][0] == space['forwards'][1] > 1
+    # At 32 px over two bands the stem, the pool and layer1-3 band;
+    # layer4's stride does not divide its 1-row band: it runs whole.
+    assert space['whole'] == ['layer4_block0.conv1',
+                              'layer4_block0.shortcut.conv',
+                              'layer4_block0.conv2']
+    assert space['banded'][0] == 'conv1' and len(space['banded']) == 9
+    assert set(space['captured'].values()) == {0.0}
+    assert space['calls'][0]['xnor_conv2d pad_top=1'] == 6
+    assert space['calls'][1]['xnor_conv2d pad_top=0'] == 6
+    assert space['calls'][1]['max_pool_3x3_s2_p1 pad_top=0'] == 1
+    assert space['halo_bytes'][0] > space['halo_bytes'][1] > 0
+    assert space['f32_max_abs_err'] == space['bf16_max_abs_err'] == 0.0
+    for kname, t in space['band_ms'].items():
+        assert t['band_pad_top'] == [1, 0] and len(t['bands']) == 2, kname
+    checks = space['band_checks']
+    assert checks.pop('control_differ') > 0 and set(checks.values()) == {0.0}
+    pipe = report['pipeline']
+    assert [json.loads(ln)['pipeline_phase'] for ln in lines
+            if ln.startswith('{"pipeline_phase"')] == [pipe]
+    assert pipe['max_abs_err'] == 0.0 and pipe['shape'] == [2, 1, 8, 8, 8]
+    assert pipe['per_microbatch'] == [{'xnor_conv2d': 2,
+                                       'pack_sign_planes': 2}] * 2
+    assert pipe['step']['rel_err'] <= chip_smoke.PIPE_STEP_TOL
+    assert pipe['step']['summing_diff'] > chip_smoke.PIPE_SUMMING_MIN_DIFF
     pod_tp = tp['pod']
     assert set(pod_tp['loss_rel_err']) == {'train', 'test', 'tp2_restored',
                                            'tp2_at_tp1'}
