@@ -151,13 +151,28 @@ the chip-probe path:
    and 2 producers a stage a microbatch, and one step of JAX's quantized
    stage against the sequential one, with the summing-backward control;
    one JSON line {"spatial_phase": ...} and one {"pipeline_phase": ...};
-14. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
+14. runs the spatial train phase (SPACE_TRAIN's comment): the ls1_kd KD
+   step of the ImageNet recipe's XNOR ResNet-18 banded over 'space' with
+   its teacher banded alike, in a world of 2 on gloo, both ranks on the
+   card, at batch 32 and 224 px: a float-activation step held to one
+   process's (the loss within 2e-5, every gradient within 2e-4 of the
+   largest, the step's float32 floor recorded), the three controls beyond
+   1e-3 at 256 px, 1 + 3 ls1_kd steps within 2% of one process's loss
+   with the ranks equal after every step and the sign flips a conv
+   recorded, ms a step split by part, the collectives and bytes a step,
+   peak memory a rank, the stem pool's calls on bands held to their twin
+   (one launch a step), evaluate against the unsharded state, and the
+   trained state packed and served banded against unsharded (16 + 16 +
+   1 launches, every kernel call held to its twin); one JSON line
+   {"spatial_train_phase": ...};
+15. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
 Prints the card line, JSON lines {"oracle_phase": ...},
 {"experiment_phase": ...}, {"tp_phase": ...}, {"spatial_phase": ...},
-{"pipeline_phase": ...}, {"kernels": [...]} and
+{"pipeline_phase": ...}, {"spatial_train_phase": ...}, {"kernels": [...]}
+and
 {"probes": [...]}
 and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and exits non-zero; without CUDA it exits 2 before printing
@@ -652,6 +667,54 @@ PIPE_STEP = dict(microbatches=4, rows=8, hw=16, channels=16)
 PIPE_STEP_TOL = 1e-5
 PIPE_SUMMING_MIN_DIFF = 1e-3
 PAR_ITERS = 5
+# The spatial train phase (spatial_train_phase): the QAT train step of the
+# ImageNet KD recipe's student banded over 'space' (parallel.band_model),
+# its frozen teacher banded alike, in a world of SPACE_WORLD on gloo with
+# both ranks on the card (`--par-worker` ranks, phase 'space_train'),
+# float32 with TF32 off and cuDNN's deterministic algorithms, as the
+# pods. Each rank steps on its row band of
+# the same SPACE_TRAIN['batch'] seeded images (local_band: 112 rows of
+# 224; the stem, the pool and layer1-3 on bands, layer4 and the head on
+# the gathered map), and takes one process's step on the whole images
+# too, from the same seeded weights (train_profile.build's). (a) The gate:
+# one KD step of each SPACE_STEP_CASES student (the XNOR ResNet-18 at
+# full width with float activations into ls-1 weights: binary
+# activations flip their sign under another float order, TP_STEP_CASES'
+# reason) within SPACE_STEP_LOSS_RTOL of one process's loss and, on every
+# gradient, within SPACE_STEP_GRAD_TOL of the largest gradient. A band
+# sums in another float32 order than the whole map: the sound banded
+# steps read 5.39e-5 (224 px) and 3.66e-5 (256 px), and one process's own
+# step with cuDNN off against it with cuDNN on 5.75e-5 and 4.06e-5 (the
+# float32 floor, recorded each run beside the gate as
+# floor_grad_rel_err); the smallest control reads 4.17e-3 (NVIDIA H100
+# 80GB HBM3, 700 W). The limit sits between the two; the
+# first case again at SPACE_TRAIN['control_input'] (256 px: layer4 bands
+# too, so the average pool reduces the bands), under the same gate, and
+# under each of SPACE_CONTROLS (space_control) beyond
+# SPACE_CONTROL_MIN_DIFF of one process's. (b)
+# train_profile's SPACE_KD_CONFIG (ls-1 x ls-1, the recipe's Adam):
+# SPACE_TRAIN['warmup'] + ['steps'] steps banded and in one process, the
+# ranks' variables equal after every step, each step's loss within
+# SPACE_KD_LOSS_RTOL of one process's, the sign flips of each binary
+# conv's input at the first step recorded; for the timed steps ms a step
+# a rank split by part (CUDA events at make_train_step's phase_hook)
+# beside one process's (each rank's one-process run alone on the card,
+# the other rank waiting), the collectives a step by kind and their bytes,
+# the peak memory a rank beside one process's, and the stem pool's
+# launches (one a step: the teacher's, on its band), every call of the
+# last step held to its twin. (c) evaluate of the trained state on
+# SPACE_TRAIN['eval_images'] through the banded loaders against the same
+# state unsharded: the logits within TP_F32_TOL.
+SPACE_TRAIN = dict(model='resnet18', batch=32, input=[224, 224, 3],
+                   control_input=[256, 256, 3], classes=1000, warmup=1,
+                   steps=3, eval_images=64)
+SPACE_STEP_CASES = {'xnor_resnet18_fp_ls1': ('fp', 'ls-1')}
+SPACE_STEP_LOSS_RTOL = 2e-5
+SPACE_STEP_GRAD_TOL = 2e-4
+SPACE_CONTROLS = ('summing_avg_pool', 'no_space_sum', 'local_statistics')
+SPACE_CONTROL_MIN_DIFF = 1e-3
+SPACE_KD_CONFIG = 'ls1_kd'
+SPACE_KD_LOSS_RTOL = 2e-2
 
 
 def card_line() -> str:
@@ -1890,8 +1953,21 @@ def recipe_phase(build: str, x_quant: str, w_quant: str, recipe: str,
                 quantizers=len(got), serving=served)
 
 
+class _HostEvent:
+    """cuda_event's stand-in where DEVICE is the CPU (a rank of the CPU
+    rehearsal): the host clock."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end: '_HostEvent') -> float:
+        return (end.t - self.t) * 1e3
+
+
 def cuda_event() -> Any:
     """A CUDA event recorded on the current stream (timing enabled)."""
+    if DEVICE != 'cuda':
+        return _HostEvent()
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
     return ev
@@ -3852,6 +3928,15 @@ def band_captured(calls: list) -> dict:
     return dict(errs=errs, calls=calls_by)
 
 
+# The spatial phase's halo_bytes and gathered_bytes: the bytes this rank
+# contributed to the collectives of these kinds (SpatialParallel's).
+_BYTE_KINDS = (('halo',), ('gather', 'solves'))
+
+
+def _kind_bytes(space: Any, kinds: tuple) -> int:
+    return sum(space.collectives.get(k, (0, 0))[1] for k in kinds)
+
+
 def _space_serving(mesh: Any, spec: dict, leader: bool) -> dict:
     """The banded serving model through the banded engine, bf16 then
     float32: launches and forwards of the bf16 round; one more forward
@@ -3884,13 +3969,13 @@ def _space_serving(mesh: Any, spec: dict, leader: bool) -> dict:
         for name, m in model.named_modules()
         if isinstance(m, (Conv, QuantConv2d))]
     x = local_band(torch.from_numpy(images).to(DEVICE), mesh)
-    sent, gathered = space.sent_bytes, space.gathered_bytes
+    sent, gathered = (_kind_bytes(space, k) for k in _BYTE_KINDS)
     with kernel_calls() as calls, torch.inference_mode():
         model(x)
     for h in hooks:
         h.remove()
-    out.update(halo_bytes=space.sent_bytes - sent,
-               gathered_bytes=space.gathered_bytes - gathered,
+    out.update(halo_bytes=_kind_bytes(space, _BYTE_KINDS[0]) - sent,
+               gathered_bytes=_kind_bytes(space, _BYTE_KINDS[1]) - gathered,
                banded=banded)
     with torch.inference_mode():
         out['captured'] = band_captured(calls)
@@ -4006,10 +4091,348 @@ def _pipe_step(mesh: Any, spec: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def space_control(name: str) -> Iterator[None]:
+    """One of SPACE_CONTROLS in place of the port's rule inside: a
+    summing backward at the average pool (the statistics' all-reduce; the
+    head after the pool runs replicated, so it gives P times the
+    gradient), no 'space' sum of the banded parameters' gradients, or
+    band-local train statistics."""
+    from quant_tpu_torch.parallel import global_stats, spatial
+
+    slots = {'summing_avg_pool': (spatial, 'replicated_sum', lambda x, sp: (
+                 global_stats._AllReduceSum.apply(x, sp.group, None))),
+             'no_space_sum': (spatial, 'sum_banded_grads',
+                              lambda model: None),
+             'local_statistics': (global_stats, 'banded',
+                                  lambda space: contextlib.nullcontext())}
+    module, attr, value = slots[name]
+    saved = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
+def _space_train_models(spec: dict, x_quant: str, w_quant: str
+                        ) -> tuple[torch.nn.Module, torch.nn.Module]:
+    """(student, teacher) of the spatial train phase on the card, seeded
+    as train_profile.build seeds them: SPACE_TRAIN's ResNet-18 pair, or
+    ('small') small_config's (the CPU rehearsal's)."""
+    if spec['train']['model'] == 'resnet18':
+        make, teacher_make = models.bench_resnet18, models.imagenet_teacher
+    else:
+        def make(xq: str, wq: str, **kw: Any) -> torch.nn.Module:
+            return models.build('xnor', models.small_config('xnor', xq, wq),
+                                **kw)
+
+        def teacher_make(xq: str, wq: str, **kw: Any) -> torch.nn.Module:
+            return models.build('regular', models.small_config(
+                'regular', xq, wq), **kw)
+    opts = dict(prepare=False, moving_average_mode='off',
+                inference_mode='dense')
+    student = models.seeded_model(make, x_quant, w_quant, 'cpu',
+                                  spec['seed'], **opts)
+    teacher = models.seeded_model(teacher_make, 'fp', 'fp', 'cpu',
+                                  spec['seed'] + 1000, **opts)
+    return student.to(DEVICE), teacher.to(DEVICE)
+
+
+def _space_train_data(spec: dict, n: int, seed: int,
+                      shape: Optional[list] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    cfg = spec['train']
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n,) + tuple(shape or cfg['input']),
+                            dtype=np.float32)
+    return (torch.from_numpy(x), torch.from_numpy(rng.integers(
+        0, cfg['classes'], n)))
+
+
+def _digest(model: torch.nn.Module) -> str:
+    """A hash of the model's parameters and buffers, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (*model.parameters(), *model.buffers()):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _space_run(spec: dict, x_quant: str, w_quant: str, mesh: Any,
+               steps: int, timed: int = 0, signs: bool = False,
+               shape: Optional[list] = None) -> dict:
+    """`steps` KD steps of the (x_quant, w_quant) student and its teacher
+    on the seeded batch (of images of `shape`, SPACE_TRAIN's by default),
+    banded over `mesh` (this rank's band) or in one process (mesh None):
+    the losses, the first step's gradients, a digest
+    of the student after each step, with `signs` each binary conv's input
+    signs at the first step (this rank's rows), and over the last `timed`
+    steps ms a step and its split, launches, collectives and peak
+    memory; banded, the stem pool calls of the last step held to their
+    twins."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.nn.layers import QuantConv2d
+    from quant_tpu_torch.parallel import band_model, local_band
+    from quant_tpu_torch.train.metrics import init_metric_state
+
+    student, teacher = _space_train_models(spec, x_quant, w_quant)
+    if mesh is not None:
+        band_model(student, mesh)
+        band_model(teacher, mesh)
+    x, y = _space_train_data(spec, spec['train']['batch'], spec['seed'],
+                             shape)
+    x, y = x.to(DEVICE), y.to(DEVICE)
+    if mesh is not None:
+        x = local_band(x, mesh)
+    marks: list = []
+    step = train_profile.make_step(teacher, lambda part: marks.append(
+        (part, cuda_event())), mesh=mesh)
+    state = train_profile.make_state(student)
+    seen: dict = {}
+
+    def keep(name: str) -> Callable:
+        def hook(mod: Any, args: tuple, y: torch.Tensor) -> None:
+            if name not in seen:
+                seen[name] = (args[0] >= 0).cpu()
+        return hook
+    hooks = [m.register_forward_hook(keep(name))
+             for name, m in student.named_modules()
+             if signs and isinstance(m, QuantConv2d)]
+    spaces = [m.space for m in (student, teacher) if m.space is not None]
+    out: dict = dict(losses=[], digests=[])
+    calls: list = []
+    for i in range(steps):
+        if i == steps - timed:
+            _sync()
+            marks.clear()
+            before = [copy.deepcopy(sp.collectives) for sp in spaces]
+            if DEVICE == 'cuda':
+                torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+        last = mesh is not None and timed and i == steps - 1
+        with (kernel_calls() if last
+              else contextlib.nullcontext(calls)) as c:
+            state, _, loss = step(state, x, y, init_metric_state())
+            _sync()
+        if last:
+            calls = c
+        out['losses'].append(float(loss))
+        out['digests'].append(_digest(student))
+        if i == 0:
+            for h in hooks:
+                h.remove()
+            out['grads'] = {n: p.grad.detach().clone()
+                            for n, p in student.named_parameters()
+                            if p.grad is not None}
+    out['signs'] = seen
+    if timed:
+        out['launches'] = _build.launch_counts()
+        out['max_memory_allocated'] = (torch.cuda.max_memory_allocated()
+                                       if DEVICE == 'cuda' else 0)
+        parts = ('forward', 'teacher', 'backward', 'optimizer')
+        split = {p: 0.0 for p in parts}
+        for (part, ev), (_, nxt) in zip(marks, marks[1:]):
+            if part in split:
+                split[part] += ev.elapsed_time(nxt) / timed
+        starts = [ev for part, ev in marks if part == 'forward']
+        ends = [ev for part, ev in marks if part == 'end']
+        out.update(ms_per_step=sum(a.elapsed_time(b) for a, b in zip(
+            starts, ends)) / timed, split_ms=split)
+        kinds: dict = {}
+        for sp, was in zip(spaces, before):
+            for kind, (n, nbytes) in sp.collectives.items():
+                n0, b0 = was.get(kind, (0, 0))
+                rec = kinds.setdefault(kind, [0, 0])
+                rec[0] += (n - n0) / timed
+                rec[1] += (nbytes - b0) / timed
+        out['collectives'] = {k: dict(count=v[0], bytes=v[1])
+                              for k, v in kinds.items()}
+    if calls:
+        with torch.inference_mode():
+            out['captured'] = band_captured(calls)
+    out['model'] = student
+    return out
+
+
+def _space_errs(got: dict, want: dict) -> dict:
+    """The first step's loss (relative) and gradients (the largest
+    difference over the largest gradient element) against `want`'s."""
+    largest = max(float(g.abs().max()) for g in want['grads'].values())
+    worst, leaf = max((float((got['grads'][n] - g).abs().max()), n)
+                      for n, g in want['grads'].items())
+    return dict(loss_rel_err=abs(got['losses'][0] - want['losses'][0])
+                / abs(want['losses'][0]), grad_rel_err=worst / largest,
+                worst_leaf=leaf, grad_max=largest)
+
+
+def _space_evaluate(spec: dict, model: torch.nn.Module, mesh: Any,
+                    x_quant: str, w_quant: str) -> dict:
+    """evaluate of `model` (banded over mesh) through the banded loaders
+    and of a copy of its state unbanded, on SPACE_TRAIN['eval_images']
+    seeded images: both metrics, the logits' largest difference and the
+    banded evaluate's launches."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch import train as T
+    from quant_tpu_torch.data.loaders import BatchIterable
+    from quant_tpu_torch.parallel.multihost import shard_loader_for_host
+
+    cfg = spec['train']
+    x, y = _space_train_data(spec, cfg['eval_images'], spec['seed'] + 1)
+    whole = BatchIterable(x.numpy(), y.numpy(), cfg['batch'], shuffle=False)
+    plain, _ = _space_train_models(spec, x_quant, w_quant)
+    plain.load_state_dict(model.state_dict())
+    loss = T.get_loss_fn('cross_entropy')
+    out: dict = {}
+    for name, m, loader, mesh_ in (
+            ('banded', model, shard_loader_for_host(whole, pad=True,
+                                                    mesh=mesh), mesh),
+            ('whole', plain, whole, None)):
+        state = train_profile.make_state(m)
+        step = T.make_eval_step(loss, mesh=mesh_)
+        logits: list = []
+
+        def keep(st: Any, data: Any, target: Any, ms: dict,
+                 step: Callable = step, logits: list = logits) -> Any:
+            ms, output = step(st, data, target, ms)
+            logits.append(output.cpu())
+            return ms, output
+        _sync()
+        _build.reset_launch_counts()
+        metrics = T.evaluate(keep, state, loader)
+        _sync()
+        out[name] = dict(metrics=metrics, launches={
+            k: v for k, v in _build.launch_counts().items() if v},
+            logits=torch.cat(logits).numpy())
+    out['max_abs_err'] = _max_err(out['banded'].pop('logits'),
+                                  out['whole'].pop('logits'))
+    return out
+
+
+def _space_gate(spec: dict, x_quant: str, w_quant: str, mesh: Any,
+                shape: Optional[list] = None) -> tuple[dict, dict]:
+    """One banded step against one process's (_space_errs), with the
+    float32 floor recorded beside it: one process's step with cuDNN off
+    against the same with cuDNN on (`floor_grad_rel_err`, another
+    summation order of the same step). Also returns the one-process
+    run."""
+    single = _space_run(spec, x_quant, w_quant, None, 1, shape=shape)
+    rec = _space_errs(_space_run(spec, x_quant, w_quant, mesh, 1,
+                                 shape=shape), single)
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        floor = _space_errs(_space_run(spec, x_quant, w_quant, None, 1,
+                                       shape=shape), single)
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    rec.update(floor_grad_rel_err=floor['grad_rel_err'],
+               floor_worst_leaf=floor['worst_leaf'],
+               floor_loss_rel_err=floor['loss_rel_err'])
+    return rec, single
+
+
+def _space_gate_ok(rec: dict) -> bool:
+    """SPACE_STEP_LOSS_RTOL on the loss; the gradients within
+    SPACE_STEP_GRAD_TOL of the largest."""
+    return (rec['loss_rel_err'] <= SPACE_STEP_LOSS_RTOL
+            and rec['grad_rel_err'] <= SPACE_STEP_GRAD_TOL)
+
+
+def _space_serve_trained(spec: dict, model: torch.nn.Module, mesh: Any,
+                         x_quant: str, w_quant: str) -> dict:
+    """The state trained banded, packed (prepare_for_serving: export;
+    per-batch scales rule out the threshold fold; strip) and served
+    banded through the engine, against a copy of the same state packed
+    and served unsharded: one forward's launches and every kernel call of
+    it held to its twin on its band, then the engine's float32 and bf16
+    logits (the leader's) beside the unsharded engine's."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.parallel import local_band
+
+    plain, _ = _space_train_models(spec, x_quant, w_quant)
+    plain.load_state_dict(model.state_dict())
+    for m in (model, plain):
+        m.eval()
+        for mod in m.modules():
+            if hasattr(mod, 'inference_mode'):
+                mod.inference_mode = 'packed'
+        models.prepare_for_serving(m)
+    cfg, leader = spec['train'], mesh.get_local_rank() == 0
+    x, _ = _space_train_data(spec, cfg['batch'], spec['seed'] + 2)
+    images = x.numpy()
+    xb = local_band(x.to(DEVICE), mesh)
+    model.eval_dtype = torch.bfloat16
+    _sync()
+    _build.reset_launch_counts()
+    with kernel_calls() as calls, torch.inference_mode():
+        model(xb)
+    _sync()
+    out: dict = dict(launches=_build.launch_counts())
+    with torch.inference_mode():
+        out['captured'] = band_captured(calls)
+    del calls
+    for name, dt in (('f32', None), ('bf16', torch.bfloat16)):
+        got = _tp_round(model, images, leader, dt, 1)
+        if leader:
+            want = _tp_round(plain, images, True, dt, 1)
+            out[name] = dict(logits=got['logits'], want=want['logits'],
+                             engine_ms=got['engine_ms'],
+                             whole_engine_ms=want['engine_ms'])
+    return out
+
+
+def _space_train(mesh: Any, spec: dict) -> dict:
+    """One rank of the spatial train phase (SPACE_TRAIN's comment)."""
+    torch.backends.cudnn.deterministic = True
+    cfg, out = spec['train'], dict(gates={}, controls={})
+    cases = spec['step_cases']
+    for case, (xq, wq) in cases.items():
+        out['gates'][case] = _space_gate(spec, xq, wq, mesh)[0]
+    control_case, shape = cases[next(iter(cases))], cfg['control_input']
+    out['controls']['none'], single = _space_gate(spec, *control_case, mesh,
+                                                  shape)
+    for name in spec['controls']:
+        with space_control(name):
+            got = _space_run(spec, *control_case, mesh, 1, shape=shape)
+        out['controls'][name] = _space_errs(got, single)['grad_rel_err']
+    del single, got
+    _, xq, wq, _, _ = train_profile.CONFIGS[spec['kd_config']]
+    steps = cfg['warmup'] + cfg['steps']
+    for r in range(mesh.size()):  # one process's run, alone on the card
+        if mesh.get_local_rank() == r:
+            single = _space_run(spec, xq, wq, None, steps, cfg['steps'],
+                                signs=True)
+        torch.distributed.barrier(group=mesh.get_group())
+    banded = _space_run(spec, xq, wq, mesh, steps, cfg['steps'], signs=True)
+    flips = {}
+    for name, got in banded['signs'].items():
+        want = single['signs'][name]
+        if got.shape != want.shape:  # this rank's band of the whole map
+            h = got.shape[1]
+            want = want[:, mesh.get_local_rank() * h:][:, :h]
+        flips[name] = int((got != want).sum())
+    out['kd'] = dict(
+        config=spec['kd_config'], flips=flips,
+        **{k: dict(losses=r['losses'], ms_per_step=r['ms_per_step'],
+                   split_ms=r['split_ms'], launches=r['launches'],
+                   max_memory_allocated=r['max_memory_allocated'])
+           for k, r in (('banded', banded), ('single', single))},
+        digests=banded['digests'], collectives=banded['collectives'],
+        captured=banded['captured'])
+    model = banded['model']
+    del single, banded
+    out['evaluate'] = _space_evaluate(spec, model, mesh, xq, wq)
+    out['serve'] = _space_serve_trained(spec, model, mesh, xq, wq)
+    return out
+
+
 def par_worker(rank: int, port: int, out: str, spec_path: str) -> int:
-    """One rank of the spatial or the pipeline phase (chip_smoke.py
-    --par-worker): joins a gloo world, runs spec['phase'] over a mesh of
-    its one axis ('space' or 'pipe') and saves the results at `out`."""
+    """One rank of the spatial, spatial train or pipeline phase
+    (chip_smoke.py --par-worker): joins a gloo world, runs spec['phase']
+    over a mesh of its one axis ('space' or 'pipe') and saves the results
+    at `out`."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from quant_tpu_torch.parallel import multihost
@@ -4026,11 +4449,14 @@ def par_worker(rank: int, port: int, out: str, spec_path: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     multihost.initialize(f'127.0.0.1:{port}', spec['world'], rank,
                          device=DEVICE)
+    axis = 'pipe' if spec['phase'] == 'pipe' else 'space'
     mesh = DeviceMesh(DEVICE, torch.arange(spec['world']),
-                      mesh_dim_names=(spec['phase'],))
+                      mesh_dim_names=(axis,))
     try:
         if spec['phase'] == 'space':
             results = dict(serving=_space_serving(mesh, spec, rank == 0))
+        elif spec['phase'] == 'space_train':
+            results = _space_train(mesh, spec)
         else:
             results = dict(packed=_pipe_packed(mesh, spec))
             torch.backends.cudnn.enabled = spec['cudnn']
@@ -4159,6 +4585,106 @@ def pipeline_phase(seed: int) -> dict:
                              f'differ: {out["step"]}')
     out['s'] = time.perf_counter() - t0
     print(json.dumps({'pipeline_phase': out}), flush=True)
+    return out
+
+
+def spatial_train_phase(seed: int) -> dict:
+    """The spatial train phase (SPACE_TRAIN's comment), in a temporary
+    directory removed after; raises past its gates, prints one
+    {"spatial_train_phase": ...} line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='qtt_space_train_') as root:
+        ranks = _par_workers(root, seed, 'space_train', train=SPACE_TRAIN,
+                             step_cases=SPACE_STEP_CASES,
+                             controls=SPACE_CONTROLS,
+                             kd_config=SPACE_KD_CONFIG)
+    cfg = SPACE_TRAIN
+    out: dict = dict(world=SPACE_WORLD, backend='gloo', mesh=['space'],
+                     train=cfg, cudnn='deterministic',
+                     tol=dict(loss_rel=SPACE_STEP_LOSS_RTOL,
+                              grad_rel=SPACE_STEP_GRAD_TOL,
+                              control_min=SPACE_CONTROL_MIN_DIFF,
+                              kd_loss_rel=SPACE_KD_LOSS_RTOL))
+    out['gates'] = {case: [r['gates'][case] for r in ranks]
+                    for case in SPACE_STEP_CASES}
+    out['gates']['control_input'] = [r['controls'].pop('none')
+                                     for r in ranks]
+    for case, recs in out['gates'].items():
+        for rec in recs:
+            if not _space_gate_ok(rec):
+                raise AssertionError(f'banded step {case} vs one process: '
+                                     f'{rec}')
+    out['controls'] = {name: min(r['controls'][name] for r in ranks)
+                       for name in SPACE_CONTROLS}
+    for name, diff in out['controls'].items():
+        if not diff > SPACE_CONTROL_MIN_DIFF:
+            raise AssertionError(f'banded step: the {name} control does '
+                                 f'not differ: {diff}')
+    kd = [r['kd'] for r in ranks]
+    if any(k['digests'] != kd[0]['digests'] for k in kd):
+        raise AssertionError('the ranks\' variables differ after a step')
+    losses, want = kd[0]['banded']['losses'], kd[0]['single']['losses']
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    if not (np.isfinite(losses).all() and max(rel) <= SPACE_KD_LOSS_RTOL):
+        raise AssertionError(f'banded {SPACE_KD_CONFIG} losses {losses} vs '
+                             f'one process {want}')
+    per_step = [_tp_launches(k['banded']['launches'], cfg['steps'],
+                             {'max_pool_3x3_s2_p1': 1}) for k in kd]
+    captured: dict = {}
+    for k in kd:
+        for kname, err in k['captured']['errs'].items():
+            captured[kname] = max(captured.get(kname, 0.0), err)
+    out['kd'] = dict(
+        config=SPACE_KD_CONFIG, losses=losses, single_losses=want,
+        loss_rel_err=rel, per_step=per_step, captured=captured,
+        calls=[k['captured']['calls'] for k in kd],
+        flips=[k['flips'] for k in kd],
+        ms_per_step=[k['banded']['ms_per_step'] for k in kd],
+        split_ms=[k['banded']['split_ms'] for k in kd],
+        single_ms_per_step=kd[0]['single']['ms_per_step'],
+        single_split_ms=kd[0]['single']['split_ms'],
+        collectives=[k['collectives'] for k in kd],
+        max_memory_allocated=[k['banded']['max_memory_allocated']
+                              for k in kd],
+        single_max_memory_allocated=kd[0]['single']['max_memory_allocated'])
+    ev = [r['evaluate'] for r in ranks]
+    for e in ev:
+        if not e['max_abs_err'] <= TP_F32_TOL['atol']:
+            raise AssertionError(f'banded evaluate vs whole: {e}')
+    out['evaluate'] = dict(
+        images=cfg['eval_images'], max_abs_err=max(e['max_abs_err']
+                                                   for e in ev),
+        metrics=ev[0]['banded']['metrics'],
+        whole_metrics=ev[0]['whole']['metrics'],
+        launches=[e['banded']['launches'] for e in ev])
+    serve = [r['serve'] for r in ranks]
+    lead = serve[0]
+    np.testing.assert_allclose(lead['f32']['logits'], lead['f32']['want'],
+                               **TP_F32_TOL, err_msg='the state trained '
+                               'banded, served banded vs whole (float32)')
+    bf16, want16 = lead['bf16']['logits'], lead['bf16']['want']
+    spread = float(want16.max() - want16.min())
+    bf16_err = _max_err(bf16, want16)
+    if not (np.isfinite(bf16).all() and bf16_err <= TP_BF16_REL_TOL * spread):
+        raise AssertionError(f'the state trained banded, served banded vs '
+                             f'whole (bf16): {bf16_err} of {spread}')
+    served: dict = {}
+    for r in serve:
+        for kname, err in r['captured']['errs'].items():
+            served[kname] = max(served.get(kname, 0.0), err)
+    out['serve'] = dict(
+        batch=cfg['batch'], captured=served,
+        calls=[r['captured']['calls'] for r in serve],
+        per_forward=[_tp_launches(r['launches'], 1,
+                                  TP_SERVING['per_forward']) for r in serve],
+        f32_max_abs_err=_max_err(lead['f32']['logits'], lead['f32']['want']),
+        bf16_max_abs_err=bf16_err, bf16_spread=spread,
+        engine_ms={'banded': lead['bf16']['engine_ms'],
+                   'whole': lead['bf16']['whole_engine_ms']})
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'spatial_train_phase': out}), flush=True)
     return out
 
 
@@ -4378,6 +4904,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     print(f'spatial phase: {space["s"]:.1f} s', flush=True)
     pipe = pipeline_phase(args.seed)
     print(f'pipeline phase: {pipe["s"]:.1f} s', flush=True)
+    space_train = spatial_train_phase(args.seed)
+    print(f'spatial train phase: {space_train["s"]:.1f} s', flush=True)
+    for captured in (space_train['kd']['captured'],
+                     space_train['serve']['captured']):
+        for kname, err in captured.items():
+            errs[kname] = max(errs[kname], err)
     for kname, err in space['captured'].items():
         errs[kname] = max(errs[kname], err)
     for kname in ('xnor_conv2d', 'xnor_conv2d_planes', 'max_pool_3x3_s2_p1'):
@@ -4387,6 +4919,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     space_launches = space['per_forward'][0]
     pipe_launches = {k: v * PIPE_MICROBATCHES
                      for k, v in pipe['per_microbatch'][0].items()}
+    # A rank's launches a banded train step (the frozen teacher's pool).
+    space_train_launches = space_train['kd']['per_step'][0]
 
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
@@ -4418,6 +4952,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                     tp_launches=tp_launches.get(r['name'], 0),
                     space_launches=space_launches.get(r['name'], 0),
                     pipe_launches=pipe_launches.get(r['name'], 0),
+                    space_train_launches=space_train_launches.get(
+                        r['name'], 0),
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
@@ -4441,6 +4977,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            recipes=recipes, recipes_s=recipes_s,
                            train=train, experiment=experiment, tp=tp,
                            spatial=space, pipeline=pipe,
+                           spatial_train=space_train,
                            probes=records, probe_s=probe_s,
                            build_resources=resources,
                            torch=torch.__version__,

@@ -198,7 +198,9 @@ class BatchNorm(nn.Module):
     variance, where F.batch_norm would update with the unbiased one);
     the output is `dtype`, else x's dtype promoted with the affine's.
     Under a data-parallel train step (parallel.global_stats.over) the
-    batch's statistics are the global batch's, over every rank's rows.
+    batch's statistics are the global batch's, over every rank's rows;
+    in a banded forward (parallel.spatial) they are the whole images',
+    over the 'space' group's bands too, until the map is gathered.
     Sharded (`tp`), it holds its slice of the bias (JAX's rules shard a
     `bias` leaf) and gathers it; all else is whole.
     """
@@ -288,7 +290,10 @@ class ActivationQuantizer(nn.Module):
     momentum*old + (1-momentum)*new; `ema_count` counts the batches.
     Under a data-parallel train step (parallel.global_stats.over) the
     batch mean is over every rank's rows; each sample's scales stay its
-    own.
+    own. Given a `space` whose forward is banded (parallel.spatial), x is
+    this rank's band of each sample and the solve reads the whole sample
+    (spatial.solve_band), so every 'space' rank holds the same scales;
+    their batch mean is taken over the 'data' group alone.
     """
 
     def __init__(self, scheme: str, moving_average_mode: str = 'off',
@@ -313,14 +318,21 @@ class ActivationQuantizer(nn.Module):
             torch.zeros((), dtype=torch.int32) if use_ema else None)
         self.eval()
 
-    def solve(self, x: torch.Tensor) -> Optional[torch.Tensor]:
-        """The (k, N) scales this batch solves to (None for fp)."""
+    def solve(self, x: torch.Tensor,
+              space: Optional[spatial.SpatialParallel] = None
+              ) -> Optional[torch.Tensor]:
+        """The (k, N) scales this batch solves to (None for fp); of the
+        whole samples where x is a band of a banded forward over
+        `space`."""
+        if space is not None and space.banded:
+            return spatial.solve_band(space, self.scheme, x, self.skip,
+                                      self.solver_mode)
         return solve_scales(self.scheme, x, self.skip, self.solver_mode)
 
     def _track(self, batch_vs: torch.Tensor) -> torch.Tensor:
         """Blend the batch mean of batch_vs into the EMA; the blend."""
         new, = global_stats.batch_means([batch_vs], (1,),
-                                        differentiable=False)
+                                        differentiable=False, pixels=False)
         m = self.moving_average_momentum
         blended = torch.where(self.ema_count > 0,
                               m * self.ema + (1.0 - m) * new, new)
@@ -329,13 +341,16 @@ class ActivationQuantizer(nn.Module):
             self.ema_count.add_(1)
         return blended
 
-    def forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
-        """(k, N) scales for x (N leading); None for fp."""
+    def forward(self, x: torch.Tensor,
+                space: Optional[spatial.SpatialParallel] = None
+                ) -> Optional[torch.Tensor]:
+        """(k, N) scales for x (N leading); None for fp. `space`: x is a
+        band (solve)."""
         if self.scheme == 'fp':
             return None
         k, n = scheme_num_scales(self.scheme), x.shape[0]
         if self.training:
-            batch_vs = self.solve(x)
+            batch_vs = self.solve(x, space)
             if self.ema is None:
                 return batch_vs
             blended = self._track(batch_vs)
@@ -353,10 +368,13 @@ class ActivationQuantizer(nn.Module):
             return self.ema[:, None].expand(k, n)
         return self.solve(x)
 
-    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+    def quantize(self, x: torch.Tensor,
+                 space: Optional[spatial.SpatialParallel] = None
+                 ) -> torch.Tensor:
         """x_q = sum_i v_i * b_i with this batch's scales (x for fp),
-        differentiable through the straight-through binarize."""
-        return quantize_with_scheme(self.scheme, x, self(x))[1]
+        differentiable through the straight-through binarize; the whole
+        samples' scales where x is a band (`space`, solve)."""
+        return quantize_with_scheme(self.scheme, x, self(x, space))[1]
 
 
 class QuantConv2d(nn.Module):
@@ -402,8 +420,11 @@ class QuantConv2d(nn.Module):
     its row band: the int8 route exchanges the halo rows of its packed
     sign words, the other routes those of x, and each conv pads only the
     image's own edges; a per-batch solve reads the whole sample, gathered
-    over 'space'. A dense conv runs on the gathered map and keeps its
-    band.
+    over 'space'. A dense eval conv runs on the gathered map and keeps
+    its band. The train form quantizes its band with the whole samples'
+    scales, exchanges the halo rows of the quantized operand (whose
+    backward returns their gradient to their owner) and runs the dense
+    conv with zero edges, as JAX's dense conv pads its quantized operand.
     """
 
     tp: Optional[TensorParallel] = None
@@ -493,10 +514,11 @@ class QuantConv2d(nn.Module):
         return conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
                       bias=self.bias).to(torch.float32)
 
-    def _train(self, x: torch.Tensor,
-               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    def _train(self, x: torch.Tensor, dtype: Optional[torch.dtype],
+               band: Optional[BI.RowBand] = None) -> torch.Tensor:
         w_oi = self._w_oi()
-        x_q = self.x_quantizer.quantize(self.clamp_fn()(x))
+        x_q = self.x_quantizer.quantize(
+            self.clamp_fn()(x), self.space if band is not None else None)
         if self.w_quant != 'fp':
             w_vs, w_oi = quantize_with_scheme(self.w_quant, w_oi, None,
                                               mode=self.solver_mode)
@@ -504,11 +526,15 @@ class QuantConv2d(nn.Module):
                 self.w_vs.copy_(w_vs)
         w_q, bias = torch.movedim(w_oi, 0, -1), self.bias
         if dtype is not None:
+            x_q, w_q = x_q.to(dtype), w_q.to(dtype)
             bias = bias.to(dtype) if bias is not None else None
-            return conv2d(x_q.to(dtype), w_q.to(dtype), stride=self.stride,
-                          padding=self.padding, bias=bias)
-        return conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
-                      bias=bias).to(torch.float32)
+        if band is not None:
+            y = spatial.conv_rows(x_q, w_q, band, self.stride, self.padding,
+                                  bias)
+        else:
+            y = conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
+                       bias=bias)
+        return y if dtype is not None else y.to(torch.float32)
 
     def _sign_compute(self) -> str:
         if self.sign_compute != 'auto':
@@ -538,7 +564,7 @@ class QuantConv2d(nn.Module):
                  bn_folded: bool,
                  band: Optional[BI.RowBand] = None) -> torch.Tensor:
         if self.training:
-            return self._train(x, out_dtype)
+            return self._train(x, out_dtype, band)
         if not self.packed:
             if band is None:
                 return self._dense(x)

@@ -11,7 +11,8 @@ kernel. With `bn_fold`, bn_conv2 lives in conv2's thresholds
 statistics, the dense QAT conv2, the chain in `train_dtype`), whose
 log-probabilities feed the MNIST recipes' nll_loss. Banded
 (parallel.spatial.band_model), conv1 (VALID, not shape-preserving)
-gathers the images' bands and the forward runs whole on every rank.
+gathers the images' bands and the forward, train or eval, runs whole on
+every rank.
 """
 
 from typing import Any, Optional
@@ -95,7 +96,7 @@ class QLeNet5(nn.Module):
 
     def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
                  fold: bool) -> torch.Tensor:
-        with spatial.forward(self.space, self.training):
+        with spatial.forward(self.space):
             return self._layers(x, dt, fold)
 
     def _layers(self, x: torch.Tensor, dt: Optional[torch.dtype],

@@ -362,7 +362,10 @@ class QResNet(nn.Module):
     rank's row band of the images: the stem, its pool and every block
     whose convs band at their heights run on bands, the map is gathered
     before the first block that does not, and the global average pool
-    reduces over the group (serving only).
+    reduces over the group. In eval and train mode alike: a train
+    forward's batch statistics and solves are the whole images', and
+    its gradients flow back through the gathers, halos and average pool
+    (parallel.spatial); `remat` under 'space' raises.
 
     Builds on `device` ('cuda' by default; raises if CUDA is missing).
     """
@@ -441,13 +444,20 @@ class QResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> float32 logits (eval under torch.no_grad)."""
         if self.training:
+            if (self.remat and self.space is not None
+                    and torch.is_grad_enabled()):
+                raise ValueError(
+                    "remat under 'space' is not supported: the "
+                    'recomputation in the backward would re-issue the halo '
+                    'exchanges and statistics collectives outside the '
+                    'banded forward')
             return self._forward(x, self.train_dtype, False)
         with torch.no_grad():
             return self._forward(x, self.eval_dtype, self.bn_fold)
 
     def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
                  bn_fold: bool) -> torch.Tensor:
-        with spatial.forward(self.space, self.training):
+        with spatial.forward(self.space):
             return self._layers(x, dt, bn_fold)
 
     def _pool(self, x: torch.Tensor) -> torch.Tensor:

@@ -42,14 +42,20 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     return DeviceMesh(device_type, grid, mesh_dim_names=MESH_DIMS)
 
 
+def _has(mesh: Optional[DeviceMesh], axis: str) -> bool:
+    return mesh is not None and axis in (mesh.mesh_dim_names or ())
+
+
 def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
-    """The size of a mesh axis; 1 without a mesh."""
-    return 1 if mesh is None else mesh[axis].size()
+    """The size of a mesh axis; 1 without a mesh or where the mesh has
+    no such axis (a ('space',) mesh has one 'data' coordinate)."""
+    return mesh[axis].size() if _has(mesh, axis) else 1
 
 
 def axis_index(mesh: Optional[DeviceMesh], axis: str) -> int:
-    """This rank's coordinate along a mesh axis; 0 without a mesh."""
-    return 0 if mesh is None else mesh[axis].get_local_rank()
+    """This rank's coordinate along a mesh axis; 0 without a mesh or
+    where the mesh has no such axis."""
+    return mesh[axis].get_local_rank() if _has(mesh, axis) else 0
 
 
 def data_size(mesh: Optional[DeviceMesh]) -> int:
@@ -75,18 +81,34 @@ def model_group(mesh: Optional[DeviceMesh]
     return mesh.get_group('model')
 
 
+def all_reduce_flat(tensors: list[torch.Tensor], group: dist.ProcessGroup,
+                    divisor: int = 1) -> list[torch.Tensor]:
+    """Each tensor in place to its sum across the group's ranks over
+    `divisor`, by one all-reduce a dtype of the tensors flattened in the
+    list's order (the same on every rank); the flat tensors reduced."""
+    flats = []
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, group=group)
+        if divisor != 1:
+            flat /= divisor
+        for t, part in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(part.view_as(t))
+        flats.append(flat)
+    return flats
+
+
 class AxisGroup:
     """This rank's place along a mesh axis: the axis' process group, its
     size, this rank's index in it, and the mesh and axis. `exchange`
-    runs point-to-point ops on the group; `sent_bytes` counts what this
-    rank sent."""
+    runs point-to-point ops on the group."""
 
     def __init__(self, mesh: DeviceMesh, axis: str):
         self.mesh, self.axis = mesh, axis
         self.group = mesh.get_group(axis)
         self.size = dist.get_world_size(self.group)
         self.index = dist.get_rank(self.group)
-        self.sent_bytes = 0
 
     def __deepcopy__(self, memo: dict) -> 'AxisGroup':
         return self  # a copied model shares the process group
@@ -105,7 +127,6 @@ class AxisGroup:
         ops, bufs = [], []
         for t, peer in sends:
             t = t.contiguous()
-            self.sent_bytes += t.numel() * t.element_size()
             ops.append(dist.P2POp(dist.isend, t.cpu() if host else t,
                                   self.rank(peer), self.group))
         for like, peer in recvs:

@@ -17,10 +17,11 @@ runs one process a card under torch.distributed:
   ranks' rows one logical batch, laid out in rank order.
 * `collective_any(flag)`: a consensus across processes.
 
-Given a mesh with a 'model' axis, a process's share is indexed by its
-'data' coordinate among the 'data' axis' size, not by its rank among
-all ranks: the ranks of one 'model' group compute one batch together,
-so they read the same rows.
+Given a mesh with a 'model' or 'space' axis, a process's share is
+indexed by its 'data' coordinate among the 'data' axis' size, not by its
+rank among all ranks: the ranks of one 'model' or 'space' group compute
+one batch together, so they read the same rows; a 'space' rank then
+takes its row band of each image (parallel.spatial.local_band).
 """
 
 import logging
@@ -250,8 +251,44 @@ def shard_loader_for_host(loader: Any,
     masked eval metrics cover the FULL set exactly.
 
     mesh: index the share by the 'data' coordinate, so the ranks of one
-    'model' group get the same rows (module docstring).
+    'model' or 'space' group get the same rows, and with a 'space' axis
+    yield this rank's row band of each batch (module docstring).
     """
+    loader = _rows_for_host(loader, process_index, process_count, pad,
+                            mesh)
+    if axis_size(mesh, 'space') > 1:
+        return _BandedBatches(loader, mesh)
+    return loader
+
+
+class _BandedBatches:
+    """This rank's row band of every batch's NHWC images
+    (parallel.spatial.local_band's); targets whole."""
+
+    def __init__(self, inner: Any, mesh: Any) -> None:
+        self._inner, self._mesh = inner, mesh
+        self.num_examples = getattr(inner, 'num_examples', 0)
+
+    def __len__(self) -> int:
+        return len(self._inner)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self._inner, 'set_epoch'):
+            self._inner.set_epoch(epoch)
+
+    def __iter__(self) -> Any:
+        from quant_tpu_torch.parallel.spatial import local_band
+        for data, target in self._inner:
+            band = local_band(torch.as_tensor(data), self._mesh)
+            yield (band if isinstance(data, torch.Tensor)
+                   else band.numpy()), target
+
+
+def _rows_for_host(loader: Any, process_index: Optional[int],
+                   process_count: Optional[int], pad: bool,
+                   mesh: Any) -> Any:
+    """This process's disjoint share of the batches' rows
+    (shard_loader_for_host)."""
     from quant_tpu_torch.data.loaders import BatchIterable
     pi, pc = _share(process_index, process_count, mesh)
     if pc == 1:

@@ -12,31 +12,50 @@ not halos). JAX has two forms, and so has the port:
   differentiable exchange whose backward sends each halo row's gradient
   back to its owner, as JAX's ppermute transposes), the image's edges
   filled with the pad value, then a local conv or pool.
-* `spatial_sharding(mesh)` is how JAX serves a whole packed model: the
-  input H-banded, GSPMD partitioning every layer. The port has no
-  GSPMD, so `band_model` bands a model in place, layer by layer: the fp
-  convs, the packed convs, the stem pool and the global average pool
-  run on bands, each exchanging its own halo rows. A packed conv
-  exchanges its input's packed sign words, not the activations (a
-  pixel's words depend on that pixel alone: C/32 int32 a pixel instead
-  of C values), and runs its kernel with the band's own top padding
-  (ops.binary_infer.RowBand): the binary operand is zero-padded, a 0 a
-  packed word cannot hold, so the edges are the kernel's padding and
-  never a filled row. Where a layer's geometry does not hold on the band
-  (a stride that does not divide the band's height, a conv that is not
-  shape-preserving), the map is all-gathered over 'space' once and the
-  rest of the forward runs whole on every rank: for the ResNets at 224
-  px and P = 2 the stem, the pool and layer1-3 band and layer4 and the
-  head run whole; LeNet-5's VALID convs gather before conv1. The global
-  average pool all-reduces its band's sums; a per-batch activation solve
-  (moving_average_mode 'off') solves on the sample gathered over
-  'space', so every rank has the same scales. Serving (eval) only: a
-  banded model in train mode raises.
+* `spatial_sharding(mesh)` is how JAX runs a whole model banded, served
+  or trained: the input H-banded, GSPMD partitioning every layer and
+  its backward. The port has no GSPMD, so `band_model` bands a model in
+  place, layer by layer: the fp convs, the quantized convs, the stem
+  pool and the global average pool run on bands, each exchanging its
+  own halo rows. A packed conv exchanges its input's packed sign words,
+  not the activations (a pixel's words depend on that pixel alone: C/32
+  int32 a pixel instead of C values), and runs its kernel with the
+  band's own top padding (ops.binary_infer.RowBand): the binary operand
+  is zero-padded, a 0 a packed word cannot hold, so the edges are the
+  kernel's padding and never a filled row. Where a layer's geometry does
+  not hold on the band (a stride that does not divide the band's
+  height, a conv that is not shape-preserving), the map is all-gathered
+  over 'space' once and the rest of the forward runs whole on every
+  rank: for the ResNets at 224 px and P = 2 the stem, the pool and
+  layer1-3 band and layer4 and the head run whole; LeNet-5's VALID convs
+  gather before conv1. The global average pool all-reduces its band's
+  sums; a per-batch activation solve reads the whole sample, so every
+  rank has the same scales.
+
+Train mode (JAX's step on a `spatial_sharding`-placed batch, which GSPMD
+partitions forward and backward): a quantized conv quantizes its band
+with the whole sample's scales (solved without a gradient, as JAX's
+stop_gradient), exchanges the halo rows of the quantized operand and
+runs the dense conv with zero edges; train-mode statistics reduce over
+'space' while the forward is banded (parallel.global_stats). Each
+collective's backward is what its consumer needs, not a property of the
+collective: the statistics' all-reduce sums its gradient (each band
+holds only its rows' share of the gradient of the mean); the gather's
+backward is this rank's rows of the gradient and the average pool's
+all-reduce has the identity backward, because everything after them
+runs replicated and every rank already holds the whole gradient. A
+parameter of a module that ran on bands holds only its band's share of
+the gradient, summed over 'space' by `sum_banded_grads`; one of the
+whole section holds the whole gradient already. `band_model` records,
+each forward, which modules ran on bands. `remat` under 'space' is not
+supported (nn.resnet raises).
 
 Geometry contract (JAX's): output height H // stride ("shape-preserving
 modulo stride"); 3x3/s1/p1, 3x3/s2/p1, 1x1/s2/p0, 7x7/s2/p3, 5x5/s1/p2
 and the 3x3/s2/p1 pool hold. A group whose backend moves only host
 memory point to point (gloo) sends the rows through host copies.
+Collectives run in the same order on every rank, forward and backward:
+every rank of the group must run the same forwards.
 """
 
 import contextlib
@@ -52,7 +71,11 @@ from torch.distributed.tensor import Shard
 from quant_tpu_torch.ops.binary_infer import RowBand
 from quant_tpu_torch.ops import conv as C
 from quant_tpu_torch.ops.conv import IntOr2, _pair, conv2d, max_pool2d
-from quant_tpu_torch.parallel.mesh import AxisGroup, axis_index, axis_size
+from quant_tpu_torch.ops.quantize import _rows32, solve_scales
+from quant_tpu_torch.parallel import global_stats
+from quant_tpu_torch.parallel.mesh import (
+    AxisGroup, all_reduce_flat, axis_index, axis_size,
+)
 from quant_tpu_torch.parallel.sharding import (
     Placements, all_gather_cat, replicated,
 )
@@ -74,13 +97,30 @@ def spatial_sharding(mesh: DeviceMesh, axis: str = 'space',
 class SpatialParallel(AxisGroup):
     """This rank's place in its 'space' group (AxisGroup) and whether the
     model's current forward still runs on bands (`banded`, set by
-    `forward`); `sent_bytes` counts the halo rows this rank sent,
-    `gathered_bytes` its bands of the maps it gathered."""
+    `forward`); `collectives` counts the collectives on the group by
+    kind ('halo', 'statistics', 'solves', 'gather', 'average pool',
+    'gradient sum'), forward and backward, as [count, bytes this rank
+    contributed]. `ran_banded`
+    holds the ids of the modules that ran on bands in the model's last
+    forward (`band_model`'s hooks)."""
 
     def __init__(self, mesh: DeviceMesh, axis: str):
         super().__init__(mesh, axis)
         self.banded = False
-        self.gathered_bytes = 0
+        self.collectives: dict[str, list[int]] = {}
+        self.ran_banded: set[int] = set()
+
+    def tally(self, kind: str, t: torch.Tensor) -> None:
+        """Count one collective of `kind` moving t from this rank."""
+        rec = self.collectives.setdefault(kind, [0, 0])
+        rec[0] += 1
+        rec[1] += t.numel() * t.element_size()
+
+    def note(self, module: nn.Module, args: Any, out: Any) -> None:
+        """Forward hook: record `module` if it ran on bands (the flag
+        after its forward: a conv that gathers its input ran whole)."""
+        if self.banded:
+            self.ran_banded.add(id(module))
 
     def band(self, halo_top: int, halo_bot: int, pad: int) -> RowBand:
         """The RowBand of a conv with these halos and H pad: the image's
@@ -158,6 +198,8 @@ class _HaloExchange(torch.autograd.Function):
             recvs.append((_rows(t, 0, top), d - 1))
         if ctx.got_bottom:
             recvs.append((_rows(t, 0, bottom), d + 1))
+        for t_send, _ in sends:
+            space.tally('halo', t_send)
         got = space.exchange(sends, recvs)
         parts = got[:1] if ctx.got_top else []
         parts.append(t)
@@ -180,6 +222,8 @@ class _HaloExchange(torch.autograd.Function):
             recvs.append((_rows(gx, h - top, top), d + 1))
         if bottom and up:
             recvs.append((_rows(gx, 0, bottom), d - 1))
+        for t_send, _ in sends:
+            space.tally('halo', t_send)
         got = iter(space.exchange(sends, recvs))
         if top and down:
             _rows(gx, h - top, top).add_(next(got))
@@ -196,11 +240,32 @@ def halo_rows(t: torch.Tensor, space: SpatialParallel, top: int,
     return _HaloExchange.apply(t, space, top, bottom)
 
 
-def gather_rows(x: torch.Tensor, space: SpatialParallel) -> torch.Tensor:
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the bands along H; the backward is this rank's rows
+    of the gradient, with no collective: what follows runs replicated,
+    so every rank already holds the whole gradient (the channel gather's
+    rule, parallel.sharding._GatherChannels, on H)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, space: SpatialParallel,
+                kind: str) -> torch.Tensor:
+        ctx.space = space
+        space.tally(kind, x)
+        return all_gather_cat(x, H, space)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple:
+        space = ctx.space
+        return (grad.chunk(space.size, H)[space.index].contiguous(), None,
+                None)
+
+
+def gather_rows(x: torch.Tensor, space: SpatialParallel,
+                kind: str = 'gather') -> torch.Tensor:
     """The group's bands of x (H on dim -3) concatenated in rank order:
-    the whole map, on every rank."""
-    space.gathered_bytes += x.numel() * x.element_size()
-    return all_gather_cat(x, H, space)
+    the whole map, on every rank (tallied as `kind`). Differentiable
+    (_GatherRows)."""
+    return _GatherRows.apply(x, space, kind)
 
 
 def local_band(x: torch.Tensor, mesh: DeviceMesh, axis: str = 'space',
@@ -302,13 +367,15 @@ def halo_exchange_max_pool2d(x: torch.Tensor, *, mesh: DeviceMesh,
 
 def band_model(model: nn.Module, mesh: Optional[DeviceMesh],
                axis: str = 'space') -> nn.Module:
-    """Serve the model H-banded over `axis` (module docstring); in place,
-    returns the model. Sets `space` (a SpatialParallel) on the model and
-    on every module that bands (those with a `space` attribute: the fp
-    and packed convs, the models' pools and global average pool). A
-    forward then takes this rank's band of the input (local_band) and
-    returns the whole logits on every rank of the group. An axis of one
-    rank leaves the model as it is."""
+    """Run the model H-banded over `axis`, in eval and train mode (module
+    docstring); in place, returns the model. Sets `space` (a
+    SpatialParallel) on the model and on every module that bands (those
+    with a `space` attribute: the fp and quantized convs, the models'
+    pools and global average pool) and hooks every module that holds
+    parameters, to record whether it ran on bands. A forward then takes
+    this rank's band of the input (local_band) and returns the whole
+    logits on every rank of the group. An axis of one rank leaves the
+    model as it is."""
     space = space_parallel(mesh, axis)
     if space is None:
         return model
@@ -319,24 +386,25 @@ def band_model(model: nn.Module, mesh: Optional[DeviceMesh],
     for module in model.modules():
         if hasattr(module, 'space'):
             module.space = space
+        if any(True for _ in module.parameters(recurse=False)):
+            module.register_forward_hook(space.note)
     return model
 
 
 @contextlib.contextmanager
-def forward(space: Optional[SpatialParallel],
-            training: bool) -> Iterator[None]:
+def forward(space: Optional[SpatialParallel]) -> Iterator[None]:
     """The body of a model's forward: banded until it gathers or ends
-    where the model is banded. Raises in train mode."""
+    where the model is banded, its train-mode statistics reduced over
+    'space' meanwhile; the record of the modules that ran on bands
+    starts anew."""
     if space is None:
         yield
         return
-    if training:
-        raise ValueError(
-            'a banded model serves only (eval mode): its train-mode '
-            "statistics would need reductions over 'space'")
     space.banded = True
+    space.ran_banded = set()
     try:
-        yield
+        with global_stats.banded(space):
+            yield
     finally:
         space.banded = False
 
@@ -397,7 +465,26 @@ def solve_input(space: Optional[SpatialParallel],
     sample gathered where x is a band."""
     if space is None or not space.banded:
         return x
-    return gather_rows(x, space)
+    return gather_rows(x, space, 'solves')
+
+
+def solve_band(space: SpatialParallel, scheme: str, x: torch.Tensor,
+               skip: int, mode: str) -> Optional[torch.Tensor]:
+    """The (k, N) scales ops.quantize.solve_scales gives the whole
+    samples of which x holds this rank's band, on every rank, without a
+    gradient. ls-1's mean |x| is the band's sums all-reduced over the
+    group (N floats; its float32 rounding differs from one mean of the
+    row by a few ulps); the other schemes solve the sample gathered."""
+    if scheme == 'fp':
+        return None
+    with torch.no_grad():
+        if scheme != 'ls-1':
+            return solve_scales(scheme, solve_input(space, x), skip, mode)
+        rows = _rows32(x)
+        sums = rows.abs().sum(dim=-1)
+        space.tally('solves', sums)
+        dist.all_reduce(sums, group=space.group)
+        return (sums / (rows.shape[1] * space.size))[None, :]
 
 
 def output_band(space: SpatialParallel, y: torch.Tensor) -> torch.Tensor:
@@ -406,15 +493,55 @@ def output_band(space: SpatialParallel, y: torch.Tensor) -> torch.Tensor:
     return _rows(y, space.index * h, h).contiguous()
 
 
+class _ReplicatedSum(torch.autograd.Function):
+    """All-reduce sum whose result every rank consumes whole (the head
+    after the average pool runs replicated): the backward is the
+    identity, since each rank's gradient is already the whole one; a
+    summing backward would give P times it."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor,
+                space: SpatialParallel) -> torch.Tensor:
+        out = x.clone()
+        space.tally('average pool', out)
+        dist.all_reduce(out, group=space.group)
+        return out
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple:
+        return grad, None
+
+
+def replicated_sum(x: torch.Tensor, space: SpatialParallel) -> torch.Tensor:
+    """x summed over the group, for a replicated consumer (_ReplicatedSum)."""
+    return _ReplicatedSum.apply(x, space)
+
+
 def global_avg_pool(space: Optional[SpatialParallel],
                     x: torch.Tensor) -> torch.Tensor:
     """ops.conv.global_avg_pool of a map or of a band: a band's sums
-    all-reduced over the group, over the whole H * W. Reduced-precision
-    inputs sum in float32 and round once."""
+    all-reduced over the group (replicated_sum), over the whole H * W;
+    the rest of the forward runs whole. Reduced-precision inputs sum in
+    float32 and round once."""
     if space is None or not space.banded:
         return C.global_avg_pool(x)
     low = x.dtype in (torch.bfloat16, torch.float16)
-    sums = (x.float() if low else x).sum(dim=(1, 2))
-    dist.all_reduce(sums, group=space.group)
+    sums = replicated_sum((x.float() if low else x).sum(dim=(1, 2)), space)
+    space.banded = False
     mean = sums / (x.shape[1] * space.size * x.shape[2])
     return mean.to(x.dtype) if low else mean
+
+
+def sum_banded_grads(model: nn.Module) -> None:
+    """Sum over 'space', in place, the gradients of the parameters of the
+    modules that ran on bands in the model's last forward (each holds its
+    band's share); those of the whole section hold the whole gradient
+    already. One all-reduce a dtype, in the model's parameter order (the
+    same on every rank). A model that is not banded is left as it is."""
+    space = getattr(model, 'space', None)
+    if space is None:
+        return
+    grads = [p.grad for m in model.modules() if id(m) in space.ran_banded
+             for p in m.parameters(recurse=False) if p.grad is not None]
+    for flat in all_reduce_flat(grads, space.group):
+        space.tally('gradient sum', flat)

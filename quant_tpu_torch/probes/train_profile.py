@@ -100,12 +100,13 @@ def make_state(student: torch.nn.Module) -> T.TrainState:
 
 
 def make_step(teacher: torch.nn.Module,
-              phase_hook: Optional[Callable[[str], None]] = None
-              ) -> Callable:
-    """The KD train step against the frozen teacher in train mode."""
+              phase_hook: Optional[Callable[[str], None]] = None,
+              mesh: Any = None) -> Callable:
+    """The KD train step against the frozen teacher in train mode; over
+    `mesh` where given (make_train_step's)."""
     return T.make_train_step(functools.partial(T.kd_criterion, **KD),
                              make_teacher_apply(teacher, train_mode=True),
-                             phase_hook=phase_hook)
+                             phase_hook=phase_hook, mesh=mesh)
 
 
 def profile(config: str, batch: int, steps: int, top: int, seed: int = 0,

@@ -27,6 +27,19 @@ gradient is its own slice's, neither summed nor averaged across the
 'model' ranks, and a replicated leaf's is the same on each of them.
 Statistics and metrics reduce over 'data' alike, so the ranks of one
 'model' group hold equal metrics.
+
+Spatial parallel (a mesh with a 'space' axis, the model banded by
+parallel.spatial.band_model): the ranks of one 'space' group step on
+the same images, each on its row band (parallel.local_band; the loaders
+of parallel.multihost cut it), as JAX's step on a batch placed by
+`spatial_sharding` (GSPMD partitions it forward and backward). The
+banded forward reduces its statistics over 'space' while it runs on
+bands; the logits, the loss and the metrics are the whole images' on
+every rank. After the backward, the gradients of the modules that ran
+on bands (each rank holds its band's share) are summed over 'space'
+(parallel.spatial.sum_banded_grads), those of the whole section are
+left as they are (every rank holds the whole gradient), then all are
+averaged over 'data'. The ranks' parameters stay equal.
 """
 
 import inspect
@@ -37,7 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from quant_tpu_torch.parallel import data_group, global_stats
+from quant_tpu_torch.parallel import data_group, global_stats, spatial
+from quant_tpu_torch.parallel.mesh import all_reduce_flat, axis_size
 from quant_tpu_torch.train.metrics import (
     MetricAccumulator, init_metric_state, update_metric_state,
     update_metric_state_masked,
@@ -68,20 +82,6 @@ def _on(a: Any, device: torch.device,
     return a.to(device=device, dtype=dtype)
 
 
-def _all_reduce_mean(tensors: list[torch.Tensor],
-                     group: dist.ProcessGroup) -> None:
-    """Each tensor in place to its mean across the group's ranks (one
-    all-reduce a dtype)."""
-    n = dist.get_world_size(group)
-    for dtype in sorted({t.dtype for t in tensors}, key=str):
-        same = [t for t in tensors if t.dtype == dtype]
-        flat = torch.cat([t.reshape(-1) for t in same])
-        dist.all_reduce(flat, group=group)
-        flat /= n
-        for t, part in zip(same, flat.split([t.numel() for t in same])):
-            t.copy_(part.view_as(t))
-
-
 def _add_global(metric_state: dict, delta: dict,
                 group: dist.ProcessGroup) -> tuple[dict, torch.Tensor]:
     """(metric_state plus one batch's increments summed across the
@@ -109,12 +109,15 @@ def make_train_step(loss_fn: Callable,
         phase_hook: optional, called with 'forward', 'teacher',
             'backward', 'optimizer' and 'end' as each part of the step
             starts (and it ends), e.g. to record CUDA events.
-        mesh: optional DeviceMesh (parallel.make_mesh) whose 'data' ranks
-            step together on one logical batch, and whose 'model' ranks
-            hold a model sharded over them (module docstring); the
-            returned loss is then the global batch's.
+        mesh: optional DeviceMesh (parallel.make_mesh, or one with a
+            'space' axis) whose 'data' ranks step together on one
+            logical batch, whose 'model' ranks hold a model sharded over
+            them and whose 'space' ranks a model banded over them
+            (module docstring); the returned loss is then the global
+            batch's.
     """
     group = data_group(mesh)
+    banded = axis_size(mesh, 'space') > 1
 
     def mark(name: str) -> None:
         if phase_hook is not None:
@@ -123,6 +126,9 @@ def make_train_step(loss_fn: Callable,
     def step(state: TrainState, data: torch.Tensor, target: torch.Tensor,
              metric_state: dict) -> tuple[TrainState, dict, torch.Tensor]:
         model, optimizer = state.model.train(), state.optimizer
+        if banded and getattr(model, 'space', None) is None:
+            raise ValueError("the mesh has a 'space' axis but the model is "
+                             'not banded: parallel.band_model(model, mesh)')
         state.tx.set_lr(optimizer, state.step)
         optimizer.zero_grad(set_to_none=True)
         mark('forward')
@@ -135,10 +141,11 @@ def make_train_step(loss_fn: Callable,
                 loss = loss_fn(output, teacher_apply(data), target)
         mark('backward')
         loss.backward()
+        spatial.sum_banded_grads(model)
         if group is not None:
-            _all_reduce_mean([p.grad for g in optimizer.param_groups
-                              for p in g['params'] if p.grad is not None],
-                             group)
+            all_reduce_flat([p.grad for g in optimizer.param_groups
+                             for p in g['params'] if p.grad is not None],
+                            group, dist.get_world_size(group))
         mark('optimizer')
         optimizer.step()
         mark('end')
@@ -157,7 +164,8 @@ def make_train_step(loss_fn: Callable,
 def make_eval_step(loss_fn: Callable, mesh: Any = None) -> Callable:
     """The eval step: (state, data, target, metric_state) ->
     (metric_state, output), the model in eval mode (cached and EMA
-    scales, running statistics), nothing written.
+    scales, running statistics), nothing written. A banded model takes
+    this rank's band and gives the whole logits.
 
     When loss_fn has a `.per_sample` form (the built-in losses do), rows
     with target < 0 (padding) are left out of the metrics. With a mesh,

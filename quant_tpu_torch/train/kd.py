@@ -48,7 +48,10 @@ def make_teacher_apply(teacher: torch.nn.Module,
     statistics, as the recipes ask) and its state is put back after
     each call, as JAX throws the mutated collections away; else its eval
     forward. A teacher_dtype is the teacher's train_dtype and eval_dtype,
-    set on the model before.
+    set on the model before. A teacher banded like the student
+    (parallel.band_model over the same mesh) takes the same row band:
+    its train-mode statistics reduce over 'space', and with no gradient
+    recorded its stem pool runs the pool kernel on its band.
     """
     def apply(data: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():

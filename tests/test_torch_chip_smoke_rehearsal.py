@@ -15,7 +15,9 @@ small ring GEMM, the small XNOR ResNet served at batch 2 and a smaller
 MNIST, its world of 2 on gloo over the CPU, and the spatial and pipeline
 phases to that model (banded at 32 px; its layer1 block as both stages
 at 2 microbatches of 1 image) and their kernel checks to small bands,
-their worlds of 2 on gloo over the CPU. The oracle phase runs
+their worlds of 2 on gloo over the CPU, and the spatial train phase to
+small_config's KD pair at 64 px and batch 2 in such a world. The oracle
+phase runs
 as on the card (the oracles are small), its launch counts stood in for.
 That catches Python-level breakage of the
 script (arguments, shapes, the phases' control flow, the report's keys)
@@ -83,6 +85,14 @@ SMALL_SERVED_TP = {'xnor_conv2d': 8, 'pack_sign_planes': 8,
                    'max_pool_3x3_s2_p1': 1}
 SMALL_TP_SERVING = dict(model='small', batch=2, input=[32, 32, 3],
                         classes=10, per_forward=SMALL_SERVED_TP)
+
+
+# The spatial train phase's pair narrowed to small_config's ResNets at
+# 64 px (every block bands over 2 ranks, the controls' input too), batch
+# 2, one warm-up step and one timed step, 4 images evaluated.
+SMALL_SPACE_TRAIN = dict(model='small', batch=2, input=[64, 64, 3],
+                         control_input=[64, 64, 3], classes=10, warmup=1,
+                         steps=1, eval_images=4)
 
 
 # The experiment phase's ImageNet recipes narrowed to small_config's
@@ -210,6 +220,7 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'BAND_PLANES', (64, 8, 1))
     monkeypatch.setattr(chip_smoke, 'BAND_POOL_SHAPE', (2, 8, 8, 64))
     monkeypatch.setattr(chip_smoke, 'BAND_CHECK_BATCH', 2)
+    monkeypatch.setattr(chip_smoke, 'SPACE_TRAIN', SMALL_SPACE_TRAIN)
     # On the CPU the MNIST recipe's 4 TP steps move its test loss by
     # 4.4e-3 from tp = 1 (tied max-pool windows after the binary conv2
     # break the other way under another float order), the card's 3.8e-4:
@@ -264,6 +275,8 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
                                        if on_main else 0)
         assert k['pipe_launches'] == (
             4 if k['name'] in ('xnor_conv2d', 'pack_sign_planes') else 0)
+        assert k['space_train_launches'] == (
+            1 if k['name'] == 'max_pool_3x3_s2_p1' else 0)
     assert headline['xnor_conv2d_planes'] == 8
     # One multi-plane row for each phase that launches the kernel, with
     # the registers and blocks an SM of the instance it takes; a library
@@ -422,6 +435,36 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
         assert t['band_pad_top'] == [1, 0] and len(t['bands']) == 2, kname
     checks = space['band_checks']
     assert checks.pop('control_differ') > 0 and set(checks.values()) == {0.0}
+    st = report['spatial_train']
+    assert [json.loads(ln)['spatial_train_phase'] for ln in lines
+            if ln.startswith('{"spatial_train_phase"')] == [st]
+    assert set(st['gates']) == {*chip_smoke.SPACE_STEP_CASES,
+                                'control_input'}
+    for recs in st['gates'].values():
+        for rec in recs:
+            # On the CPU a band's other float32 order stays within the
+            # 1e-5 that tests/test_torch_port_spatial_train.py holds; the
+            # card's gate is SPACE_STEP_GRAD_TOL.
+            assert rec['grad_rel_err'] <= 1e-5
+            assert chip_smoke._space_gate_ok(rec)
+            # cuDNN off changes nothing on the CPU: no floor.
+            assert rec['floor_grad_rel_err'] == 0.0
+    assert set(st['controls']) == set(chip_smoke.SPACE_CONTROLS)
+    assert min(st['controls'].values()) > chip_smoke.SPACE_CONTROL_MIN_DIFF
+    kd = st['kd']
+    assert len(kd['losses']) == 2 and max(kd['loss_rel_err']) < 1e-5
+    assert kd['captured'] == {'max_pool_3x3_s2_p1': 0.0}
+    assert kd['calls'] == [{'max_pool_3x3_s2_p1 pad_top=1': 1},
+                           {'max_pool_3x3_s2_p1 pad_top=0': 1}]
+    assert len(kd['flips'][0]) == 8
+    for kinds in kd['collectives']:
+        assert {'halo', 'statistics', 'solves', 'average pool',
+                'gradient sum'} <= set(kinds)
+    assert set(kd['split_ms'][0]) == {'forward', 'teacher', 'backward',
+                                      'optimizer'}
+    assert st['evaluate']['max_abs_err'] <= chip_smoke.TP_F32_TOL['atol']
+    assert st['evaluate']['metrics']['Loss'] == pytest.approx(
+        st['evaluate']['whole_metrics']['Loss'], rel=1e-6)
     pipe = report['pipeline']
     assert [json.loads(ln)['pipeline_phase'] for ln in lines
             if ln.startswith('{"pipeline_phase"')] == [pipe]

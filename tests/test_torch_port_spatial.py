@@ -24,6 +24,8 @@ on the virtual CPU devices of tests/conftest.py. Cases:
 * JAX's LeNet-5 engine case (tests/serving/test_spatial_serving.py)
   through the banded InferenceEngine, predict and queued, and its
   input_sharding check.
+
+Training under 'space': tests/test_torch_port_spatial_train.py.
 """
 
 import copy
@@ -485,9 +487,3 @@ def test_engine_refuses_input_sharding_without_a_banded_model():
         InferenceEngine(_lenet(), (28, 28, 1), device='cpu',
                         input_sharding=('Shard(1)',))
 
-
-def test_a_banded_model_does_not_train():
-    from quant_tpu_torch.parallel.spatial import forward
-    with pytest.raises(ValueError, match='eval'):
-        with forward(object(), training=True):
-            pass
