@@ -163,8 +163,14 @@ the chip-probe path:
    peak memory a rank, the stem pool's calls on bands held to their twin
    (one launch a step), evaluate against the unsharded state, and the
    trained state packed and served banded against unsharded (16 + 16 +
-   1 launches, every kernel call held to its twin); one JSON line
-   {"spatial_train_phase": ...};
+   1 launches, every kernel call held to its twin); then remat under
+   'space' (SPACE_REMAT_CONFIG's comment): the flagship TPU recipe
+   ls2_ls1_kd_tpu banded with remat on and off, equal bit for bit at
+   every step on both ranks, with ms, peak memory and the
+   recomputation's collectives beside one process's, its state served
+   banded on the int8 route (16 + 16 multi-plane launches, every call
+   equal to its twin), the float-activation gate with remat and the
+   remat_unbanded control; one JSON line {"spatial_train_phase": ...};
 15. runs the probe path (the kernel probes, the cuBLAS bf16 and int8
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
@@ -711,10 +717,44 @@ SPACE_TRAIN = dict(model='resnet18', batch=32, input=[224, 224, 3],
 SPACE_STEP_CASES = {'xnor_resnet18_fp_ls1': ('fp', 'ls-1')}
 SPACE_STEP_LOSS_RTOL = 2e-5
 SPACE_STEP_GRAD_TOL = 2e-4
-SPACE_CONTROLS = ('summing_avg_pool', 'no_space_sum', 'local_statistics')
+SPACE_CONTROLS = ('summing_avg_pool', 'no_space_sum', 'local_statistics',
+                  'remat_unbanded')
+# A control's student options beside the case's: remat_unbanded needs a
+# recomputation to take the banded state from.
+SPACE_CONTROL_OPTIONS = {'remat_unbanded': {'remat': True}}
 SPACE_CONTROL_MIN_DIFF = 1e-3
 SPACE_KD_CONFIG = 'ls1_kd'
 SPACE_KD_LOSS_RTOL = 2e-2
+# Remat under 'space', parts (d)-(g) of the spatial train phase. (d)
+# train_profile's SPACE_REMAT_CONFIG (the flagship TPU recipe: ls-2
+# activations with lloyd solves, ls-1 weights, bf16 train_dtype, remat,
+# the bf16 teacher, Adam under linear_lr) banded over SPACE_WORLD ranks
+# from one seeded state and batch, with remat on and off in
+# SPACE_REMAT_ROUNDS, SPACE_TRAIN['warmup'] + ['steps'] steps each, the
+# student also built with SPACE_REMAT_OPTIONS (the serving route, which
+# training does not read): on each rank the loss, a sha256 of every gradient and one of
+# the new variables equal bit for bit, remat on against off, at every
+# step, and the ranks' variables equal after every step; ms a step, its
+# split, peak memory, the collectives a step by kind (the recomputation's
+# apart) and the stem pool's launches (one a step, the teacher's, every
+# call of the last step equal to its twin), beside one process's run of
+# each alone on the card (rank 0, the other rank waiting). (e) The state
+# (d) trained with remat, packed and served banded on the int8 route
+# against the same state served unsharded: SPACE_REMAT_SERVE launches a
+# forward a rank, the producer at k = 2, every call equal to its twin,
+# the float32 logits within TP_F32_TOL, bf16 within TP_BF16_REL_TOL of
+# the spread. (f) Each SPACE_STEP_CASES student with remat, banded,
+# under (a)'s gate against one process's remat step. (g) The
+# remat_unbanded control among SPACE_CONTROLS, at control_input.
+SPACE_REMAT_CONFIG = 'ls2_ls1_kd_tpu'
+# Remat on, off, off, on: a drift of the shared host's speed cancels in
+# each setting's mean (two processes on one card are host-bound); the
+# first round of each is the one recorded and compared bit for bit, the
+# last one's state is served.
+SPACE_REMAT_ROUNDS = ('on', 'off', 'off', 'on')
+SPACE_REMAT_OPTIONS = {'sign_compute': 'int8'}
+SPACE_REMAT_SERVE = {'xnor_conv2d_planes': 16, 'pack_sign_planes': 16,
+                     'max_pool_3x3_s2_p1': 1}
 
 
 def card_line() -> str:
@@ -3920,9 +3960,12 @@ def band_captured(calls: list) -> dict:
         errs[name] = max(errs.get(name, 0.0), check_equal(
             f'{name} banded call {i}', kernel(*args, **kw),
             plain(*args, **kw), nan_ok=name == 'max_pool_3x3_s2_p1'))
-        top = kw.get('pad_top', args[1] if name == 'max_pool_3x3_s2_p1'
-                     and len(args) > 1 else None)
-        key = f'{name} pad_top={top}'
+        if name == 'pack_sign_planes':
+            key = f'{name} k={args[1]}'
+        else:
+            top = kw.get('pad_top', args[1] if name == 'max_pool_3x3_s2_p1'
+                         and len(args) > 1 else None)
+            key = f'{name} pad_top={top}'
         calls_by[key] = calls_by.get(key, 0) + 1
     _sync()
     return dict(errs=errs, calls=calls_by)
@@ -4092,12 +4135,30 @@ def _pipe_step(mesh: Any, spec: dict) -> dict:
 
 
 @contextlib.contextmanager
+def _bands_only(space: Any, banded: bool) -> Iterator[None]:
+    """spatial.recompute without global_stats.banded: the recomputation
+    exchanges its halos (without them a halo conv's saved input changes
+    shape and torch's checkpoint raises CheckpointError) and solves on the
+    whole sample, but its statistics are its band's."""
+    if space is None:
+        yield
+        return
+    saved, space.banded = space.banded, banded
+    try:
+        yield
+    finally:
+        space.banded = saved
+
+
+@contextlib.contextmanager
 def space_control(name: str) -> Iterator[None]:
     """One of SPACE_CONTROLS in place of the port's rule inside: a
     summing backward at the average pool (the statistics' all-reduce; the
     head after the pool runs replicated, so it gives P times the
-    gradient), no 'space' sum of the banded parameters' gradients, or
-    band-local train statistics."""
+    gradient), no 'space' sum of the banded parameters' gradients,
+    band-local train statistics, or a remat block recomputed in the
+    backward on its bands but without the statistics' 'space' state
+    (`_bands_only`: band-local statistics in the recomputation alone)."""
     from quant_tpu_torch.parallel import global_stats, spatial
 
     slots = {'summing_avg_pool': (spatial, 'replicated_sum', lambda x, sp: (
@@ -4105,7 +4166,8 @@ def space_control(name: str) -> Iterator[None]:
              'no_space_sum': (spatial, 'sum_banded_grads',
                               lambda model: None),
              'local_statistics': (global_stats, 'banded',
-                                  lambda space: contextlib.nullcontext())}
+                                  lambda space: contextlib.nullcontext()),
+             'remat_unbanded': (spatial, 'recompute', _bands_only)}
     module, attr, value = slots[name]
     saved = getattr(module, attr)
     setattr(module, attr, value)
@@ -4115,11 +4177,15 @@ def space_control(name: str) -> Iterator[None]:
         setattr(module, attr, saved)
 
 
-def _space_train_models(spec: dict, x_quant: str, w_quant: str
+def _space_train_models(spec: dict, x_quant: str, w_quant: str,
+                        options: Optional[dict] = None,
+                        teacher_dtype: Optional[str] = None
                         ) -> tuple[torch.nn.Module, torch.nn.Module]:
     """(student, teacher) of the spatial train phase on the card, seeded
     as train_profile.build seeds them: SPACE_TRAIN's ResNet-18 pair, or
-    ('small') small_config's (the CPU rehearsal's)."""
+    ('small') small_config's (the CPU rehearsal's); the student built with
+    `options` (a train_profile.CONFIGS entry's, e.g. remat), the teacher
+    in `teacher_dtype`."""
     if spec['train']['model'] == 'resnet18':
         make, teacher_make = models.bench_resnet18, models.imagenet_teacher
     else:
@@ -4133,9 +4199,11 @@ def _space_train_models(spec: dict, x_quant: str, w_quant: str
     opts = dict(prepare=False, moving_average_mode='off',
                 inference_mode='dense')
     student = models.seeded_model(make, x_quant, w_quant, 'cpu',
-                                  spec['seed'], **opts)
+                                  spec['seed'], **opts, **(options or {}))
+    dt = (dict(train_dtype=teacher_dtype, eval_dtype=teacher_dtype)
+          if teacher_dtype else {})
     teacher = models.seeded_model(teacher_make, 'fp', 'fp', 'cpu',
-                                  spec['seed'] + 1000, **opts)
+                                  spec['seed'] + 1000, **opts, **dt)
     return student.to(DEVICE), teacher.to(DEVICE)
 
 
@@ -4150,34 +4218,47 @@ def _space_train_data(spec: dict, n: int, seed: int,
         0, cfg['classes'], n)))
 
 
-def _digest(model: torch.nn.Module) -> str:
-    """A hash of the model's parameters and buffers, bit for bit."""
+def _sha256(tensors: Iterator[torch.Tensor]) -> str:
+    """A hash of the tensors, bit for bit (bf16 read as its bytes)."""
     import hashlib
 
     h = hashlib.sha256()
-    for t in (*model.parameters(), *model.buffers()):
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy())
     return h.hexdigest()
+
+
+def _digest(model: torch.nn.Module) -> str:
+    """A hash of the model's parameters and buffers, bit for bit."""
+    return _sha256(iter((*model.parameters(), *model.buffers())))
+
+
+def _grad_digest(model: torch.nn.Module) -> str:
+    """A hash of every parameter's gradient, bit for bit."""
+    return _sha256(p.grad for p in model.parameters() if p.grad is not None)
 
 
 def _space_run(spec: dict, x_quant: str, w_quant: str, mesh: Any,
                steps: int, timed: int = 0, signs: bool = False,
-               shape: Optional[list] = None) -> dict:
-    """`steps` KD steps of the (x_quant, w_quant) student and its teacher
-    on the seeded batch (of images of `shape`, SPACE_TRAIN's by default),
-    banded over `mesh` (this rank's band) or in one process (mesh None):
-    the losses, the first step's gradients, a digest
-    of the student after each step, with `signs` each binary conv's input
-    signs at the first step (this rank's rows), and over the last `timed`
-    steps ms a step and its split, launches, collectives and peak
-    memory; banded, the stem pool calls of the last step held to their
-    twins."""
+               shape: Optional[list] = None, options: Optional[dict] = None,
+               teacher_dtype: Optional[str] = None) -> dict:
+    """`steps` KD steps of the (x_quant, w_quant) student (built with
+    `options`) and its teacher (in `teacher_dtype`) on the seeded batch
+    (of images of `shape`, SPACE_TRAIN's by default), banded over `mesh`
+    (this rank's band) or in one process (mesh None): the losses, the
+    first step's gradients, digests of every gradient and of the student
+    after each step, with `signs` each binary conv's input signs at the
+    first step (this rank's rows), and over the last `timed` steps ms a
+    step and its split, launches, collectives (those of remat's
+    recomputation apart) and peak memory; banded, the stem pool calls of
+    the last step held to their twins."""
     from quant_tpu_torch import _build
     from quant_tpu_torch.nn.layers import QuantConv2d
     from quant_tpu_torch.parallel import band_model, local_band
     from quant_tpu_torch.train.metrics import init_metric_state
 
-    student, teacher = _space_train_models(spec, x_quant, w_quant)
+    student, teacher = _space_train_models(spec, x_quant, w_quant, options,
+                                           teacher_dtype)
     if mesh is not None:
         band_model(student, mesh)
         band_model(teacher, mesh)
@@ -4201,13 +4282,14 @@ def _space_run(spec: dict, x_quant: str, w_quant: str, mesh: Any,
              for name, m in student.named_modules()
              if signs and isinstance(m, QuantConv2d)]
     spaces = [m.space for m in (student, teacher) if m.space is not None]
-    out: dict = dict(losses=[], digests=[])
+    out: dict = dict(losses=[], digests=[], grad_digests=[])
     calls: list = []
     for i in range(steps):
         if i == steps - timed:
             _sync()
             marks.clear()
-            before = [copy.deepcopy(sp.collectives) for sp in spaces]
+            before = [copy.deepcopy((sp.collectives, sp.recomputed))
+                      for sp in spaces]
             if DEVICE == 'cuda':
                 torch.cuda.reset_peak_memory_stats()
             _build.reset_launch_counts()
@@ -4220,6 +4302,7 @@ def _space_run(spec: dict, x_quant: str, w_quant: str, mesh: Any,
             calls = c
         out['losses'].append(float(loss))
         out['digests'].append(_digest(student))
+        out['grad_digests'].append(_grad_digest(student))
         if i == 0:
             for h in hooks:
                 h.remove()
@@ -4240,15 +4323,16 @@ def _space_run(spec: dict, x_quant: str, w_quant: str, mesh: Any,
         ends = [ev for part, ev in marks if part == 'end']
         out.update(ms_per_step=sum(a.elapsed_time(b) for a, b in zip(
             starts, ends)) / timed, split_ms=split)
-        kinds: dict = {}
-        for sp, was in zip(spaces, before):
-            for kind, (n, nbytes) in sp.collectives.items():
-                n0, b0 = was.get(kind, (0, 0))
-                rec = kinds.setdefault(kind, [0, 0])
-                rec[0] += (n - n0) / timed
-                rec[1] += (nbytes - b0) / timed
-        out['collectives'] = {k: dict(count=v[0], bytes=v[1])
-                              for k, v in kinds.items()}
+        for i, key in enumerate(('collectives', 'recomputed')):
+            kinds: dict = {}
+            for sp, was in zip(spaces, before):
+                for kind, (n, nbytes) in getattr(sp, key).items():
+                    n0, b0 = was[i].get(kind, (0, 0))
+                    rec = kinds.setdefault(kind, [0, 0])
+                    rec[0] += (n - n0) / timed
+                    rec[1] += (nbytes - b0) / timed
+            out[key] = {k: dict(count=v[0], bytes=v[1])
+                        for k, v in kinds.items()}
     if calls:
         with torch.inference_mode():
             out['captured'] = band_captured(calls)
@@ -4311,20 +4395,23 @@ def _space_evaluate(spec: dict, model: torch.nn.Module, mesh: Any,
 
 
 def _space_gate(spec: dict, x_quant: str, w_quant: str, mesh: Any,
-                shape: Optional[list] = None) -> tuple[dict, dict]:
-    """One banded step against one process's (_space_errs), with the
-    float32 floor recorded beside it: one process's step with cuDNN off
-    against the same with cuDNN on (`floor_grad_rel_err`, another
-    summation order of the same step). Also returns the one-process
-    run."""
-    single = _space_run(spec, x_quant, w_quant, None, 1, shape=shape)
+                shape: Optional[list] = None,
+                options: Optional[dict] = None) -> tuple[dict, dict]:
+    """One banded step against one process's (_space_errs), the student
+    built with `options` on both sides, with the float32 floor recorded
+    beside it: one process's step with cuDNN off against the same with
+    cuDNN on (`floor_grad_rel_err`, another summation order of the same
+    step). Also returns the one-process run."""
+    single = _space_run(spec, x_quant, w_quant, None, 1, shape=shape,
+                        options=options)
     rec = _space_errs(_space_run(spec, x_quant, w_quant, mesh, 1,
-                                 shape=shape), single)
+                                 shape=shape, options=options), single)
     enabled = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
     try:
         floor = _space_errs(_space_run(spec, x_quant, w_quant, None, 1,
-                                       shape=shape), single)
+                                       shape=shape, options=options),
+                            single)
     finally:
         torch.backends.cudnn.enabled = enabled
     rec.update(floor_grad_rel_err=floor['grad_rel_err'],
@@ -4341,17 +4428,19 @@ def _space_gate_ok(rec: dict) -> bool:
 
 
 def _space_serve_trained(spec: dict, model: torch.nn.Module, mesh: Any,
-                         x_quant: str, w_quant: str) -> dict:
+                         x_quant: str, w_quant: str,
+                         options: Optional[dict] = None) -> dict:
     """The state trained banded, packed (prepare_for_serving: export;
     per-batch scales rule out the threshold fold; strip) and served
-    banded through the engine, against a copy of the same state packed
-    and served unsharded: one forward's launches and every kernel call of
-    it held to its twin on its band, then the engine's float32 and bf16
-    logits (the leader's) beside the unsharded engine's."""
+    banded through the engine, against a copy of the same state (a
+    student built with `options`) packed and served unsharded: one
+    forward's launches and every kernel call of it held to its twin on
+    its band, then the engine's float32 and bf16 logits (the leader's)
+    beside the unsharded engine's."""
     from quant_tpu_torch import _build
     from quant_tpu_torch.parallel import local_band
 
-    plain, _ = _space_train_models(spec, x_quant, w_quant)
+    plain, _ = _space_train_models(spec, x_quant, w_quant, options)
     plain.load_state_dict(model.state_dict())
     for m in (model, plain):
         m.eval()
@@ -4390,12 +4479,15 @@ def _space_train(mesh: Any, spec: dict) -> dict:
     cases = spec['step_cases']
     for case, (xq, wq) in cases.items():
         out['gates'][case] = _space_gate(spec, xq, wq, mesh)[0]
+        out['gates'][f'{case} remat'] = _space_gate(
+            spec, xq, wq, mesh, options={'remat': True})[0]
     control_case, shape = cases[next(iter(cases))], cfg['control_input']
     out['controls']['none'], single = _space_gate(spec, *control_case, mesh,
                                                   shape)
     for name in spec['controls']:
         with space_control(name):
-            got = _space_run(spec, *control_case, mesh, 1, shape=shape)
+            got = _space_run(spec, *control_case, mesh, 1, shape=shape,
+                             options=SPACE_CONTROL_OPTIONS.get(name))
         out['controls'][name] = _space_errs(got, single)['grad_rel_err']
     del single, got
     _, xq, wq, _, _ = train_profile.CONFIGS[spec['kd_config']]
@@ -4425,6 +4517,52 @@ def _space_train(mesh: Any, spec: dict) -> dict:
     del single, banded
     out['evaluate'] = _space_evaluate(spec, model, mesh, xq, wq)
     out['serve'] = _space_serve_trained(spec, model, mesh, xq, wq)
+    del model
+    out['remat'] = _space_remat(mesh, spec)
+    return out
+
+
+_REMAT_KEYS = ('losses', 'digests', 'grad_digests', 'ms_per_step',
+               'split_ms', 'max_memory_allocated', 'launches',
+               'collectives', 'recomputed')
+
+
+def _space_remat(mesh: Any, spec: dict) -> dict:
+    """Parts (d) and (e) of the spatial train phase on this rank
+    (SPACE_REMAT_CONFIG's comment): the config banded in SPACE_REMAT_ROUNDS
+    with remat on or off, each round after one process's run on rank 0;
+    the first of each records the steps, the rounds their times; the
+    state the last round trained served banded."""
+    cfg = spec['train']
+    _, xq, wq, options, teacher_dtype = train_profile.CONFIGS[
+        spec['remat_config']]
+    steps = cfg['warmup'] + cfg['steps']
+    out: dict = dict(config=spec['remat_config'], single={}, rounds=[])
+    for key in spec['remat_rounds']:
+        opts = dict(options, remat=key == 'on', **spec['remat_options'])
+        times = dict(remat=key)
+        if mesh.get_local_rank() == 0:
+            run = _space_run(spec, xq, wq, None, steps, cfg['steps'],
+                             options=opts, teacher_dtype=teacher_dtype)
+            out['single'].setdefault(key, {k: run[k] for k in _REMAT_KEYS})
+            times.update(single_ms_per_step=run['ms_per_step'],
+                         single_split_ms=run['split_ms'])
+            del run
+        torch.distributed.barrier(group=mesh.get_group())
+        run = _space_run(spec, xq, wq, mesh, steps, cfg['steps'],
+                         options=opts, teacher_dtype=teacher_dtype)
+        times.update(ms_per_step=run['ms_per_step'], split_ms=run['split_ms'])
+        out['rounds'].append(times)
+        if key not in out:
+            out[key] = {k: run[k] for k in _REMAT_KEYS}
+            out[key]['captured'] = run['captured']
+        model = run.pop('model')
+        del run
+        if len(out['rounds']) < len(spec['remat_rounds']):
+            del model
+    out['equal'] = {k: out['on'][k] == out['off'][k]
+                    for k in ('losses', 'grad_digests', 'digests')}
+    out['serve'] = _space_serve_trained(spec, model, mesh, xq, wq, opts)
     return out
 
 
@@ -4599,7 +4737,10 @@ def spatial_train_phase(seed: int) -> dict:
         ranks = _par_workers(root, seed, 'space_train', train=SPACE_TRAIN,
                              step_cases=SPACE_STEP_CASES,
                              controls=SPACE_CONTROLS,
-                             kd_config=SPACE_KD_CONFIG)
+                             kd_config=SPACE_KD_CONFIG,
+                             remat_config=SPACE_REMAT_CONFIG,
+                             remat_options=SPACE_REMAT_OPTIONS,
+                             remat_rounds=SPACE_REMAT_ROUNDS)
     cfg = SPACE_TRAIN
     out: dict = dict(world=SPACE_WORLD, backend='gloo', mesh=['space'],
                      train=cfg, cudnn='deterministic',
@@ -4608,7 +4749,7 @@ def spatial_train_phase(seed: int) -> dict:
                               control_min=SPACE_CONTROL_MIN_DIFF,
                               kd_loss_rel=SPACE_KD_LOSS_RTOL))
     out['gates'] = {case: [r['gates'][case] for r in ranks]
-                    for case in SPACE_STEP_CASES}
+                    for case in ranks[0]['gates']}
     out['gates']['control_input'] = [r['controls'].pop('none')
                                      for r in ranks]
     for case, recs in out['gates'].items():
@@ -4660,31 +4801,101 @@ def spatial_train_phase(seed: int) -> dict:
         whole_metrics=ev[0]['whole']['metrics'],
         launches=[e['banded']['launches'] for e in ev])
     serve = [r['serve'] for r in ranks]
+    out['serve'] = dict(
+        batch=cfg['batch'], **_served_gates(serve, 'the state trained banded'),
+        per_forward=[_tp_launches(r['launches'], 1,
+                                  TP_SERVING['per_forward']) for r in serve])
+    out['remat'] = _space_remat_gates([r['remat'] for r in ranks])
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'spatial_train_phase': out}), flush=True)
+    return out
+
+
+def _served_gates(serve: list, what: str) -> dict:
+    """The served logits of the leader (serve[0]) against the unsharded
+    engine's (float32 within TP_F32_TOL, bf16 within TP_BF16_REL_TOL of
+    the spread) and every rank's kernel calls held to their twins."""
     lead = serve[0]
     np.testing.assert_allclose(lead['f32']['logits'], lead['f32']['want'],
-                               **TP_F32_TOL, err_msg='the state trained '
-                               'banded, served banded vs whole (float32)')
+                               **TP_F32_TOL, err_msg=f'{what}, served '
+                               'banded vs whole (float32)')
     bf16, want16 = lead['bf16']['logits'], lead['bf16']['want']
     spread = float(want16.max() - want16.min())
     bf16_err = _max_err(bf16, want16)
     if not (np.isfinite(bf16).all() and bf16_err <= TP_BF16_REL_TOL * spread):
-        raise AssertionError(f'the state trained banded, served banded vs '
-                             f'whole (bf16): {bf16_err} of {spread}')
+        raise AssertionError(f'{what}, served banded vs whole (bf16): '
+                             f'{bf16_err} of {spread}')
     served: dict = {}
     for r in serve:
         for kname, err in r['captured']['errs'].items():
             served[kname] = max(served.get(kname, 0.0), err)
-    out['serve'] = dict(
-        batch=cfg['batch'], captured=served,
-        calls=[r['captured']['calls'] for r in serve],
-        per_forward=[_tp_launches(r['launches'], 1,
-                                  TP_SERVING['per_forward']) for r in serve],
+    return dict(
+        captured=served, calls=[r['captured']['calls'] for r in serve],
         f32_max_abs_err=_max_err(lead['f32']['logits'], lead['f32']['want']),
         bf16_max_abs_err=bf16_err, bf16_spread=spread,
         engine_ms={'banded': lead['bf16']['engine_ms'],
                    'whole': lead['bf16']['whole_engine_ms']})
-    out['s'] = time.perf_counter() - t0
-    print(json.dumps({'spatial_train_phase': out}), flush=True)
+
+
+def _space_remat_gates(rem: list) -> dict:
+    """The gates of parts (d) and (e) over the ranks' records
+    (SPACE_REMAT_CONFIG's comment); the phase's remat record."""
+    steps = SPACE_TRAIN['steps']
+    for rank, r in enumerate(rem):
+        if not all(r['equal'].values()):
+            raise AssertionError(f'remat on vs off, rank {rank}: '
+                                 f'{r["equal"]}')
+        if not np.isfinite(r['on']['losses']).all():
+            raise AssertionError(f'remat losses {r["on"]["losses"]}')
+    for key in ('on', 'off'):
+        if any(r[key]['digests'] != rem[0][key]['digests'] for r in rem):
+            raise AssertionError(f'remat {key}: the ranks\' variables '
+                                 'differ after a step')
+    counts = [{k: v['count'] for k, v in r['on']['recomputed'].items()}
+              for r in rem]
+    if any(c != counts[0] for c in counts) or not counts[0]:
+        raise AssertionError(f'the recomputation\'s collectives differ '
+                             f'between ranks: {counts}')
+    captured: dict = {}
+    for r in rem:
+        for key in ('on', 'off'):
+            for kname, err in r[key]['captured']['errs'].items():
+                captured[kname] = max(captured.get(kname, 0.0), err)
+    serve = [r['serve'] for r in rem]
+
+    def mean_ms(rounds: list, key: str, part: str) -> float:
+        return float(np.mean([t[part] for t in rounds if t['remat'] == key]))
+    out = dict(
+        config=SPACE_REMAT_CONFIG, options=SPACE_REMAT_OPTIONS,
+        equal=[r['equal'] for r in rem], losses=rem[0]['on']['losses'],
+        single_losses={k: v['losses'] for k, v in rem[0]['single'].items()},
+        per_step={key: [_tp_launches(r[key]['launches'], steps,
+                                     {'max_pool_3x3_s2_p1': 1})
+                        for r in rem] for key in ('on', 'off')},
+        captured=captured,
+        calls=[r['on']['captured']['calls'] for r in rem],
+        ms_per_step={key: [mean_ms(r['rounds'], key, 'ms_per_step')
+                           for r in rem] for key in ('on', 'off')},
+        single_ms_per_step={key: mean_ms(rem[0]['rounds'], key,
+                                         'single_ms_per_step')
+                            for key in ('on', 'off')},
+        rounds=[r['rounds'] for r in rem],
+        **{part: {key: [r[key][part] for r in rem] for key in ('on', 'off')}
+           for part in ('max_memory_allocated', 'collectives', 'recomputed')},
+        single_max_memory_allocated={
+            key: rem[0]['single'][key]['max_memory_allocated']
+            for key in ('on', 'off')})
+    served = _served_gates(serve, f'the state trained with remat '
+                           f'({SPACE_REMAT_CONFIG})')
+    served['per_forward'] = [_tp_launches(r['launches'], 1,
+                                          SPACE_REMAT_SERVE) for r in serve]
+    for rank, calls in enumerate(served['calls']):
+        top = 1 if rank == 0 else 0
+        if not (calls.get(f'xnor_conv2d_planes pad_top={top}')
+                and calls.get('pack_sign_planes k=2')):
+            raise AssertionError(f'rank {rank} served no multi-plane call '
+                                 f'on its band at k = 2: {calls}')
+    out['serve'] = served
     return out
 
 
@@ -4907,7 +5118,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     space_train = spatial_train_phase(args.seed)
     print(f'spatial train phase: {space_train["s"]:.1f} s', flush=True)
     for captured in (space_train['kd']['captured'],
-                     space_train['serve']['captured']):
+                     space_train['serve']['captured'],
+                     space_train['remat']['captured'],
+                     space_train['remat']['serve']['captured']):
         for kname, err in captured.items():
             errs[kname] = max(errs[kname], err)
     for kname, err in space['captured'].items():
@@ -4919,8 +5132,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     space_launches = space['per_forward'][0]
     pipe_launches = {k: v * PIPE_MICROBATCHES
                      for k, v in pipe['per_microbatch'][0].items()}
-    # A rank's launches a banded train step (the frozen teacher's pool).
+    # A rank's launches a banded train step (the frozen teacher's pool),
+    # and a served banded forward of the state trained with remat.
     space_train_launches = space_train['kd']['per_step'][0]
+    space_remat_launches = space_train['remat']['serve']['per_forward'][0]
 
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
@@ -4953,6 +5168,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                     space_launches=space_launches.get(r['name'], 0),
                     pipe_launches=pipe_launches.get(r['name'], 0),
                     space_train_launches=space_train_launches.get(
+                        r['name'], 0),
+                    space_remat_launches=space_remat_launches.get(
                         r['name'], 0),
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],

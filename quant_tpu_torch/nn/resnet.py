@@ -14,11 +14,12 @@ convs), with the chain in `train_dtype` and, with `remat`, each block
 recomputed in the backward pass.
 """
 
+import contextlib
 from typing import Any, Iterator, Optional, Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from quant_tpu_torch.device import DeviceLike, resolve_device
 from quant_tpu_torch.nn.layers import (
@@ -299,12 +300,18 @@ def remat_block(block: nn.Module, x: torch.Tensor,
     them. The recomputation starts from the state the forward saw and
     leaves the state the forward wrote (BN statistics, w_vs, EMA are
     written once, and 'train_and_eval' re-blends from the same EMA).
-    The recomputation also reduces its statistics over the group the
-    forward reduced them over (parallel.global_stats), whenever the
-    backward runs: under a data-parallel step every rank recomputes the
-    same blocks in the same order, so the collectives line up."""
+    The recomputation also runs under the contexts the forward ran
+    under, whenever the backward runs: its statistics reduce over the
+    same 'data' group (parallel.global_stats), and in a banded forward it
+    runs on the same bands (parallel.spatial.recompute: halos, statistics
+    and solves over 'space'). Every rank recomputes the same blocks in
+    the same order, so the collectives line up; in a banded model each
+    block is recomputed whole (no early stop), so every rank re-issues
+    all of its collectives whatever tensors autograd saved."""
     before = [(b, b.clone()) for b in block.buffers()]
     group = global_stats.current()
+    space = global_stats.current_space()
+    banded = space is not None and space.banded
     ran = []
 
     def run(inp: torch.Tensor) -> torch.Tensor:
@@ -312,12 +319,16 @@ def remat_block(block: nn.Module, x: torch.Tensor,
             ran.append(True)
             return block(inp, dtype)
         with state_unchanged(block), global_stats.over(group):
-            with torch.no_grad():
-                for b, value in before:
-                    b.copy_(value)
-            return block(inp, dtype)
+            with spatial.recompute(space, banded):
+                with torch.no_grad():
+                    for b, value in before:
+                        b.copy_(value)
+                return block(inp, dtype)
 
-    return checkpoint(run, x, use_reentrant=False)
+    whole = (contextlib.nullcontext() if space is None
+             else set_checkpoint_early_stop(False))
+    with whole:
+        return checkpoint(run, x, use_reentrant=False)
 
 
 BLOCKS = {
@@ -365,7 +376,8 @@ class QResNet(nn.Module):
     reduces over the group. In eval and train mode alike: a train
     forward's batch statistics and solves are the whole images', and
     its gradients flow back through the gathers, halos and average pool
-    (parallel.spatial); `remat` under 'space' raises.
+    (parallel.spatial), with `remat` too (each block recomputed on its
+    bands, `remat_block`).
 
     Builds on `device` ('cuda' by default; raises if CUDA is missing).
     """
@@ -444,13 +456,6 @@ class QResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> float32 logits (eval under torch.no_grad)."""
         if self.training:
-            if (self.remat and self.space is not None
-                    and torch.is_grad_enabled()):
-                raise ValueError(
-                    "remat under 'space' is not supported: the "
-                    'recomputation in the backward would re-issue the halo '
-                    'exchanges and statistics collectives outside the '
-                    'banded forward')
             return self._forward(x, self.train_dtype, False)
         with torch.no_grad():
             return self._forward(x, self.eval_dtype, self.bn_fold)

@@ -18,6 +18,10 @@ batch's pixels also sums over the 'space' group, so it is the whole
 image's; after the map is gathered the ranks hold whole images and the
 statistics reduce over the 'data' group alone. Values each 'space' rank
 holds whole (the per-sample activation scales) never sum over 'space'.
+A block recomputed in the backward pass (nn.resnet.remat_block) runs
+after its forward's contexts have ended: it reads them here (`current`,
+`current_space`) when the forward runs and re-enters them (`over`,
+`banded`) when it recomputes.
 """
 
 import contextlib
@@ -59,6 +63,12 @@ def current() -> Optional[dist.ProcessGroup]:
     locally); a recomputation in the backward pass (nn.resnet.remat_block)
     restores the one its forward ran under."""
     return _GROUP
+
+
+def current_space() -> Any:
+    """The SpatialParallel of the banded forward running now (None outside
+    one); a recomputation re-enters it with `banded`."""
+    return _SPACE
 
 
 def groups(pixels: bool = True) -> tuple[dist.ProcessGroup, ...]:

@@ -47,8 +47,12 @@ runs replicated and every rank already holds the whole gradient. A
 parameter of a module that ran on bands holds only its band's share of
 the gradient, summed over 'space' by `sum_banded_grads`; one of the
 whole section holds the whole gradient already. `band_model` records,
-each forward, which modules ran on bands. `remat` under 'space' is not
-supported (nn.resnet raises).
+each forward, which modules ran on bands. With `remat` (JAX's
+`nn.remat`, which GSPMD partitions like the rest of the step) a block is
+recomputed in the backward pass, after `forward` has ended: `recompute`
+puts back the banded state the block ran under, so the recomputation
+exchanges the same halos and reduces the same statistics and solves over
+'space' as the forward did.
 
 Geometry contract (JAX's): output height H // stride ("shape-preserving
 modulo stride"); 3x3/s1/p1, 3x3/s2/p1, 1x1/s2/p0, 7x7/s2/p3, 5x5/s1/p2
@@ -99,22 +103,28 @@ class SpatialParallel(AxisGroup):
     model's current forward still runs on bands (`banded`, set by
     `forward`); `collectives` counts the collectives on the group by
     kind ('halo', 'statistics', 'solves', 'gather', 'average pool',
-    'gradient sum'), forward and backward, as [count, bytes this rank
-    contributed]. `ran_banded`
-    holds the ids of the modules that ran on bands in the model's last
-    forward (`band_model`'s hooks)."""
+    'gradient sum'), forward and backward, as [collectives this rank
+    took part in, bytes it contributed]; `recomputed` counts those of the
+    blocks recomputed in the backward pass (`recompute`) apart. A halo
+    exchange counts once on every rank that sends or receives a row.
+    `ran_banded` holds the ids of the modules that ran on bands in the
+    model's last forward (`band_model`'s hooks)."""
 
     def __init__(self, mesh: DeviceMesh, axis: str):
         super().__init__(mesh, axis)
         self.banded = False
+        self.recomputing = False
         self.collectives: dict[str, list[int]] = {}
+        self.recomputed: dict[str, list[int]] = {}
         self.ran_banded: set[int] = set()
 
-    def tally(self, kind: str, t: torch.Tensor) -> None:
-        """Count one collective of `kind` moving t from this rank."""
-        rec = self.collectives.setdefault(kind, [0, 0])
+    def tally(self, kind: str, *ts: torch.Tensor) -> None:
+        """Count one collective of `kind` moving the tensors ts from this
+        rank (in `recomputed` while a block is recomputed)."""
+        rec = (self.recomputed if self.recomputing
+               else self.collectives).setdefault(kind, [0, 0])
         rec[0] += 1
-        rec[1] += t.numel() * t.element_size()
+        rec[1] += sum(t.numel() * t.element_size() for t in ts)
 
     def note(self, module: nn.Module, args: Any, out: Any) -> None:
         """Forward hook: record `module` if it ran on bands (the flag
@@ -198,8 +208,8 @@ class _HaloExchange(torch.autograd.Function):
             recvs.append((_rows(t, 0, top), d - 1))
         if ctx.got_bottom:
             recvs.append((_rows(t, 0, bottom), d + 1))
-        for t_send, _ in sends:
-            space.tally('halo', t_send)
+        if sends or recvs:
+            space.tally('halo', *(t_send for t_send, _ in sends))
         got = space.exchange(sends, recvs)
         parts = got[:1] if ctx.got_top else []
         parts.append(t)
@@ -222,8 +232,8 @@ class _HaloExchange(torch.autograd.Function):
             recvs.append((_rows(gx, h - top, top), d + 1))
         if bottom and up:
             recvs.append((_rows(gx, 0, bottom), d - 1))
-        for t_send, _ in sends:
-            space.tally('halo', t_send)
+        if sends or recvs:
+            space.tally('halo', *(t_send for t_send, _ in sends))
         got = iter(space.exchange(sends, recvs))
         if top and down:
             _rows(gx, h - top, top).add_(next(got))
@@ -407,6 +417,30 @@ def forward(space: Optional[SpatialParallel]) -> Iterator[None]:
             yield
     finally:
         space.banded = False
+
+
+@contextlib.contextmanager
+def recompute(space: Optional[SpatialParallel],
+              banded: bool) -> Iterator[None]:
+    """The recomputation of a block in the backward pass
+    (nn.resnet.remat_block), after `forward` has ended: `space.banded` as
+    it stood at the block's entry (it holds through a block: block_input
+    gathers first where a conv of the block would not band), the
+    statistics' 'space' state re-entered (global_stats.banded), its
+    collectives counted in `space.recomputed`. The state the backward
+    found is put back on exit, also when the recomputation stops early
+    or raises. Nothing is recorded anew: `ran_banded` keeps the
+    forward's record, which the recomputation's hooks only repeat."""
+    if space is None:
+        yield
+        return
+    saved = space.banded, space.recomputing
+    space.banded, space.recomputing = banded, True
+    try:
+        with global_stats.banded(space):
+            yield
+    finally:
+        space.banded, space.recomputing = saved
 
 
 def _whole(x: torch.Tensor, space: SpatialParallel) -> torch.Tensor:

@@ -39,7 +39,10 @@ every rank. After the backward, the gradients of the modules that ran
 on bands (each rank holds its band's share) are summed over 'space'
 (parallel.spatial.sum_banded_grads), those of the whole section are
 left as they are (every rank holds the whole gradient), then all are
-averaged over 'data'. The ranks' parameters stay equal.
+averaged over 'data'. The ranks' parameters stay equal. A model with
+`remat` recomputes its blocks inside the backward on the bands they ran
+on (nn.resnet.remat_block); the record of the modules that ran on bands
+is the forward's, which the recomputation repeats and never resets.
 """
 
 import inspect

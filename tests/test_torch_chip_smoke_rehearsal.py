@@ -89,10 +89,14 @@ SMALL_TP_SERVING = dict(model='small', batch=2, input=[32, 32, 3],
 
 # The spatial train phase's pair narrowed to small_config's ResNets at
 # 64 px (every block bands over 2 ranks, the controls' input too), batch
-# 2, one warm-up step and one timed step, 4 images evaluated.
+# 2, one warm-up step and one timed step, 4 images evaluated; its remat
+# part takes one round each way, and the state it trains serves 8
+# binary convs a forward.
 SMALL_SPACE_TRAIN = dict(model='small', batch=2, input=[64, 64, 3],
                          control_input=[64, 64, 3], classes=10, warmup=1,
                          steps=1, eval_images=4)
+SMALL_REMAT_SERVE = {'xnor_conv2d_planes': 8, 'pack_sign_planes': 8,
+                     'max_pool_3x3_s2_p1': 1}
 
 
 # The experiment phase's ImageNet recipes narrowed to small_config's
@@ -221,6 +225,8 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'BAND_POOL_SHAPE', (2, 8, 8, 64))
     monkeypatch.setattr(chip_smoke, 'BAND_CHECK_BATCH', 2)
     monkeypatch.setattr(chip_smoke, 'SPACE_TRAIN', SMALL_SPACE_TRAIN)
+    monkeypatch.setattr(chip_smoke, 'SPACE_REMAT_SERVE', SMALL_REMAT_SERVE)
+    monkeypatch.setattr(chip_smoke, 'SPACE_REMAT_ROUNDS', ('on', 'off'))
     # On the CPU the MNIST recipe's 4 TP steps move its test loss by
     # 4.4e-3 from tp = 1 (tied max-pool windows after the binary conv2
     # break the other way under another float order), the card's 3.8e-4:
@@ -277,6 +283,8 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
             4 if k['name'] in ('xnor_conv2d', 'pack_sign_planes') else 0)
         assert k['space_train_launches'] == (
             1 if k['name'] == 'max_pool_3x3_s2_p1' else 0)
+        assert k['space_remat_launches'] == SMALL_REMAT_SERVE.get(
+            k['name'], 0)
     assert headline['xnor_conv2d_planes'] == 8
     # One multi-plane row for each phase that launches the kernel, with
     # the registers and blocks an SM of the instance it takes; a library
@@ -439,6 +447,8 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
     assert [json.loads(ln)['spatial_train_phase'] for ln in lines
             if ln.startswith('{"spatial_train_phase"')] == [st]
     assert set(st['gates']) == {*chip_smoke.SPACE_STEP_CASES,
+                                *(f'{c} remat'
+                                  for c in chip_smoke.SPACE_STEP_CASES),
                                 'control_input'}
     for recs in st['gates'].values():
         for rec in recs:
@@ -462,6 +472,33 @@ def test_chip_smoke_runs_end_to_end_on_cpu(rehearsal, capsys, tmp_path):
                 'gradient sum'} <= set(kinds)
     assert set(kd['split_ms'][0]) == {'forward', 'teacher', 'backward',
                                       'optimizer'}
+    remat = st['remat']
+    assert remat['config'] == chip_smoke.SPACE_REMAT_CONFIG
+    for equal in remat['equal']:
+        assert equal == {'losses': True, 'grad_digests': True,
+                         'digests': True}
+    assert len(remat['losses']) == 2
+    assert remat['single_losses']['on'] == remat['single_losses']['off']
+    assert remat['per_step'] == {'on': [{'max_pool_3x3_s2_p1': 1}] * 2,
+                                 'off': [{'max_pool_3x3_s2_p1': 1}] * 2}
+    assert remat['captured'] == {'max_pool_3x3_s2_p1': 0.0}
+    # The recomputation re-issues halos, statistics and the ls-2 solves'
+    # gathers, equally on both ranks; remat off recomputes nothing, and
+    # the forward's and backward's collectives are the same either way.
+    on, off = remat['recomputed']['on'], remat['recomputed']['off']
+    assert set(on[0]) == {'halo', 'statistics', 'solves'} and off == [{}, {}]
+    assert [{k: v['count'] for k, v in r.items()} for r in on] == [
+        {k: v['count'] for k, v in on[0].items()}] * 2
+    assert remat['collectives']['on'] == remat['collectives']['off']
+    assert set(remat['single_ms_per_step']) == {'on', 'off'}
+    assert [t['remat'] for t in remat['rounds'][1]] == ['on', 'off']
+    served = remat['serve']
+    assert served['per_forward'] == [SMALL_REMAT_SERVE] * 2
+    assert set(served['captured'].values()) == {0.0}
+    assert served['calls'][0]['xnor_conv2d_planes pad_top=1'] == 8
+    assert served['calls'][1]['xnor_conv2d_planes pad_top=0'] == 8
+    assert served['calls'][0]['pack_sign_planes k=2'] == 8
+    assert served['f32_max_abs_err'] <= chip_smoke.TP_F32_TOL['atol']
     assert st['evaluate']['max_abs_err'] <= chip_smoke.TP_F32_TOL['atol']
     assert st['evaluate']['metrics']['Loss'] == pytest.approx(
         st['evaluate']['whole_metrics']['Loss'], rel=1e-6)

@@ -29,9 +29,10 @@ steps on its band (local_band). Cases:
 * LeNet-5, whose VALID conv1 gathers first: equal to one process's;
 * a ('data' 2, 'space' 2) mesh at 128 px, the batch split over 'data':
   against JAX's placed step and one process's;
-* the three controls (a summing backward at the average pool, no
-  'space' sum of the banded parameters, band-local statistics), each
-  beyond 1e-3 of the gradient's largest; remat under 'space' raises;
+* the controls (a summing backward at the average pool, no 'space' sum
+  of the banded parameters, band-local statistics, a remat step's
+  recomputation without the banded state), each beyond 1e-3 of the
+  gradient's largest;
 * `evaluate` through the banded loaders against the unsharded model's;
 * the port's one-process float32 step at 128 px and batch 8 against its
   float64 step (`python -m tests.test_torch_port_spatial_train` prints
@@ -46,7 +47,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SPACE_CONTROLS, space_control
+from chip_smoke import SPACE_CONTROL_OPTIONS, SPACE_CONTROLS, space_control
 from tests.test_torch_port_dp import OPT_CONFIG, _grad_tree, _leaves
 from tests.test_torch_port_tp import run_world
 
@@ -82,7 +83,10 @@ FLAGSHIP_TINY = dict(
     solver_mode='lloyd', train_dtype='bfloat16')
 KD = dict(temperature=1.0, teacher_correction=False)
 # id: (model, x_quant, w_quant, px, teacher). 'small' is small_config's
-# XNOR ResNet, 'lenet' its LeNet-5 (28 px).
+# XNOR ResNet, 'lenet' its LeNet-5 (28 px), 'bottleneck' its
+# regular_bottleneck ResNet in the CIFAR-100 recipe's shape
+# (examples/cifar100/cifar100_resnet50_ls2_tpu.yaml: 3x3/s1 stem,
+# identity pool, ReLU).
 CASES = {
     'fp_ls1_64': ('small', 'fp', 'ls-1', 64, False),
     'fp_ls1_56': ('small', 'fp', 'ls-1', 56, False),
@@ -90,6 +94,7 @@ CASES = {
     'flagship': ('flagship', 'ls-2', 'ls-1', 64, False),
     'lenet': ('lenet', 'fp', 'ls-1', 28, False),
     'fp_ls1_128': ('small', 'fp', 'ls-1', 128, False),
+    'bottleneck_32': ('bottleneck', 'fp', 'ls-1', 32, False),
 }
 # The ('data' 2, 'space' 2) case, at 128 px on BATCH images (2 a 'data'
 # coordinate): JAX's GSPMD on the CPU miscomputes a 3x3/s2 conv of a
@@ -103,7 +108,9 @@ CASES = {
 # float32 step sides with its float64 step there (WITNESS_ROWS).
 DATA_SPACE = 'fp_ls1_128'
 WITNESS_ROWS = 2 * BATCH
-SPACE_ONLY = [c for c in CASES if c != DATA_SPACE]
+# The cases only tests/test_torch_port_spatial_remat.py steps.
+REMAT_ONLY = ('bottleneck_32',)
+SPACE_ONLY = [c for c in CASES if c not in (DATA_SPACE, *REMAT_ONLY)]
 # The modules with parameters that run on bands at 2 bands: at 64 px all
 # but the head; at 56 px the stem and layer1 (layer2's stride-2 conv
 # sees 7 rows a band).
@@ -124,6 +131,12 @@ def model_kwargs(case: str) -> dict:
     kind, xq, wq, _, _ = CASES[case]
     if kind == 'flagship':
         return copy.deepcopy(FLAGSHIP_TINY)
+    if kind == 'bottleneck':
+        cfg = small_config('regular_bottleneck', xq, wq)
+        cfg['layer0'].update(kernel_size=3, stride=1, padding=1,
+                             maxpool={'type': 'identity'})
+        cfg['nonlins'] = ['relu', 'relu']
+        return cfg
     return small_config('lenet' if kind == 'lenet' else 'xnor', xq, wq)
 
 
@@ -173,7 +186,8 @@ def port_step(case: str, trees: dict, mesh: object = None,
     """One step of the case on rows of its batch; with a mesh, the model
     (and teacher) banded and this rank's band of them. The gradients and
     variables (JAX trees), loss, metrics, and for a banded model the
-    collectives and the modules that ran on bands."""
+    collectives (forward and backward, and those of remat's
+    recomputation apart) and the modules that ran on bands."""
     from quant_tpu_torch import train as T
     from quant_tpu_torch.parallel import band_model, local_band
     from quant_tpu_torch.train.kd import make_teacher_apply
@@ -211,6 +225,7 @@ def port_step(case: str, trees: dict, mesh: object = None,
     space = getattr(model, 'space', None)
     if space is not None:
         out['collectives'] = copy.deepcopy(space.collectives)
+        out['recomputed'] = copy.deepcopy(space.recomputed)
         out['banded'] = [name for name, m in model.named_modules()
                          if id(m) in space.ran_banded]
     return out
@@ -265,12 +280,9 @@ def _world2(rank: int, trees: dict) -> dict:
         out['steps'][case] = port_step(case, trees, mesh)
     for name in SPACE_CONTROLS:
         with space_control(name):
-            out['controls'][name] = port_step('fp_ls1_64', trees, mesh)
-    try:
-        port_step('fp_ls1_64', trees, mesh, remat=True)
-        out['remat'] = None
-    except ValueError as e:
-        out['remat'] = str(e)
+            out['controls'][name] = port_step(
+                'fp_ls1_64', trees, mesh, **SPACE_CONTROL_OPTIONS.get(name,
+                                                                      {}))
     out['evaluate'] = _evaluate('fp_ls1_64', trees, mesh)
     x, y = inputs('fp_ls1_64')
     out['loader'] = [(np.asarray(d), np.asarray(t)) for d, t in
@@ -325,11 +337,12 @@ def recording(tx: object) -> object:
 
 
 def jax_step(case: str, trees: dict, mesh_shape: tuple,
-             n: int = BATCH) -> dict:
+             n: int = BATCH, **extra: object) -> dict:
     """JAX's make_train_step (mesh None, jitted) on the case's first n
     rows placed by spatial_sharding over a ('data', 'space') mesh of
-    mesh_shape (the batch over 'data'): the gradients its optimizer was
-    given, the tree after the step and the loss."""
+    mesh_shape (the batch over 'data'), the model built with the case's
+    keywords and `extra` (e.g. remat=True): the gradients its optimizer
+    was given, the tree after the step and the loss."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -342,7 +355,8 @@ def jax_step(case: str, trees: dict, mesh_shape: tuple,
     from quant_tpu.train import optim as joptim
     from quant_tpu.train import state as jstate
     family = _family(case)
-    jm = (QLeNet5 if family == 'lenet' else QResNet)(**model_kwargs(case))
+    jm = (QLeNet5 if family == 'lenet' else QResNet)(**model_kwargs(case),
+                                                     **extra)
     variables = trees[case]
     d, p = mesh_shape
     mesh = Mesh(np.asarray(jax.devices()[:d * p]).reshape(d, p),
@@ -547,22 +561,6 @@ def test_controls_differ(world2, name):
     assert _worst(got, want) > CONTROL_MIN_DIFF
     ok = _leaves(world2[0]['steps']['fp_ls1_64']['grads'])
     assert _worst(ok, want) <= GRAD_TOL
-
-
-def test_remat_under_space_raises(world2):
-    """The recomputation in the backward would re-issue the banded
-    forward's collectives outside it: a banded model with remat raises
-    in train mode, before any collective (each rank of the world, and a
-    model whose `space` is a stand-in)."""
-    import types
-    from quant_tpu_torch.probes import models
-    for r in world2:
-        assert r['remat'] is not None and "'space'" in r['remat']
-    model = models.build('xnor', models.small_config('xnor', 'ls-1', 'ls-1'),
-                         device='cpu', remat=True).train()
-    model.space = types.SimpleNamespace(banded=False)
-    with pytest.raises(ValueError, match="remat under 'space'"):
-        model(torch.zeros((2, 32, 32, 3)))
 
 
 def test_float32_step_sides_with_float64(trees):
