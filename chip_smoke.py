@@ -31,7 +31,15 @@ the chip-probe path:
    holds the fp32 chain on the card against the same model on the CPU,
    and holds xnor_conv2d (bf16 and f32 out) and the producer against
    their twins on every conv input the forward captured;
-4. serves 16 requests through InferenceEngine on the card;
+4. serves 16 requests through InferenceEngine on the card; then the API
+   phase (API_PER_FORWARD's comment): the same model built through the
+   package-level QResNet, its logits equal to the main path's and its
+   launches counted (16 + 16 + 1 a forward), served through the
+   package-level InferenceEngine;
+   the grouped QAT block's step card against CPU and its packed-mode
+   eval forward, which serves the dense conv as JAX's does; and a fresh
+   interpreter's `import quant_tpu_torch.serving`, which must do no
+   work; one JSON line {"api_phase": ...};
 5. times each kernel, its plain twin and a library yardstick with CUDA
    events behind a head start (the card's time, not the host's launch
    time; the report's `call_ms` times each kernel back to back, host
@@ -175,7 +183,7 @@ the chip-probe path:
    rates, the stem against its s2d form and the served model's batch
    sweep at 128 and 512) and checks that it launched each probe kernel.
 
-Prints the card line, JSON lines {"oracle_phase": ...},
+Prints the card line, JSON lines {"api_phase": ...}, {"oracle_phase": ...},
 {"experiment_phase": ...}, {"tp_phase": ...}, {"spatial_phase": ...},
 {"pipeline_phase": ...}, {"spatial_train_phase": ...}, {"kernels": [...]}
 and
@@ -755,6 +763,32 @@ SPACE_REMAT_ROUNDS = ('on', 'off', 'off', 'on')
 SPACE_REMAT_OPTIONS = {'sign_compute': 'int8'}
 SPACE_REMAT_SERVE = {'xnor_conv2d_planes': 16, 'pack_sign_planes': 16,
                      'max_pool_3x3_s2_p1': 1}
+
+# The API phase (api_phase): (a) the main path's ResNet-18
+# (seeded_serving_resnet18) built through the package-level
+# quant_tpu_torch.nn.QResNet from bench_resnet18's arguments, seeded and
+# prepared as the main path's: its bf16 logits equal to the main-path
+# model's on the same input, API_PER_FORWARD launches a forward, then
+# served (serve(): 16 requests through the package-level
+# quant_tpu_torch.serving.InferenceEngine); (b) the grouped QAT block
+# (API_GROUPED: a conv of 2 groups, BN, a depthwise conv, BN, the
+# residual; ls-1 weights; ls-1 and then fp activations): one SGD step (lr
+# API_LR) on the card against the same step on the CPU in float32 (TF32
+# off, device.full_precision), the loss and every gradient within
+# API_STEP_TOL of the largest gradient, each tensor of the new state
+# (parameters, BN statistics, w_vs) within API_STEP_TOL of its own
+# largest value, a parameter also within the step of the gradients'
+# allowance (API_LR x API_STEP_TOL x the largest gradient: a conv bias
+# before BN has a gradient of float noise alone), then its eval forward
+# under inference_mode='packed', which serves the dense conv as JAX's
+# does (no kernel launch), within API_STEP_TOL of the CPU's; (c) a fresh
+# interpreter's `import quant_tpu_torch.serving` loads no kernel
+# library, starts no process, opens no socket and no process group.
+API_PER_FORWARD = {'xnor_conv2d': 16, 'pack_sign_planes': 16,
+                   'max_pool_3x3_s2_p1': 1}
+API_GROUPED = dict(batch=4, size=16, channels=16, x_quants=('ls-1', 'fp'))
+API_STEP_TOL = 2e-5
+API_LR = 0.1
 
 
 def card_line() -> str:
@@ -1384,7 +1418,7 @@ def serve(model: torch.nn.Module, seed: int,
           input_shape: tuple[int, ...] = (224, 224, 3),
           classes: int = 1000) -> dict:
     """16 requests through InferenceEngine on the card, against predict."""
-    from quant_tpu_torch.serving.engine import InferenceEngine
+    from quant_tpu_torch.serving import InferenceEngine
 
     images = np.random.default_rng(seed).standard_normal(
         (16,) + tuple(input_shape)).astype(np.float32)
@@ -3292,7 +3326,8 @@ def _pod_worlds(cfg_path: str, env: dict, out: dict) -> None:
 
 
 def experiment_phase(seed: int, train_record: dict) -> dict:
-    """The experiment phase, in a temporary directory removed after."""
+    """The experiment phase, in a temporary directory removed after; the
+    pod phase within it."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -4899,6 +4934,256 @@ def _space_remat_gates(rem: list) -> dict:
     return out
 
 
+_SERVING_IMPORT_PROBE = """
+import json, socket, subprocess, sys
+import torch.distributed as dist
+opened = dict(processes=[], sockets=0)
+real_popen, real_socket = subprocess.Popen, socket.socket
+class Popen(real_popen):
+    def __init__(self, args, *a, **k):
+        opened['processes'].append(str(args))
+        super().__init__(args, *a, **k)
+class Socket(real_socket):
+    def __init__(self, *a, **k):
+        opened['sockets'] += 1
+        super().__init__(*a, **k)
+subprocess.Popen, socket.socket = Popen, Socket
+import quant_tpu_torch.serving as serving
+modules = sorted(m for m in sys.modules
+                 if m.startswith('quant_tpu_torch.serving.'))
+from quant_tpu_torch import _build
+print(json.dumps(dict(
+    libraries=sorted(_build._libs), **opened,
+    process_group=dist.is_available() and dist.is_initialized(),
+    modules=modules, engine=serving.InferenceEngine.__module__)))
+"""
+
+
+def serving_import_probe() -> dict:
+    """`import quant_tpu_torch.serving` in a fresh interpreter, with
+    subprocess.Popen and socket.socket counted: the kernel libraries it
+    loaded, the processes it started, the sockets it opened, whether a
+    process group is up and which serving modules it imported; then the
+    module that serves `InferenceEngine`."""
+    out = subprocess.run(
+        [sys.executable, '-c', _SERVING_IMPORT_PROBE],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _api_resnet18(seed: int) -> torch.nn.Module:
+    """The main path's model (seeded_serving_resnet18) built through the
+    package-level QResNet, on the card."""
+    import quant_tpu_torch.nn as qnn
+
+    def make(x_quant: str, w_quant: str, **kw: Any) -> torch.nn.Module:
+        return qnn.QResNet(**models.bench_resnet18_config(x_quant, w_quant),
+                           **kw)
+    return models.seeded_model(make, 'ls-1', 'ls-1', DEVICE, seed,
+                               moving_average_mode='eval_only')
+
+
+def _grouped_block(x_quant: str, seed: int) -> torch.nn.Module:
+    """API_GROUPED's QAT block on the CPU: a 3x3 conv of 2 groups, BN, a
+    3x3 depthwise conv, BN, plus the input; ls-1 weights, x_quant
+    activations, inference_mode 'packed' (the convs' default)."""
+    import quant_tpu_torch.nn as qnn
+
+    c = API_GROUPED['channels']
+    gen = torch.Generator().manual_seed(seed)
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = qnn.QuantConv2d(c, c, 3, x_quant=x_quant,
+                                         w_quant='ls-1', padding=1,
+                                         groups=2, generator=gen)
+            self.bn1 = qnn.BatchNorm(c)
+            self.conv2 = qnn.QuantConv2d(c, c, 3, x_quant=x_quant,
+                                         w_quant='ls-1', padding=1,
+                                         groups=c, generator=gen)
+            self.bn2 = qnn.BatchNorm(c)
+
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            return x + self.bn2(self.conv2(self.bn1(self.conv1(x))))
+
+    return Block().eval()
+
+
+def _grouped_step(block: torch.nn.Module, x: torch.Tensor,
+                  g: torch.Tensor) -> tuple[float, dict, dict]:
+    """One SGD step (lr API_LR) of the loss sum(block(x) * g): (loss, the
+    gradients, the new state), all on the CPU."""
+    block.train()
+    loss = (block(x) * g).sum()
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in block.named_parameters()}
+    with torch.no_grad():
+        for p in block.parameters():
+            p -= API_LR * p.grad
+    block.eval()
+    state = {n: t.detach().cpu() for n, t in block.state_dict().items()}
+    return loss.item(), grads, state
+
+
+def _grouped_phase(x_quant: str, seed: int) -> dict:
+    """(b) for one activation scheme: the step card against CPU, then the
+    packed-mode eval forward, which must launch nothing."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.device import full_precision
+
+    cpu = _grouped_block(x_quant, seed)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    rng = np.random.default_rng(seed)
+    shape = (API_GROUPED['batch'], API_GROUPED['size'], API_GROUPED['size'],
+             API_GROUPED['channels'])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    with full_precision():
+        got = _grouped_step(card, x.to(DEVICE), g.to(DEVICE))
+    want = _grouped_step(cpu, x, g)
+    largest = max(w.abs().max().item() for w in want[1].values())
+    grad_err = max((got[1][n] - w).abs().max().item()
+                   for n, w in want[1].items())
+    # Each state tensor against its own largest value; a parameter also
+    # within one step of the gradients' allowance. Recorded beside the
+    # gate: the largest error relative to its own tensor, and which.
+    state_excess, state_worst, state_rel = 0.0, None, (0.0, None)
+    for n, w in want[2].items():
+        if not w.is_floating_point():
+            continue
+        own = w.abs().max().item()
+        err = (got[2][n] - w).abs().max().item()
+        state_rel = max(state_rel, (err / own if own else err, n),
+                        key=lambda e: e[0])
+        excess = err - API_STEP_TOL * (own + (
+            API_LR * largest if n in want[1] else 0.0))
+        if excess > state_excess:
+            state_excess, state_worst = excess, n
+    convs = [m for m in card.modules() if hasattr(m, 'packable')]
+    if any(m.packed for m in convs):
+        raise AssertionError('a grouped conv claims the packed path')
+    _sync()
+    _build.reset_launch_counts()
+    with torch.inference_mode(), full_precision():
+        y = card(x.to(DEVICE)).cpu()
+    _sync()
+    launches = launch_counts()
+    with torch.inference_mode():
+        y_cpu = cpu(x)
+    eval_err = ((y - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    rec = dict(x_quant=x_quant, loss_rel_err=abs(got[0] - want[0])
+               / abs(want[0]), grad_rel_err=grad_err / largest,
+               state_excess=state_excess, state_worst=state_worst,
+               state_rel_err=state_rel[0], state_rel_worst=state_rel[1],
+               eval_rel_err=eval_err,
+               eval_launches={k: v for k, v in launches.items() if v},
+               inference_mode=[m.inference_mode for m in convs],
+               groups=[m.groups for m in convs])
+    if not (rec['loss_rel_err'] <= API_STEP_TOL
+            and rec['grad_rel_err'] <= API_STEP_TOL
+            and state_excess == 0.0 and eval_err <= API_STEP_TOL):
+        raise AssertionError(f'grouped block card vs CPU: {rec}')
+    if rec['eval_launches']:
+        raise AssertionError(f'the grouped block launched kernels: {rec}')
+    return rec
+
+
+def api_phase(main_model: torch.nn.Module, x: torch.Tensor,
+              seed: int) -> dict:
+    """The API phase (API_PER_FORWARD's comment): (a), (b), (c); one JSON
+    line {"api_phase": ...}. main_model is the main path's bf16 model, x
+    its input."""
+    from quant_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    model = _api_resnet18(seed)
+    model.eval_dtype = torch.bfloat16
+    _sync()
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(x)
+    _sync()
+    per_forward = {k: v for k, v in launch_counts().items() if v}
+    if per_forward != API_PER_FORWARD:
+        raise AssertionError(f'API model launches {per_forward}, expected '
+                             f'{API_PER_FORWARD}')
+    with torch.inference_mode():
+        main_logits = main_model(x)
+    err = (logits.float() - main_logits.float()).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f'API model logits {err} off the main path')
+    out = dict(per_forward=per_forward, max_abs_err=err)
+    out['serving'] = serve(model, seed)
+    del model
+    out['grouped'] = [_grouped_phase(xq, seed)
+                      for xq in API_GROUPED['x_quants']]
+    out['serving_import'] = serving_import_probe()
+    imported = out['serving_import']
+    if (imported['libraries'] or imported['processes']
+            or imported['sockets'] or imported['process_group']
+            or imported['modules']):
+        raise AssertionError(f'importing quant_tpu_torch.serving did '
+                             f'work: {imported}')
+    out['s'] = time.perf_counter() - t0
+    print(json.dumps({'api_phase': out}), flush=True)
+    return out
+
+
+def path_launches(api: Optional[dict], tp: Optional[dict],
+                  space: Optional[dict], pipe: Optional[dict],
+                  space_train: Optional[dict]
+                  ) -> dict[str, Optional[dict]]:
+    """A rank's launches on each path after the main one, by the kernels
+    line's field (None where the phase did not run): a forward of the
+    package-level model (api); a TP ring call and a TP-served forward
+    (tp); a banded forward (space); a pipeline call, per microbatch x
+    PIPE_MICROBATCHES (pipe); a banded train step, the frozen teacher's
+    pool (space_train); a served banded forward of the state trained
+    with remat (space_remat)."""
+    out: dict[str, Optional[dict]] = {f'{k}_launches': None for k in (
+        'api', 'tp', 'space', 'pipe', 'space_train', 'space_remat')}
+    if api:
+        out['api_launches'] = api['per_forward']
+    if tp:
+        out['tp_launches'] = dict(tp['serving']['per_forward'][0],
+                                  **tp['ring']['launches_per_rank'][0])
+    if space:
+        out['space_launches'] = space['per_forward'][0]
+    if pipe:
+        out['pipe_launches'] = {k: v * PIPE_MICROBATCHES
+                                for k, v in pipe['per_microbatch'][0].items()}
+    if space_train:
+        out['space_train_launches'] = space_train['kd']['per_step'][0]
+        out['space_remat_launches'] = space_train['remat']['serve'][
+            'per_forward'][0]
+    return out
+
+
+def path_errs(tp: Optional[dict], space: Optional[dict],
+              space_train: Optional[dict]) -> dict[str, float]:
+    """The largest error of each kernel against its twin on the parallel
+    phases' captured calls and band checks (of the phases that ran)."""
+    found: list[dict] = []
+    if tp:
+        found.append(tp['serving']['captured'])
+    if space:
+        found += [space['captured'], {
+            k: space['band_checks'][k] for k in (
+                'xnor_conv2d', 'xnor_conv2d_planes', 'max_pool_3x3_s2_p1')}]
+    if space_train:
+        found += [space_train['kd']['captured'],
+                  space_train['serve']['captured'],
+                  space_train['remat']['captured'],
+                  space_train['remat']['serve']['captured']]
+    errs: dict[str, float] = {}
+    for captured in found:
+        for kname, err in captured.items():
+            errs[kname] = max(errs.get(kname, 0.0), err)
+    return errs
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
@@ -4995,6 +5280,8 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     served = serve(model, args.seed)
     print(f'serving: {served}', flush=True)
+    api = api_phase(model, x, args.seed)
+    print(f'api phase: {api["s"]:.1f} s', flush=True)
 
     # Forwards back to back, host included: what a caller gets. The card's
     # share: the same forwards queued behind a head start.
@@ -5098,44 +5385,26 @@ def main(argv: Optional[list[str]] = None) -> int:
     train = train_phases(args.seed)
     print(f'train phase: {train["s"]:.1f} s', flush=True)
 
-    experiment = experiment_phase(args.seed, train['configs'][0])
-    print(f'experiment phase: {experiment["s"]:.1f} s', flush=True)
+    def run(name: str, fn: Callable, *fn_args: Any) -> Optional[dict]:
+        # A phase that returns None (a rehearsal's stand-in) did not run:
+        # its path's fields in the kernels line read null.
+        record = fn(*fn_args)
+        if record is not None:
+            print(f'{name} phase: {record["s"]:.1f} s', flush=True)
+        return record
 
-    tp = tp_phase(args.seed)
-    print(f'tp phase: {tp["s"]:.1f} s', flush=True)
-    for kname, err in tp['serving']['captured'].items():
+    experiment = run('experiment', experiment_phase, args.seed,
+                     train['configs'][0])
+    tp = run('tp', tp_phase, args.seed)
+    space = run('spatial', spatial_phase, args.seed)
+    pipe = run('pipeline', pipeline_phase, args.seed)
+    space_train = run('spatial_train', spatial_train_phase, args.seed)
+    paths = path_launches(api, tp, space, pipe, space_train)
+    for kname, err in path_errs(tp, space, space_train).items():
         errs[kname] = max(errs[kname], err)
-    # Each rank's launches on this slice's path: a ring call (xnor_gemm,
-    # which no earlier path runs) and a TP-served forward.
-    tp_launches = dict(tp['serving']['per_forward'][0],
-                       **tp['ring']['launches_per_rank'][0])
-    launches['xnor_gemm'] = tp_launches['xnor_gemm']
-
-    space = spatial_phase(args.seed)
-    print(f'spatial phase: {space["s"]:.1f} s', flush=True)
-    pipe = pipeline_phase(args.seed)
-    print(f'pipeline phase: {pipe["s"]:.1f} s', flush=True)
-    space_train = spatial_train_phase(args.seed)
-    print(f'spatial train phase: {space_train["s"]:.1f} s', flush=True)
-    for captured in (space_train['kd']['captured'],
-                     space_train['serve']['captured'],
-                     space_train['remat']['captured'],
-                     space_train['remat']['serve']['captured']):
-        for kname, err in captured.items():
-            errs[kname] = max(errs[kname], err)
-    for kname, err in space['captured'].items():
-        errs[kname] = max(errs[kname], err)
-    for kname in ('xnor_conv2d', 'xnor_conv2d_planes', 'max_pool_3x3_s2_p1'):
-        errs[kname] = max(errs[kname], space['band_checks'][kname])
-    # Each rank's launches on the spatial and pipeline paths: a banded
-    # forward and a pipeline call (per microbatch x PIPE_MICROBATCHES).
-    space_launches = space['per_forward'][0]
-    pipe_launches = {k: v * PIPE_MICROBATCHES
-                     for k, v in pipe['per_microbatch'][0].items()}
-    # A rank's launches a banded train step (the frozen teacher's pool),
-    # and a served banded forward of the state trained with remat.
-    space_train_launches = space_train['kd']['per_step'][0]
-    space_remat_launches = space_train['remat']['serve']['per_forward'][0]
+    # xnor_gemm runs on no earlier path than the TP ring.
+    launches['xnor_gemm'] = (None if tp is None else
+                             paths['tp_launches'].get('xnor_gemm', 0))
 
     t0 = time.perf_counter()
     records, probe_launches = probe_phase()
@@ -5164,13 +5433,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                     replaces=replaces[r['name']],
                     launches=r.get('launches', launches[r['name']]),
                     on_main_path=want[r['name']] > 0,
-                    tp_launches=tp_launches.get(r['name'], 0),
-                    space_launches=space_launches.get(r['name'], 0),
-                    pipe_launches=pipe_launches.get(r['name'], 0),
-                    space_train_launches=space_train_launches.get(
-                        r['name'], 0),
-                    space_remat_launches=space_remat_launches.get(
-                        r['name'], 0),
+                    **{key: None if path is None else path.get(r['name'], 0)
+                       for key, path in paths.items()},
                     max_abs_err=errs[r['name']], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
@@ -5187,7 +5451,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                            ms_per_forward_card=ms_fwd_card,
                            card_alone_calls=card_calls,
                            fp32_max_abs_err=fp32_err, fp32_spread=spread,
-                           serving=served, kernels=rows,
+                           serving=served, api=api, kernels=rows,
                            serving_stack=stack,
                            model_phases=phases, model_phases_s=phases_s,
                            oracle=oracle,

@@ -22,6 +22,25 @@ the TP engine) and the chip probes (`probes.probe_r2`,
 hand-written CUDA kernels live in `csrc/` and are built with nvcc at
 first use (`_build.py`); each wrapper runs its plain PyTorch twin only
 for CPU tensors.
+
+A caller of the JAX package switches its imports from `quant_tpu` to
+`quant_tpu_torch` at the package level: every public name of every
+`quant_tpu` module, every package's `__all__` and every parameter of
+its functions and classes exist here too (tests/test_torch_port_api.py
+holds them to an AST walk of `quant_tpu/`). The parameters the port
+does not take are JAX's own machinery (Pallas, XLA donation and
+accumulation types, flax variable trees, which live in the
+`nn.Module`s here; a layer's dtypes are set on the model or by the
+forward's `out_dtype`): that test's `JAX_ONLY` table lists each with
+its reason.
 """
 
+from typing import Callable, Dict
+
 __version__ = '0.1.0'
+
+# The JAX package's aliases (quant_tpu/__init__.py:33-34): per-batch
+# hook callables of the train and eval loops, and the metric dict the
+# task driver produces.
+Hook = Callable[..., None]
+MetricDict = Dict[str, float]

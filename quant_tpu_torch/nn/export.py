@@ -50,11 +50,11 @@ def _require_packed(model: torch.nn.Module, what: str) -> None:
 
 @_in_eval
 def export_packed_variables(model: torch.nn.Module) -> torch.nn.Module:
-    """Pack the sign words of every conv that serves packed (binary
-    weights) once; `w_scales` are the cached weight scales (quant_state
-    w_quantizer/vs), ls-T's repeated for its two planes."""
+    """Pack the sign words of every conv that can serve packed (binary
+    weights, one group) once; `w_scales` are the cached weight scales
+    (quant_state w_quantizer/vs), ls-T's repeated for its two planes."""
     for _, conv in _quant_convs(model):
-        if conv.w_quant != 'fp':
+        if conv.packable:
             conv.export_packed()
     return model
 

@@ -60,12 +60,35 @@ def as_dtype(dtype: DtypeLike) -> Optional[torch.dtype]:
     return getattr(torch, str(dtype))
 
 
-def _uniform(shape: Sequence[int], fan_in: int,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    # torch nn.Conv2d / nn.Linear default init: U(-1/sqrt(fan_in), +...).
-    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
-    t = torch.empty(tuple(shape), dtype=torch.float32)
-    return t.uniform_(-bound, bound, generator=generator)
+Init = Callable[..., torch.Tensor]
+
+
+def _uniform_init(fan_in: Callable[[tuple[int, ...]], int],
+                  dtype: torch.dtype) -> Init:
+    def init(shape: Sequence[int],
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        shape = tuple(shape)
+        n = fan_in(shape)
+        bound = 1.0 / math.sqrt(n) if n > 0 else 0.0
+        t = torch.empty(shape, dtype=dtype)
+        return t.uniform_(-bound, bound, generator=generator)
+    return init
+
+
+def torch_conv_kernel_init(dtype: torch.dtype = torch.float32) -> Init:
+    """torch nn.Conv2d / nn.Linear default kernel init: an initializer
+    `init(shape, generator=None)` drawing U(-1/sqrt(fan_in),
+    +1/sqrt(fan_in)), fan_in the product of every axis but the last
+    (an HWIO kernel's (Cin // groups) * kh * kw, a dense kernel's in)."""
+    return _uniform_init(lambda shape: math.prod(shape[:-1]), dtype)
+
+
+def torch_bias_init(fan_in: int, dtype: torch.dtype = torch.float32
+                    ) -> Init:
+    """torch Conv2d / Linear default bias init: an initializer
+    `init(shape, generator=None)` drawing U(-1/sqrt(fan_in),
+    +1/sqrt(fan_in)) (0 where fan_in is 0)."""
+    return _uniform_init(lambda shape: fan_in, dtype)
 
 
 def _gathered(module: nn.Module, y: torch.Tensor) -> torch.Tensor:
@@ -111,8 +134,9 @@ class PReLU(nn.Module):
 
 class Conv(nn.Module):
     """Full-precision NHWC conv (HWIO kernel); `dtype` downcasts x, kernel
-    and bias for the computation. With `s2d` a 7x7/s2/p3 conv on even H
-    and W runs as its exact space-to-depth form (same parameters).
+    and bias for the computation. The kernel is (kh, kw, Cin // groups,
+    features). With `s2d` a 7x7/s2/p3 ungrouped conv on even H and W runs
+    as its exact space-to-depth form (same parameters).
     Sharded (`tp`), it holds its slice of the out-channels and gathers
     its output, as Dense and QuantConv2d do. Banded (`space`,
     parallel.spatial.band_model), it convolves its row band and the halo
@@ -124,17 +148,18 @@ class Conv(nn.Module):
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, stride: IntOr2 = 1,
                  padding: IntOr2 = 0, use_bias: bool = True,
-                 s2d: bool = False,
+                 groups: int = 1, s2d: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kh, kw = _pair(kernel_size)
-        fan_in = in_channels * kh * kw
+        fan_in = in_channels // groups * kh * kw
         self.kernel_size = (kh, kw)
         self.stride, self.padding, self.s2d = stride, padding, s2d
-        self.kernel = nn.Parameter(_uniform(
-            (kh, kw, in_channels, features), fan_in, generator))
-        self.bias = (nn.Parameter(_uniform((features,), fan_in, generator))
-                     if use_bias else None)
+        self.groups = groups
+        self.kernel = nn.Parameter(torch_conv_kernel_init()(
+            (kh, kw, in_channels // groups, features), generator))
+        self.bias = (nn.Parameter(torch_bias_init(fan_in)(
+            (features,), generator)) if use_bias else None)
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -150,11 +175,12 @@ class Conv(nn.Module):
                                      self.padding, bias)
         if (self.s2d and kernel.shape[:2] == (7, 7)
                 and _pair(self.stride) == (2, 2)
-                and _pair(self.padding) == (3, 3)
+                and _pair(self.padding) == (3, 3) and self.groups == 1
                 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
             return _gathered(self, stem_conv_s2d(x, kernel, bias=bias))
         return _gathered(self, conv2d(x, kernel, stride=self.stride,
-                                      padding=self.padding, bias=bias))
+                                      padding=self.padding,
+                                      groups=self.groups, bias=bias))
 
 
 class Dense(nn.Module):
@@ -166,11 +192,10 @@ class Dense(nn.Module):
                  use_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.kernel = nn.Parameter(_uniform((in_features, features),
-                                            in_features, generator))
-        self.bias = (nn.Parameter(_uniform((features,), in_features,
-                                           generator))
-                     if use_bias else None)
+        self.kernel = nn.Parameter(torch_conv_kernel_init()(
+            (in_features, features), generator))
+        self.bias = (nn.Parameter(torch_bias_init(in_features)(
+            (features,), generator)) if use_bias else None)
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -186,7 +211,7 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm as flax computes it, with torch's conventions (momentum
-    is the new statistics' weight, 0.1; eps 1e-5). Affine-free
+    is the new statistics' weight, 0.1 by default; eps 1e-5). Affine-free
     (`affine=False`, LeNet-5's) has no weight and no bias.
 
     Eval: (x - mean) * (rsqrt(var + eps) * weight) + bias in float32 on
@@ -194,8 +219,8 @@ class BatchNorm(nn.Module):
     normalization.py:60-142): the batch's mean and fast variance
     max(0, E[x^2] - E[x]^2) over N, H, W, reduced in at least float32
     whatever x's dtype, normalize the same way, and the running
-    statistics become 0.9 * old + 0.1 * batch (the biased batch
-    variance, where F.batch_norm would update with the unbiased one);
+    statistics become (1 - momentum) * old + momentum * batch (the biased
+    batch variance, where F.batch_norm would update with the unbiased one);
     the output is `dtype`, else x's dtype promoted with the affine's.
     Under a data-parallel train step (parallel.global_stats.over) the
     batch's statistics are the global batch's, over every rank's rows;
@@ -205,13 +230,13 @@ class BatchNorm(nn.Module):
     `bias` leaf) and gathers it; all else is whole.
     """
 
-    momentum = 0.1  # the new statistics' weight (JAX passes 1 - 0.1)
     tp: Optional[TensorParallel] = None
 
     def __init__(self, num_features: int, epsilon: float = 1e-5,
-                 affine: bool = True):
+                 affine: bool = True, momentum: float = 0.1):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum  # flax's is 1 - momentum
         ones = torch.ones(num_features, dtype=torch.float32)
         zeros = torch.zeros(num_features, dtype=torch.float32)
         self.weight = nn.Parameter(ones.clone()) if affine else None
@@ -270,6 +295,53 @@ class BatchNorm(nn.Module):
         if self.weight is None:
             return x.dtype
         return torch.promote_types(x.dtype, self.weight.dtype)
+
+
+def quantize_weights(scheme: str, w_oi: torch.Tensor,
+                     vs: Optional[torch.Tensor], train: bool, skip: int = 3,
+                     mode: str = 'exact'
+                     ) -> tuple[Optional[torch.Tensor], torch.Tensor]:
+    """w_oi (its leading axis the out-channels) quantized by `scheme` with
+    JAX's weight-scale cache (quant_tpu/nn/layers.py:97-120): in train
+    mode the scales are solved (ls-2 and ls-T by opt_v1 over every
+    `skip`-th element, `mode`) and written into `vs`; otherwise `vs` is
+    read as it stands. (the scales used, w_q); fp has neither scales nor
+    cache: (None, w_oi)."""
+    if scheme == 'fp':
+        return None, w_oi
+    if not train:
+        return vs, quantize_with_scheme(scheme, w_oi, vs, skip, mode)[1]
+    solved, w_q = quantize_with_scheme(scheme, w_oi, None, skip, mode)
+    with torch.no_grad():
+        vs.copy_(solved)
+    return solved, w_q
+
+
+class WeightQuantizer(nn.Module):
+    """Per-out-channel weight quantizer with a cache of its scales
+    (quant_tpu/nn/layers.py:85-120): `vs` is the (k, size) buffer, JAX's
+    quant_state vs, kept by quantize_weights. fp has no scales and no
+    buffer. QuantConv2d keeps the same cache under its own name, `w_vs`,
+    so the variable trees stay JAX's."""
+
+    def __init__(self, scheme: str, size: int, skip: int = 3,
+                 solver_mode: str = 'exact'):
+        super().__init__()
+        validate_scheme(scheme)
+        self.scheme, self.size = scheme, size
+        self.skip, self.solver_mode = skip, solver_mode
+        self.register_buffer(
+            'vs', torch.zeros(scheme_num_scales(scheme), size,
+                              dtype=torch.float32)
+            if scheme != 'fp' else None)
+
+    def forward(self, w_oi: torch.Tensor, train: bool,
+                return_scales: bool = False) -> Any:
+        """w_oi quantized (its leading axis the out-channels); with
+        return_scales, (w_q, the (k, size) scales used)."""
+        vs, w_q = quantize_weights(self.scheme, w_oi, self.vs, train,
+                                   self.skip, self.solver_mode)
+        return (w_q, vs) if return_scales else w_q
 
 
 class ActivationQuantizer(nn.Module):
@@ -380,7 +452,9 @@ class ActivationQuantizer(nn.Module):
 class QuantConv2d(nn.Module):
     """Quantized conv: conv(w_quant(w), x_quant(clamp(x))) + bias.
 
-    Eval: inference_mode 'packed' (with a binary w_quant) serves the packed
+    The kernel is (kh, kw, in_channels // groups, features). Eval:
+    inference_mode 'packed' (with a binary w_quant and one group; a
+    grouped conv serves the dense path, as in JAX) serves the packed
     conv of ops.binary_infer: weights from the exported `w_packed` /
     `w_scales` buffers or, before export, from the fp kernel and its
     cached scales `w_vs` ((k, O), the JAX tree's quant_state
@@ -435,7 +509,8 @@ class QuantConv2d(nn.Module):
                  w_quant: str = 'ls-1',
                  clamp: Optional[dict[str, Any]] = None,
                  stride: IntOr2 = 1, padding: IntOr2 = 0,
-                 use_bias: bool = True, moving_average_mode: str = 'off',
+                 use_bias: bool = True, groups: int = 1,
+                 moving_average_mode: str = 'off',
                  moving_average_momentum: float = 0.99,
                  solver_mode: str = 'exact', calibrate: bool = False,
                  inference_mode: str = 'packed', pass_fusion: bool = True,
@@ -449,9 +524,10 @@ class QuantConv2d(nn.Module):
         if inference_mode not in ('packed', 'dense'):
             raise ValueError(f'invalid inference_mode {inference_mode!r}')
         kh, kw = _pair(kernel_size)
-        fan_in = in_channels * kh * kw
+        fan_in = in_channels // groups * kh * kw
         self.kernel_size = (kh, kw)
         self.in_channels, self.features = in_channels, features
+        self.groups = groups
         self.x_quant, self.w_quant = x_quant, w_quant
         self.clamp = dict(clamp) if clamp else {'kind': 'identity'}
         self.stride, self.padding = stride, padding
@@ -459,10 +535,10 @@ class QuantConv2d(nn.Module):
         self.inference_mode = inference_mode
         self.pass_fusion, self.sign_compute = pass_fusion, sign_compute
         self.solver_mode = solver_mode
-        self.kernel = nn.Parameter(_uniform(
-            (kh, kw, in_channels, features), fan_in, generator))
-        self.bias = (nn.Parameter(_uniform((features,), fan_in, generator))
-                     if use_bias else None)
+        self.kernel = nn.Parameter(torch_conv_kernel_init()(
+            (kh, kw, in_channels // groups, features), generator))
+        self.bias = (nn.Parameter(torch_bias_init(fan_in)(
+            (features,), generator)) if use_bias else None)
         k_w = scheme_num_scales(w_quant)
         self.register_buffer(
             'w_vs', torch.zeros(k_w, features, dtype=torch.float32)
@@ -479,14 +555,24 @@ class QuantConv2d(nn.Module):
         return get_clamp_fn(**self.clamp)
 
     @property
+    def packable(self) -> bool:
+        """Whether the packed path can serve this conv: binary weights,
+        one group (JAX's grouped conv serves dense)."""
+        return self.w_quant != 'fp' and self.groups == 1
+
+    @property
     def packed(self) -> bool:
         """Whether this conv serves the packed path."""
-        return self.inference_mode == 'packed' and self.w_quant != 'fp'
+        return self.inference_mode == 'packed' and self.packable
 
     def _w_oi(self) -> torch.Tensor:
         if self.kernel is None or (self.w_quant != 'fp'
                                    and self.w_vs is None):
-            raise ValueError('stripped conv has no kernel to quantize')
+            raise ValueError(
+                'stripped conv has no kernel to quantize' + (
+                    f' (groups={self.groups}: a grouped conv serves the '
+                    'dense path, which needs the kernel)'
+                    if self.groups != 1 else ''))
         return torch.movedim(self.kernel, -1, 0)
 
     def pack(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -504,26 +590,23 @@ class QuantConv2d(nn.Module):
 
     def _dense(self, x: torch.Tensor) -> torch.Tensor:
         x_q = self.x_quantizer.quantize(self.clamp_fn()(x))
-        w_q = torch.movedim(quantize_with_scheme(
-            self.w_quant, self._w_oi(), self.w_vs)[1], 0, -1)
+        w_q = torch.movedim(quantize_weights(
+            self.w_quant, self._w_oi(), self.w_vs, False,
+            mode=self.solver_mode)[1], 0, -1)
         if x_q.dtype != w_q.dtype:
             raise TypeError(
                 'the dense conv takes operands of one dtype (as '
                 f'lax.conv_general_dilated), got {x_q.dtype} and '
                 f'{w_q.dtype}')
         return conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
-                      bias=self.bias).to(torch.float32)
+                      groups=self.groups, bias=self.bias).to(torch.float32)
 
     def _train(self, x: torch.Tensor, dtype: Optional[torch.dtype],
                band: Optional[BI.RowBand] = None) -> torch.Tensor:
-        w_oi = self._w_oi()
+        w_oi = quantize_weights(self.w_quant, self._w_oi(), self.w_vs, True,
+                                mode=self.solver_mode)[1]
         x_q = self.x_quantizer.quantize(
             self.clamp_fn()(x), self.space if band is not None else None)
-        if self.w_quant != 'fp':
-            w_vs, w_oi = quantize_with_scheme(self.w_quant, w_oi, None,
-                                              mode=self.solver_mode)
-            with torch.no_grad():
-                self.w_vs.copy_(w_vs)
         w_q, bias = torch.movedim(w_oi, 0, -1), self.bias
         if dtype is not None:
             x_q, w_q = x_q.to(dtype), w_q.to(dtype)
@@ -533,7 +616,7 @@ class QuantConv2d(nn.Module):
                                   bias)
         else:
             y = conv2d(x_q, w_q, stride=self.stride, padding=self.padding,
-                       bias=bias)
+                       groups=self.groups, bias=bias)
         return y if dtype is not None else y.to(torch.float32)
 
     def _sign_compute(self) -> str:

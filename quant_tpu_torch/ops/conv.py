@@ -5,8 +5,9 @@ to XLA; here they are PyTorch ops (F.conv2d / F.max_pool2d) over NCHW
 views of NHWC tensors, so the callers keep the reference's layouts.
 All of them are differentiable: `max_pool2d` routes a window's gradient
 to its first maximum in row-major order, as XLA's select_and_scatter
-does for reduce_window. A conv's output dtype is its operands' (JAX's
-callers pass preferred_element_type equal to it: float32, or the
+does for reduce_window. A conv's output dtype is its operands', so the
+convs take no preferred_element_type (XLA's accumulation type; JAX's
+callers pass one equal to the operands' dtype: float32, or the
 train_dtype of a bf16 chain, whose output stays bf16).
 """
 
@@ -30,14 +31,14 @@ class _StridedPointwiseCPU(torch.autograd.Function):
     forward F.conv2d's on the NHWC view, its backward on contiguous NCHW
     operands: oneDNN's backward of the channels-last view crashes the
     process at some small shapes (torch 2.13 CPU: batch 4, 8 channels,
-    16x16, stride 2)."""
+    16x16, stride 2). Grouped or not."""
 
     @staticmethod
     def forward(ctx: Any, x: torch.Tensor, w: torch.Tensor,
-                stride: tuple[int, int]) -> torch.Tensor:
+                stride: tuple[int, int], groups: int) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        ctx.stride = stride
-        return F.conv2d(x, w, stride=stride)
+        ctx.stride, ctx.groups = stride, groups
+        return F.conv2d(x, w, stride=stride, groups=groups)
 
     @staticmethod
     def backward(ctx: Any, g: torch.Tensor) -> tuple:
@@ -46,20 +47,26 @@ class _StridedPointwiseCPU(torch.autograd.Function):
         gx = gw = None
         if ctx.needs_input_grad[0]:
             gx = torch.nn.grad.conv2d_input(x.shape, w.contiguous(), g,
-                                            stride=ctx.stride)
+                                            stride=ctx.stride,
+                                            groups=ctx.groups)
         if ctx.needs_input_grad[1]:
             gw = torch.nn.grad.conv2d_weight(x.contiguous(), w.shape, g,
-                                             stride=ctx.stride)
-        return gx, gw, None
+                                             stride=ctx.stride,
+                                             groups=ctx.groups)
+        return gx, gw, None, None
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *,
            stride: IntOr2 = 1, padding: IntOr2 = 0,
+           dilation: IntOr2 = 1, groups: int = 1,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """2D convolution, NHWC x HWIO -> NHWC, symmetric integer padding.
 
-    Computes in x's dtype (w must match). The bias is added after the
-    conv's output rounding, in that dtype, as XLA does for `y + bias`.
+    w is (kh, kw, Cin // groups, Cout); the groups split Cin and Cout
+    into contiguous blocks, as XLA's feature_group_count does; dilation
+    spaces the kernel's taps. Computes in x's dtype (w must match). The
+    bias is added after the conv's output rounding, in that dtype, as
+    XLA does for `y + bias`.
     """
     x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
     stride, padding = _pair(stride), _pair(padding)
@@ -67,9 +74,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
             and (x.requires_grad or w.requires_grad)
             and w.shape[:2] == (1, 1) and stride != (1, 1)
             and padding == (0, 0)):
-        y = _StridedPointwiseCPU.apply(x_nchw, w_oihw, stride)
+        y = _StridedPointwiseCPU.apply(x_nchw, w_oihw, stride, groups)
     else:
-        y = F.conv2d(x_nchw, w_oihw, stride=stride, padding=padding)
+        y = F.conv2d(x_nchw, w_oihw, stride=stride, padding=padding,
+                     dilation=_pair(dilation), groups=groups)
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias

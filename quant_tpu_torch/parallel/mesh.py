@@ -52,6 +52,19 @@ def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
     return mesh[axis].size() if _has(mesh, axis) else 1
 
 
+def refuse_grouped_convs(model: torch.nn.Module, what: str) -> None:
+    """Raise ValueError naming the model's first grouped conv: `what`
+    (shard_model, band_model) has no rule for a grouped conv's slice of
+    channels or rows, and JAX's sharded and banded convs take no groups
+    either."""
+    for name, module in model.named_modules():
+        groups = getattr(module, 'groups', 1)
+        if groups != 1:
+            raise ValueError(
+                f'{what} does not take grouped convs: '
+                f'{name or type(module).__name__} has groups={groups}')
+
+
 def axis_index(mesh: Optional[DeviceMesh], axis: str) -> int:
     """This rank's coordinate along a mesh axis; 0 without a mesh or
     where the mesh has no such axis."""

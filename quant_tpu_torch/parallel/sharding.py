@@ -50,7 +50,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
-from quant_tpu_torch.parallel.mesh import axis_size
+from quant_tpu_torch.parallel.mesh import axis_size, refuse_grouped_convs
 from quant_tpu_torch.utils.jax_import import leaf_slots, to_jax_variables
 
 Placements = tuple  # one Placement a mesh dimension
@@ -286,11 +286,13 @@ def shard_model(model: nn.Module, mesh: Optional[DeviceMesh]) -> nn.Module:
     folds) is sharded once, as JAX places its variables after init and
     after every restore. A 'model' axis of one rank leaves it as it is.
     Sets `model.tp` (TensorParallel) and `model.tp_slots`, the (module,
-    attribute, collection, path, axis) of each sharded leaf.
+    attribute, collection, path, axis) of each sharded leaf. A grouped
+    conv raises ValueError (mesh.refuse_grouped_convs).
     """
-    tp = tensor_parallel(mesh)
-    if tp is None:
+    if axis_size(mesh, 'model') == 1:
         return model
+    refuse_grouped_convs(model, 'shard_model')
+    tp = tensor_parallel(mesh)
     if getattr(model, 'tp', None) is not None:
         raise ValueError('the model is sharded already')
     slots = []

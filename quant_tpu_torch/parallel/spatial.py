@@ -78,7 +78,7 @@ from quant_tpu_torch.ops.conv import IntOr2, _pair, conv2d, max_pool2d
 from quant_tpu_torch.ops.quantize import _rows32, solve_scales
 from quant_tpu_torch.parallel import global_stats
 from quant_tpu_torch.parallel.mesh import (
-    AxisGroup, all_reduce_flat, axis_index, axis_size,
+    AxisGroup, all_reduce_flat, axis_index, axis_size, refuse_grouped_convs,
 )
 from quant_tpu_torch.parallel.sharding import (
     Placements, all_gather_cat, replicated,
@@ -385,10 +385,12 @@ def band_model(model: nn.Module, mesh: Optional[DeviceMesh],
     parameters, to record whether it ran on bands. A forward then takes
     this rank's band of the input (local_band) and returns the whole
     logits on every rank of the group. An axis of one rank leaves the
-    model as it is."""
-    space = space_parallel(mesh, axis)
-    if space is None:
+    model as it is; a grouped conv raises ValueError
+    (mesh.refuse_grouped_convs)."""
+    if axis_size(mesh, axis) == 1:
         return model
+    refuse_grouped_convs(model, 'band_model')
+    space = space_parallel(mesh, axis)
     if getattr(model, 'space', None) is not None:
         raise ValueError('the model is banded already')
     if getattr(model, 'tp', None) is not None:

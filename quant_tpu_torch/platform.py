@@ -35,7 +35,13 @@ class ComputePlatform(ABC):
 
 
 class LocalComputePlatform(ComputePlatform):
-    def __init__(self, start_tensorboard: bool = True):
+    """Run the experiment in this process. `root_experiments_dir` is
+    kept for the caller, as JAX's platform keeps it (the experiment's
+    own directory comes from its config)."""
+
+    def __init__(self, root_experiments_dir: Optional[Path] = None,
+                 start_tensorboard: bool = True):
+        self.root = root_experiments_dir
         self.start_tensorboard = start_tensorboard
 
     def run(self, experiment: Experiment) -> tuple[list, list]:

@@ -32,15 +32,14 @@ from quant_tpu_torch.ops.quantize import solve_scales
 EMA_SCALES = (0.9, 0.45, 0.2)
 
 
-def bench_resnet18(x_quant: str, w_quant: str, block: str = 'xnor',
-                   **kwargs: Any) -> QResNet:
-    """ResNet-18 at 224 px and 1000 classes with symmetric clamp alpha 2,
-    PReLU and, for xnor blocks, the double shortcut (bench.py:59-77)."""
+def bench_resnet18_config(x_quant: str, w_quant: str,
+                          block: str = 'xnor') -> dict[str, Any]:
+    """QResNet's arguments for bench_resnet18 (bench.py:59-77)."""
     layer: dict[str, Any] = {'x_quant': x_quant, 'w_quant': w_quant,
                              'clamp': {'kind': 'symmetric', 'alpha': 2.0}}
     if block == 'xnor':
         layer['double_shortcut'] = True
-    return QResNet(
+    return dict(
         block=block,
         layer0={'n_in_channels': 64, 'kernel_size': 7, 'stride': 2,
                 'padding': 3, 'bias': False,
@@ -48,7 +47,15 @@ def bench_resnet18(x_quant: str, w_quant: str, block: str = 'xnor',
                             'stride': 2, 'padding': 1}},
         layer1=dict(layer), layer2=dict(layer), layer3=dict(layer),
         layer4=dict(layer), nonlins=['prelu', 'prelu'],
-        num_blocks=[2, 2, 2, 2], output_classes=1000, **kwargs)
+        num_blocks=[2, 2, 2, 2], output_classes=1000)
+
+
+def bench_resnet18(x_quant: str, w_quant: str, block: str = 'xnor',
+                   **kwargs: Any) -> QResNet:
+    """ResNet-18 at 224 px and 1000 classes with symmetric clamp alpha 2,
+    PReLU and, for xnor blocks, the double shortcut (bench.py:59-77)."""
+    return QResNet(**bench_resnet18_config(x_quant, w_quant, block),
+                   **kwargs)
 
 
 def imagenet_teacher(x_quant: str = 'fp', w_quant: str = 'fp',

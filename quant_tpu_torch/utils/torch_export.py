@@ -38,7 +38,7 @@ import torch
 from quant_tpu_torch.ops.quantize import scheme_num_scales
 
 __all__ = ['export_resnet_state_dict', 'export_lenet_state_dict',
-           'export_state_dict', 'numpy_to_state_dict']
+           'numpy_to_state_dict']
 
 
 def numpy_to_state_dict(sd: Mapping[str, np.ndarray]) -> dict:

@@ -34,7 +34,7 @@ from typing import Any, Mapping
 import numpy as np
 
 __all__ = ['import_resnet_state_dict', 'import_lenet_state_dict',
-           'merge_imported', 'state_dict_to_numpy']
+           'state_dict_to_numpy']
 
 
 def state_dict_to_numpy(state_dict: Mapping[str, Any]) -> dict:
