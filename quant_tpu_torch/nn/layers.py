@@ -27,6 +27,10 @@ Values reach the gradient through the straight-through `binarize` and
 the clamps' JAX gradients. Train forwards write state in place, so
 `state_unchanged` can keep a module's state as it was (a frozen
 teacher in train mode, the recomputation of a rematerialized block).
+
+A quantized conv's forward runs in a span of kind 'qconv' named
+`span_name`, each solve of scales (an activation quantizer's, a train
+forward's weight solve) in one of kind 'solve' (utils.profiling).
 """
 
 import math
@@ -46,6 +50,7 @@ from quant_tpu_torch.ops.quantize import (
     get_clamp_fn, quantize_with_scheme, scheme_num_scales, solve_scales,
     validate_scheme,
 )
+from quant_tpu_torch.utils.profiling import span
 
 IntOr2 = Union[int, Sequence[int]]
 DtypeLike = Union[None, str, torch.dtype]
@@ -311,9 +316,10 @@ def quantize_weights(scheme: str, w_oi: torch.Tensor,
         return None, w_oi
     if not train:
         return vs, quantize_with_scheme(scheme, w_oi, vs, skip, mode)[1]
-    solved, w_q = quantize_with_scheme(scheme, w_oi, None, skip, mode)
-    with torch.no_grad():
-        vs.copy_(solved)
+    with span('solve.w', 'solve'):
+        solved, w_q = quantize_with_scheme(scheme, w_oi, None, skip, mode)
+        with torch.no_grad():
+            vs.copy_(solved)
     return solved, w_q
 
 
@@ -396,10 +402,11 @@ class ActivationQuantizer(nn.Module):
         """The (k, N) scales this batch solves to (None for fp); of the
         whole samples where x is a band of a banded forward over
         `space`."""
-        if space is not None and space.banded:
-            return spatial.solve_band(space, self.scheme, x, self.skip,
-                                      self.solver_mode)
-        return solve_scales(self.scheme, x, self.skip, self.solver_mode)
+        with span('solve.x', 'solve'):
+            if space is not None and space.banded:
+                return spatial.solve_band(space, self.scheme, x, self.skip,
+                                          self.solver_mode)
+            return solve_scales(self.scheme, x, self.skip, self.solver_mode)
 
     def _track(self, batch_vs: torch.Tensor) -> torch.Tensor:
         """Blend the batch mean of batch_vs into the EMA; the blend."""
@@ -503,6 +510,7 @@ class QuantConv2d(nn.Module):
 
     tp: Optional[TensorParallel] = None
     space: Optional[spatial.SpatialParallel] = None
+    span_name = 'qconv'
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: IntOr2, *, x_quant: str = 'ls-1',
@@ -630,12 +638,13 @@ class QuantConv2d(nn.Module):
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 bn_folded: bool = False) -> torch.Tensor:
-        x, band = spatial.conv_band(self.space, x, self.kernel_size,
-                                    self.stride, self.padding)
-        if band is not None:
-            return self._forward(x, out_dtype, bn_folded, band)
-        return _gathered(self, self._forward(_sharded_input(self, x),
-                                             out_dtype, bn_folded))
+        with span(self.span_name, 'qconv'):
+            x, band = spatial.conv_band(self.space, x, self.kernel_size,
+                                        self.stride, self.padding)
+            if band is not None:
+                return self._forward(x, out_dtype, bn_folded, band)
+            return _gathered(self, self._forward(_sharded_input(self, x),
+                                                 out_dtype, bn_folded))
 
     def _b_fold(self) -> torch.Tensor:
         """b_fold, or this rank's slice of it when sharded."""

@@ -29,6 +29,7 @@ from quant_tpu_torch.nn.layers import (
 from quant_tpu_torch.ops.conv import max_pool2d
 from quant_tpu_torch.ops.pool import max_pool_3x3_s2_p1, pool_fusable
 from quant_tpu_torch.parallel import global_stats, spatial
+from quant_tpu_torch.utils.profiling import span
 
 
 def _nonlin(name: str) -> nn.Module:
@@ -43,7 +44,10 @@ def _nonlin(name: str) -> nn.Module:
 
 class _Shortcut(nn.Module):
     """Full-precision 1x1 conv + BN downsample, identity when the block
-    keeps its width and resolution."""
+    keeps its width and resolution. A downsample runs in a span of kind
+    'shortcut' named `span_name` (QResNet names it by its module path)."""
+
+    span_name = 'shortcut'
 
     def __init__(self, in_planes: int, planes: int, stride: int,
                  use_bias: bool,
@@ -60,7 +64,8 @@ class _Shortcut(nn.Module):
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if self.identity:
             return x
-        return self.norm(self.conv(x, dtype), dtype)
+        with span(self.span_name, 'shortcut'):
+            return self.norm(self.conv(x, dtype), dtype)
 
 
 class _Block(nn.Module):
@@ -294,7 +299,8 @@ class XnorBottleneckBlock(_Block):
 
 
 def remat_block(block: nn.Module, x: torch.Tensor,
-                dtype: Optional[torch.dtype]) -> torch.Tensor:
+                dtype: Optional[torch.dtype],
+                name: str = 'block') -> torch.Tensor:
     """block(x, dtype) under torch.utils.checkpoint, JAX's nn.remat: the
     backward pass recomputes the block's activations instead of keeping
     them. The recomputation starts from the state the forward saw and
@@ -307,7 +313,10 @@ def remat_block(block: nn.Module, x: torch.Tensor,
     and solves over 'space'). Every rank recomputes the same blocks in
     the same order, so the collectives line up; in a banded model each
     block is recomputed whole (no early stop), so every rank re-issues
-    all of its collectives whatever tensors autograd saved."""
+    all of its collectives whatever tensors autograd saved. The forward
+    and the recomputation each run in a span of kind 'block' named
+    `name` (utils.profiling), the recomputation on the thread that runs
+    the backward."""
     before = [(b, b.clone()) for b in block.buffers()]
     group = global_stats.current()
     space = global_stats.current_space()
@@ -315,15 +324,16 @@ def remat_block(block: nn.Module, x: torch.Tensor,
     ran = []
 
     def run(inp: torch.Tensor) -> torch.Tensor:
-        if not ran:
-            ran.append(True)
-            return block(inp, dtype)
-        with state_unchanged(block), global_stats.over(group):
-            with spatial.recompute(space, banded):
-                with torch.no_grad():
-                    for b, value in before:
-                        b.copy_(value)
+        with span(name, 'block'):
+            if not ran:
+                ran.append(True)
                 return block(inp, dtype)
+            with state_unchanged(block), global_stats.over(group):
+                with spatial.recompute(space, banded):
+                    with torch.no_grad():
+                        for b, value in before:
+                            b.copy_(value)
+                    return block(inp, dtype)
 
     whole = (contextlib.nullcontext() if space is None
              else set_checkpoint_early_stop(False))
@@ -378,6 +388,12 @@ class QResNet(nn.Module):
     its gradients flow back through the gathers, halos and average pool
     (parallel.spatial), with `remat` too (each block recomputed on its
     bands, `remat_block`).
+
+    A forward runs in spans (utils.profiling): 'forward' (kind 'model'),
+    inside it 'stem' (the input cast, conv, BN, ReLU and pool), one
+    span of kind 'block' a block under its module name, and 'head'
+    (global pool, fc, the cast to float32 logits); each quantized conv
+    and downsample shortcut opens its own, named by its module path.
 
     Builds on `device` ('cuda' by default; raises if CUDA is missing).
     """
@@ -446,6 +462,9 @@ class QResNet(nn.Module):
                 self.block_names.append(name)
                 in_planes = planes * expansion
         self.fc = Dense(in_planes, output_classes, generator=generator)
+        for path, m in self.named_modules():
+            if isinstance(m, (QuantConv2d, _Shortcut)):
+                m.span_name = path
         self.to(dev)
         self.eval()
 
@@ -455,10 +474,11 @@ class QResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> float32 logits (eval under torch.no_grad)."""
-        if self.training:
-            return self._forward(x, self.train_dtype, False)
-        with torch.no_grad():
-            return self._forward(x, self.eval_dtype, self.bn_fold)
+        with span('forward', 'model'):
+            if self.training:
+                return self._forward(x, self.train_dtype, False)
+            with torch.no_grad():
+                return self._forward(x, self.eval_dtype, self.bn_fold)
 
     def _forward(self, x: torch.Tensor, dt: Optional[torch.dtype],
                  bn_fold: bool) -> torch.Tensor:
@@ -484,14 +504,20 @@ class QResNet(nn.Module):
 
     def _layers(self, x: torch.Tensor, dt: Optional[torch.dtype],
                 bn_fold: bool) -> torch.Tensor:
-        if dt is not None:
-            x = x.to(dt)
-        x = torch.relu(self.bn1(self.conv1(x, dt), dt))
-        if self.maxpool['type'] == 'maxpool2d':
-            x = self._pool(x)
+        with span('stem', 'stem'):
+            if dt is not None:
+                x = x.to(dt)
+            x = torch.relu(self.bn1(self.conv1(x, dt), dt))
+            if self.maxpool['type'] == 'maxpool2d':
+                x = self._pool(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
-        for _, blk in self.blocks():
+        for name, blk in self.blocks():
             x = spatial.block_input(self.space, blk, x)
-            x = remat_block(blk, x, dt) if remat else blk(x, dt, bn_fold)
-        logits = self.fc(spatial.global_avg_pool(self.space, x), dt)
-        return logits.to(torch.float32)
+            if remat:
+                x = remat_block(blk, x, dt, name)
+            else:
+                with span(name, 'block'):
+                    x = blk(x, dt, bn_fold)
+        with span('head', 'head'):
+            logits = self.fc(spatial.global_avg_pool(self.space, x), dt)
+            return logits.to(torch.float32)

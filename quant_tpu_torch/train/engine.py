@@ -60,10 +60,43 @@ from quant_tpu_torch.train.metrics import (
     update_metric_state_masked,
 )
 from quant_tpu_torch.train.state import TrainState
+from quant_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
 Hook = Callable[..., None]
+
+PHASE_SPANS = {'forward': 'train.forward', 'teacher': 'train.teacher',
+               'backward': 'train.backward', 'optimizer': 'train.optimizer'}
+
+
+class _Phases:
+    """A train step's marks: each closes the open phase's span, calls
+    the phase hook with its name and opens the next phase's span ('end'
+    opens none); leaving the context closes the open one."""
+
+    def __init__(self, hook: Optional[Callable[[str], None]]):
+        self.hook = hook
+        self.open: Any = None
+
+    def __call__(self, name: str) -> None:
+        self._close()
+        if self.hook is not None:
+            self.hook(name)
+        if name in PHASE_SPANS:
+            self.open = span(PHASE_SPANS[name], 'phase')
+            self.open.__enter__()
+
+    def _close(self) -> None:
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.open = None
+
+    def __enter__(self) -> '_Phases':
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self._close()
 
 
 def _accepts_metrics(hook: Hook) -> bool:
@@ -111,7 +144,10 @@ def make_train_step(loss_fn: Callable,
             (train.kd.make_teacher_apply).
         phase_hook: optional, called with 'forward', 'teacher',
             'backward', 'optimizer' and 'end' as each part of the step
-            starts (and it ends), e.g. to record CUDA events.
+            starts (and it ends), e.g. to record CUDA events. The step
+            runs in a span of kind 'step' named 'train.step', each part
+            in one of kind 'phase' (PHASE_SPANS) that opens and closes
+            at the same marks (utils.profiling).
         mesh: optional DeviceMesh (parallel.make_mesh, or one with a
             'space' axis) whose 'data' ranks step together on one
             logical batch, whose 'model' ranks hold a model sharded over
@@ -122,12 +158,14 @@ def make_train_step(loss_fn: Callable,
     group = data_group(mesh)
     banded = axis_size(mesh, 'space') > 1
 
-    def mark(name: str) -> None:
-        if phase_hook is not None:
-            phase_hook(name)
-
     def step(state: TrainState, data: torch.Tensor, target: torch.Tensor,
              metric_state: dict) -> tuple[TrainState, dict, torch.Tensor]:
+        with span('train.step', 'step'), _Phases(phase_hook) as mark:
+            return marked(state, data, target, metric_state, mark)
+
+    def marked(state: TrainState, data: torch.Tensor, target: torch.Tensor,
+               metric_state: dict, mark: _Phases
+               ) -> tuple[TrainState, dict, torch.Tensor]:
         model, optimizer = state.model.train(), state.optimizer
         if banded and getattr(model, 'space', None) is None:
             raise ValueError("the mesh has a 'space' axis but the model is "
