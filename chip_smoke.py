@@ -68,11 +68,12 @@ the chip-probe path:
    per-batch scales (moving_average_mode 'off', opt_v1 exact); and
    ResNet-18 XNOR ls-2 x ls-1 'off' on the int8 route (OFF_PHASE: the
    multi-plane kernels under per-sample solved scales, its solves timed
-   and held to the CPU's). Each phase that launches the multi-plane conv
-   (ls-T, ls-2 int8, and OFF_PHASE) holds it and the producer against
-   their twins on its captured inputs and times them there: one kernels
-   row a phase, with the registers and blocks an SM of the instance it
-   takes;
+   and held to the CPU's; the lloyd solve kernel held to its plain twin
+   on the same inputs and both timed at LLOYD_BATCH). Each phase that
+   launches the multi-plane conv (ls-T, ls-2 int8, and OFF_PHASE) holds
+   it and the producer against their twins on its captured inputs and
+   times them there: one kernels row a phase, with the registers and
+   blocks an SM of the instance it takes;
 8. runs the oracle phase (ORACLE_RUNS): apple/ml-quant's own small
    XNOR ResNet (ls-2 x ls-1) and LeNet-5 (ls-1 x ls-1) from
    tests/data_oracle, their state dicts imported through
@@ -308,6 +309,10 @@ PROBE_KERNELS = ('add_f32', 'tiled_matmul_bf16', 'tiled_matmul_int8')
 # The kernels of the serving paths, launched by the model phases.
 SERVING_KERNELS = ('xnor_conv2d', 'xnor_conv2d_planes', 'pack_sign_planes',
                    'max_pool_3x3_s2_p1', 'xnor_gemm')
+# The per-sample solve's kernel, launched by lloyd solves only.
+SOLVE_KERNELS = ('lloyd_solve_rows',)
+# Every counted kernel: a launch dict compares over all of them.
+KERNELS = SERVING_KERNELS + PROBE_KERNELS + SOLVE_KERNELS
 # Models of the model phases: key: (build(x_quant, w_quant, **kwargs),
 # input (H, W, C), its QuantConv2d count, stem pool launches a forward).
 PHASE_MODELS = {
@@ -387,6 +392,12 @@ CALIBRATION_REL_TOL = FP32_REL_TOL
 SOLVE_TOL = dict(rtol=1e-5, atol=1e-6)
 SOLVE_COST_TOL = 1e-5
 SOLVE_CHECK_ROWS = 8  # samples of each conv input solved on both
+# The lloyd solve kernel against its plain twin on the card, on OFF_PHASE's
+# captured conv inputs with their samples repeated to LLOYD_BATCH rows (the
+# flagship's 16 inputs at the KD cell's batch), ls-2 and ls-T, bf16 and
+# float32: v1 within SOLVE_TOL, else its cost within SOLVE_COST_TOL of the
+# twin's; ls-2's v2 within SOLVE_TOL where v1 is; two calls the same bits.
+LLOYD_BATCH = 256
 # The serving stack: requests a phase sends, and the worker spec
 # (ResNet-18, 224 px, 1000 classes; the seed and device are added).
 SERVING_REQUESTS = 64
@@ -749,7 +760,8 @@ SPACE_KD_LOSS_RTOL = 2e-2
 # each alone on the card (rank 0, the other rank waiting). (e) The state
 # (d) trained with remat, packed and served banded on the int8 route
 # against the same state served unsharded: SPACE_REMAT_SERVE launches a
-# forward a rank, the producer at k = 2, every call equal to its twin,
+# forward a rank (the recipe serves 'off': each conv's lloyd solve on the
+# gathered samples), the producer at k = 2, every call equal to its twin,
 # the float32 logits within TP_F32_TOL, bf16 within TP_BF16_REL_TOL of
 # the spread. (f) Each SPACE_STEP_CASES student with remat, banded,
 # under (a)'s gate against one process's remat step. (g) The
@@ -762,7 +774,7 @@ SPACE_REMAT_CONFIG = 'ls2_ls1_kd_tpu'
 SPACE_REMAT_ROUNDS = ('on', 'off', 'off', 'on')
 SPACE_REMAT_OPTIONS = {'sign_compute': 'int8'}
 SPACE_REMAT_SERVE = {'xnor_conv2d_planes': 16, 'pack_sign_planes': 16,
-                     'max_pool_3x3_s2_p1': 1}
+                     'max_pool_3x3_s2_p1': 1, 'lloyd_solve_rows': 16}
 
 # The API phase (api_phase): (a) the main path's ResNet-18
 # (seeded_serving_resnet18) built through the package-level
@@ -1495,7 +1507,7 @@ def model_phase(name: str, build: str, x_quant: str, w_quant: str,
     model.eval_dtype = None if dense else torch.bfloat16
     x = torch.randn((batch,) + hwc, generator=torch.Generator().manual_seed(
         seed)).to(DEVICE)
-    want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
+    want = {k: 0 for k in KERNELS}
     want.update({k: v * n_convs for k, v in per_conv.items()})
     want['max_pool_3x3_s2_p1'] = pools
     seen, hooks = capture_conv_inputs(model)
@@ -1735,17 +1747,110 @@ def _solve_rows(seen: list) -> dict:
                 v1_max_rel_shift_one_ulp=shift)
 
 
+def _lloyd_check(rows: torch.Tensor, ternary: bool, skip: int) -> dict:
+    """lloyd_solve on the card against its plain twin on the same CUDA
+    rows (LLOYD_BATCH's comment); raises past the limits."""
+    from quant_tpu_torch.ops import optimal as O
+
+    with_v2 = not ternary
+    got = O.lloyd_solve(rows, ternary, skip, with_v2)
+    again = O.lloyd_solve(rows, ternary, skip, with_v2)
+    if not torch.equal(got, again):
+        raise AssertionError('lloyd_solve_rows gave other bits a second time')
+    want = O.lloyd_solve_plain(rows, ternary, skip, with_v2)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    v1, v1_plain = (got[0], want[0]) if with_v2 else (got, want)
+    close = np.isclose(v1, v1_plain, **SOLVE_TOL)
+    far = ~close
+    if far.any():
+        sub = rows.float().cpu().numpy()[far][:, ::skip]
+        norms = np.linalg.norm(sub.astype(np.float64), axis=1)
+        if not (_v1_cost(sub, v1[far], ternary)
+                <= _v1_cost(sub, v1_plain[far], ternary)
+                + SOLVE_COST_TOL * norms).all():
+            raise AssertionError('lloyd_solve_rows costs more than its twin')
+    v2_err = 0.0
+    if with_v2:
+        if not np.allclose(got[1][close], want[1][close], **SOLVE_TOL):
+            raise AssertionError('lloyd_solve_rows v2 off its twin')
+        v2_err = float((np.abs(got[1] - want[1])[close]
+                        / np.maximum(np.abs(want[1][close]), 1e-30)).max(
+                            initial=0.0))
+    return dict(v1_max_rel_err=float((np.abs(v1 - v1_plain) / np.maximum(
+        np.abs(v1_plain), 1e-30)).max()), rows_past_tol=int(far.sum()),
+        v2_max_rel_err=v2_err)
+
+
+def lloyd_phase(seen: list, seen32: list, iters: int) -> dict:
+    """The lloyd solve kernel (csrc/solve.cu) on the clamped conv inputs
+    of an ls-2 model's bf16 forward (seen) and float32 chain (seen32):
+    held to its plain twin (_lloyd_check: ls-2 and ls-T, each dtype, the
+    float32 chain's few rows spread over clusters), then timed on the
+    bf16 inputs with each sample repeated to LLOYD_BATCH rows, in bf16
+    and in float32: card ms of the ls-2 solves of the 16 inputs summed,
+    the twin's, the bound (each row's bytes read once at the HBM rate),
+    the launches of one such forward and each distinct shape's layout
+    (cluster, shared memory, registers, blocks an SM). Returns the
+    record."""
+    from quant_tpu_torch import _build
+    from quant_tpu_torch.ops import optimal as O
+
+    checks: dict = {}
+    for key, captured in (('bf16', seen), ('f32', seen32)):
+        for ternary in (False, True):
+            worst: dict = {}
+            for conv, xin in captured:
+                xc = conv.clamp_fn()(xin)
+                r = _lloyd_check(xc.reshape(xc.shape[0], -1), ternary,
+                                 conv.x_quantizer.skip)
+                for k, v in r.items():
+                    worst[k] = max(worst.get(k, 0), v)
+            checks[f'{key}_{"ls-T" if ternary else "ls-2"}'] = worst
+    rows = []
+    for conv, xin in seen:
+        xc = conv.clamp_fn()(xin).reshape(xin.shape[0], -1)
+        reps = -(-LLOYD_BATCH // xc.shape[0])
+        rows.append((xc.repeat(reps, 1)[:LLOYD_BATCH].contiguous(),
+                     conv.x_quantizer.skip))
+    timed: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        batch = [(r.to(dtype), skip) for r, skip in rows]
+        _build.reset_launch_counts()
+        for r, skip in batch:
+            O.lloyd_solve(r, False, skip, True)
+        torch.cuda.synchronize()
+        launches = launch_counts().get('lloyd_solve_rows', 0)
+        if launches != len(batch):
+            raise AssertionError(f'lloyd_solve_rows launched {launches} '
+                                 f'times for {len(batch)} solves')
+        layouts = {}
+        for r, skip in batch:
+            layouts.setdefault(str(r.shape[1]), O.lloyd_solve_layout(
+                dtype, r.shape[0], r.shape[1], skip))
+        n_bytes = sum(r.numel() * r.element_size() for r, _ in batch)
+        timed[str(dtype).split('.')[-1]] = dict(
+            ms=sum(card_ms(lambda r=r, s=s: O.lloyd_solve(r, False, s, True),
+                           iters) for r, s in batch),
+            plain_ms=sum(card_ms(lambda r=r, s=s: O.lloyd_solve_plain(
+                r, False, s, True), max(1, iters // 5)) for r, s in batch),
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bytes=n_bytes,
+            launches=launches, layouts=layouts)
+    return dict(batch=LLOYD_BATCH, convs=len(rows), checks=checks,
+                timed=timed)
+
+
 def solve_phase(seen: list, seen32: list, iters: int) -> dict:
     """The per-sample activation solves of an 'off' model: card ms summed
-    over the convs of its bf16 forward (the whole batch), and _solve_rows
+    over the convs of its bf16 forward (the whole batch), _solve_rows
     on the inputs of that forward (bf16 values) and of its float32 chain
-    (seen32). Returns the record."""
+    (seen32), and lloyd_phase on the same inputs. Returns the record."""
     ms = 0.0
     for conv, xin in seen:
         xc = conv.clamp_fn()(xin)
         ms += card_ms(lambda: conv.x_quantizer.solve(xc), iters)
     return dict(solve_ms=ms, convs=len(seen), bf16_rows=_solve_rows(seen),
-                f32_rows=_solve_rows(seen32))
+                f32_rows=_solve_rows(seen32),
+                lloyd=lloyd_phase(seen, seen32, iters))
 
 
 def _timed_futures(submit: Callable, images: np.ndarray
@@ -1821,7 +1926,7 @@ def frontend_phase(model: torch.nn.Module, seed: int) -> dict:
     finally:
         frontend.stop()
     batches = stats['batches']
-    want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
+    want = {k: 0 for k in KERNELS}
     want.update(xnor_conv2d=16 * batches, pack_sign_planes=16 * batches,
                 max_pool_3x3_s2_p1=batches)
     if launches != want:
@@ -2153,14 +2258,26 @@ def remat_check(seed: int) -> dict:
     return record
 
 
+def lloyd_launches(convs: int, x_quant: str, w_quant: str,
+                   options: dict) -> int:
+    """lloyd_solve_rows launches a train step of a student of `convs`
+    QuantConv2d, each inside a block: one a conv for its activation and
+    one for its weight solve where that scheme is ls-2 or ls-T and the
+    solver lloyd, twice under remat (the recomputation solves again)."""
+    if options.get('solver_mode') != 'lloyd':
+        return 0
+    solved = sum(q in ('ls-2', 'ls-T') for q in (x_quant, w_quant))
+    return convs * solved * (2 if options.get('remat') else 1)
+
+
 def train_phase(name: str, seed: int) -> tuple[dict, Any]:
     """One train configuration at TRAIN_BATCH: TRAIN_WARMUP steps, then
     TRAIN_STEPS through make_train_step and train_epoch on one fixed
     seeded batch, timed with CUDA events at each part of the step. The
     loss must be finite at every step and fall from the first step to
     the last, and the timed steps launch the stem pool kernel once a
-    step (the teacher's) and no other kernel. Returns (record, the train
-    state)."""
+    step (the teacher's), the lloyd solve kernel lloyd_launches' times a
+    step and no other kernel. Returns (record, the train state)."""
     from quant_tpu_torch import _build
     from quant_tpu_torch import train as T
 
@@ -2211,8 +2328,15 @@ def train_phase(name: str, seed: int) -> tuple[dict, Any]:
     print(json.dumps({'train_phase': record}), flush=True)
     # The teacher's forward records no gradient, so its stem pool is the
     # kernel; the student's differentiable pool is not.
-    if launches != {'max_pool_3x3_s2_p1': TRAIN_STEPS}:
-        raise AssertionError(f'{name}: launches {launches}')
+    from quant_tpu_torch.nn.layers import QuantConv2d
+    want = {'max_pool_3x3_s2_p1': TRAIN_STEPS}
+    solves = lloyd_launches(
+        sum(isinstance(m, QuantConv2d) for m in student.modules()),
+        x_quant, w_quant, options) * TRAIN_STEPS
+    if solves:
+        want['lloyd_solve_rows'] = solves
+    if launches != want:
+        raise AssertionError(f'{name}: launches {launches}, expected {want}')
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f'{name}: losses {losses}')
     if not losses[-1] < losses[0]:
@@ -4347,6 +4471,8 @@ def _space_run(spec: dict, x_quant: str, w_quant: str, mesh: Any,
     out['signs'] = seen
     if timed:
         out['launches'] = _build.launch_counts()
+        out['quant_convs'] = sum(isinstance(m, QuantConv2d)
+                                 for m in student.modules())
         out['max_memory_allocated'] = (torch.cuda.max_memory_allocated()
                                        if DEVICE == 'cuda' else 0)
         parts = ('forward', 'teacher', 'backward', 'optimizer')
@@ -4559,7 +4685,7 @@ def _space_train(mesh: Any, spec: dict) -> dict:
 
 _REMAT_KEYS = ('losses', 'digests', 'grad_digests', 'ms_per_step',
                'split_ms', 'max_memory_allocated', 'launches',
-               'collectives', 'recomputed')
+               'collectives', 'recomputed', 'quant_convs')
 
 
 def _space_remat(mesh: Any, spec: dict) -> dict:
@@ -4872,6 +4998,18 @@ def _served_gates(serve: list, what: str) -> dict:
                    'whole': lead['bf16']['whole_engine_ms']})
 
 
+def _remat_per_step(remat: bool, convs: int) -> dict[str, int]:
+    """A rank's launches a banded step of SPACE_REMAT_CONFIG, whose
+    student has `convs` QuantConv2d: the teacher's stem pool, and the
+    lloyd solves of the student's convs, each on the gathered samples."""
+    _, xq, wq, options, _ = train_profile.CONFIGS[SPACE_REMAT_CONFIG]
+    out = {'max_pool_3x3_s2_p1': 1}
+    solves = lloyd_launches(convs, xq, wq, dict(options, remat=remat))
+    if solves:
+        out['lloyd_solve_rows'] = solves
+    return out
+
+
 def _space_remat_gates(rem: list) -> dict:
     """The gates of parts (d) and (e) over the ranks' records
     (SPACE_REMAT_CONFIG's comment); the phase's remat record."""
@@ -4905,7 +5043,8 @@ def _space_remat_gates(rem: list) -> dict:
         equal=[r['equal'] for r in rem], losses=rem[0]['on']['losses'],
         single_losses={k: v['losses'] for k, v in rem[0]['single'].items()},
         per_step={key: [_tp_launches(r[key]['launches'], steps,
-                                     {'max_pool_3x3_s2_p1': 1})
+                                     _remat_per_step(key == 'on',
+                                                     r[key]['quant_convs']))
                         for r in rem] for key in ('on', 'off')},
         captured=captured,
         calls=[r['on']['captured']['calls'] for r in rem],
@@ -5252,7 +5391,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     launches = launch_counts()
     for h in hooks:
         h.remove()
-    want = {k: 0 for k in SERVING_KERNELS + PROBE_KERNELS}
+    want = {k: 0 for k in KERNELS}
     want.update(xnor_conv2d=16, pack_sign_planes=16, max_pool_3x3_s2_p1=1)
     if launches != want:
         raise AssertionError(f'launches {launches}, expected {want}')

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / 'quant_tpu_torch'
-SOURCES = ('xnor', 'pool', 'probe')
+SOURCES = ('xnor', 'pool', 'probe', 'solve')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 

@@ -29,9 +29,35 @@ The JAX package computes this in XLA (sort, cumsum, elementwise, argmin);
 so does this port, with PyTorch's ops, in float32 on detached rows. Op
 order follows JAX's, so a difference comes only from the order of a
 reduction (cumsum, sum), a few ulps.
+
+'lloyd' on a CUDA tensor is one launch of the kernel in csrc/solve.cu
+(`lloyd_solve`), which also gives ls-2's v2 (`with_v2`); on a CPU tensor
+its plain twin, `lloyd_solve_plain`, the PyTorch ops above. Both run the
+same float32 ops and differ only in the order of their sums; the kernel's
+order is fixed, so a row gives the same bits in every call.
 """
 
+import ctypes
+
 import torch
+
+from quant_tpu_torch import _build
+from quant_tpu_torch.ops.ste import binary_sign
+
+_SOLVE_SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p]
+_SIGNATURES = {'qtt_lloyd_solve_rows_f32': _SOLVE_SIG,
+               'qtt_lloyd_solve_rows_bf16': _SOLVE_SIG,
+               'qtt_lloyd_solve_layout': [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_void_p]}
+_ENTRY = {torch.float32: 'qtt_lloyd_solve_rows_f32',
+          torch.bfloat16: 'qtt_lloyd_solve_rows_bf16'}
+LAYOUT_KEYS = ('cluster', 'threads', 'rounds', 'smem_bytes', 'on_chip',
+               'registers', 'blocks_per_sm')
+
+launches = _build.LaunchCounter('lloyd_solve_rows')
 
 
 def _candidate_costs(m: int, v: torch.Tensor, prefix_count: torch.Tensor,
@@ -170,6 +196,58 @@ def _opt_v1_lloyd(matrix: torch.Tensor, ternary: bool, skip: int = 1,
     return _take(v1[..., 0], costs)
 
 
+def lloyd_solve_plain(rows: torch.Tensor, ternary: bool, skip: int,
+                      with_v2: bool) -> torch.Tensor:
+    """Plain twin of lloyd_solve: v1 by `_opt_v1_lloyd` over the float32
+    rows, and with_v2 also v2 = mean |row - v1 * sign(row)|."""
+    xd = rows.detach().to(torch.float32)
+    v1 = _opt_v1_lloyd(xd, ternary, skip)
+    if not with_v2:
+        return v1
+    residual = xd - v1[:, None] * binary_sign(xd)
+    return torch.stack([v1, residual.abs().mean(dim=-1)])
+
+
+def lloyd_solve(rows: torch.Tensor, ternary: bool, skip: int,
+                with_v2: bool) -> torch.Tensor:
+    """The 'lloyd' solve of each row of a 2D (R, N) tensor, bf16 or
+    float32, detached: v1 (R,), or with_v2 the (2, R) ls-2 scales (v1 and
+    the mean absolute residual over the whole row), float32. One kernel
+    launch for a CUDA tensor, the plain twin for a CPU one."""
+    _build.require(rows.ndim == 2, f'expected (R, N) rows, got {rows.shape}')
+    if _build.on_cpu(rows):
+        return lloyd_solve_plain(rows, ternary, skip, with_v2)
+    _build.require(rows.dtype in _ENTRY, f'unsupported dtype {rows.dtype}')
+    rows = rows.detach()
+    if rows.stride(1) != 1:
+        rows = rows.contiguous()
+    r, n = rows.shape
+    out = torch.empty((2, r) if with_v2 else (r,), dtype=torch.float32,
+                      device=rows.device)
+    lib = _build.load('solve', _SIGNATURES)
+    status = getattr(lib, _ENTRY[rows.dtype])(
+        _build.ptr(rows), rows.stride(0), r, n, skip, int(ternary),
+        int(with_v2), _build.ptr(out), _build.stream(rows))
+    _build.check(lib, status, 'lloyd_solve_rows')
+    launches.bump()
+    return out
+
+
+def lloyd_solve_layout(dtype: torch.dtype, rows: int, n: int,
+                       skip: int = 3) -> dict[str, int]:
+    """How lloyd_solve launches for R rows of N values of `dtype`
+    (LAYOUT_KEYS: cluster size, threads a block, rounds, dynamic shared
+    memory, on chip or streamed, registers a thread, blocks an SM), from
+    the built library on the current CUDA device."""
+    _build.require(dtype in _ENTRY, f'unsupported dtype {dtype}')
+    lib = _build.load('solve', _SIGNATURES)
+    info = (ctypes.c_int * len(LAYOUT_KEYS))()
+    status = lib.qtt_lloyd_solve_layout(int(dtype == torch.bfloat16), rows,
+                                        n, skip, info)
+    _build.check(lib, status, 'lloyd_solve_layout')
+    return dict(zip(LAYOUT_KEYS, info))
+
+
 def opt_v1(matrix: torch.Tensor, ternary: bool, skip: int = 1,
            mode: str = 'exact') -> torch.Tensor:
     """Optimal per-row v1 for the ls-2 / ls-T quantizers.
@@ -185,7 +263,7 @@ def opt_v1(matrix: torch.Tensor, ternary: bool, skip: int = 1,
         v1 of shape (rows,), float32, detached.
     """
     if mode == 'lloyd':
-        return _opt_v1_lloyd(matrix, ternary, skip)
+        return lloyd_solve(matrix, ternary, skip, with_v2=False)
     if mode not in ('exact', 'reference'):
         raise ValueError(f"opt_v1 mode must be 'exact', 'reference' or "
                          f"'lloyd', got {mode}")

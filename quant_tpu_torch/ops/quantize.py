@@ -20,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from quant_tpu_torch.ops.optimal import opt_v1
+from quant_tpu_torch.ops.optimal import lloyd_solve, opt_v1
 from quant_tpu_torch.ops.ste import binarize, binary_sign
 
 _LS_SCALES = {'fp': 0, 'ls-1': 1, 'ls-2': 2, 'ls-T': 1}
@@ -64,9 +64,14 @@ def scheme_num_scales(scheme: str) -> int:
     return int(scheme.split('-')[1])
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """Detached row view in x's dtype (opt_v1 solves it in float32)."""
+    return x.detach().reshape(x.shape[0], -1)
+
+
 def _rows32(x: torch.Tensor) -> torch.Tensor:
     """Detached float32 row view: the solver operand."""
-    return x.detach().reshape(x.shape[0], -1).to(torch.float32)
+    return _rows(x).to(torch.float32)
 
 
 def _per_row(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -96,7 +101,9 @@ def quantizer_ls_1(x: torch.Tensor, v1: Optional[torch.Tensor] = None
 
 def _solve_ls_2(x: torch.Tensor, skip: int, mode: str) -> torch.Tensor:
     """(2, rows): v1 = opt_v1 of the rows, v2 = mean |residual|, both
-    over the float32 rows."""
+    over the float32 rows; 'lloyd' solves both in one lloyd_solve."""
+    if mode == 'lloyd':
+        return lloyd_solve(_rows(x), ternary=False, skip=skip, with_v2=True)
     xd = _rows32(x)
     v1 = opt_v1(xd, ternary=False, skip=skip, mode=mode)
     residual = xd - v1[:, None] * binary_sign(xd)
@@ -126,7 +133,7 @@ def quantizer_ls_ternary(x: torch.Tensor, vs: Optional[torch.Tensor] = None,
     """Ternary least-squares quantization: x_q = v1*(b1 + sign(x -
     v1*b1)), values in {-2v1, 0, +2v1}; v1 the per-row ternary optimum
     (opt_v1) unless vs gives (1, rows)."""
-    v1 = (opt_v1(_rows32(x), ternary=True, skip=skip, mode=mode)
+    v1 = (opt_v1(_rows(x), ternary=True, skip=skip, mode=mode)
           if vs is None else vs[0].reshape(-1))
     b1 = binarize(x)
     v1b = _per_row(v1, x)
@@ -172,7 +179,7 @@ def solve_scales(scheme: str, x: torch.Tensor, skip: int = 3,
     if scheme == 'ls-2':
         return _solve_ls_2(x, skip, mode)
     if scheme == 'ls-T':
-        return opt_v1(_rows32(x), ternary=True, skip=skip, mode=mode)[None]
+        return opt_v1(_rows(x), ternary=True, skip=skip, mode=mode)[None]
     return _solve_gf(x, scheme_num_scales(scheme))
 
 

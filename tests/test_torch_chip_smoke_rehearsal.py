@@ -26,7 +26,7 @@ def test_chip_smoke_runs_end_to_end_on_cpu(monkeypatch, capsys, tmp_path):
     own rehearsal files run them): every other phase, the kernels line
     and the last line."""
     R.patch(monkeypatch, [R.MAIN, *R.API, R.FRONTEND, *R.phase_counts(),
-                          *R.ORACLE, *R.TRAIN, R.PROBE])
+                          *R.LLOYD, *R.ORACLE, *R.TRAIN, R.PROBE])
     R.leave_out(monkeypatch, *LEFT_OUT)
     report = tmp_path / 'report.json'
     assert chip_smoke.main(['--batch', '2', '--iters', '1',
@@ -105,6 +105,16 @@ def test_chip_smoke_runs_end_to_end_on_cpu(monkeypatch, capsys, tmp_path):
     for rows in ('bf16_rows', 'f32_rows'):
         assert solves[rows]['v1_max_rel_err'] == 0.0
         assert solves[rows]['rows_past_tol'] == 0
+    # The lloyd solve against its twin: here both the twin.
+    lloyd = solves['lloyd']
+    assert lloyd['batch'] == chip_smoke.LLOYD_BATCH and lloyd['convs'] == 8
+    assert set(lloyd['checks']) == {'bf16_ls-2', 'bf16_ls-T', 'f32_ls-2',
+                                    'f32_ls-T'}
+    for check in lloyd['checks'].values():
+        assert check == dict(v1_max_rel_err=0.0, rows_past_tol=0,
+                             v2_max_rel_err=0.0)
+    for timed in lloyd['timed'].values():
+        assert timed['launches'] == 8 and timed['bound_ms'] > 0
     assert [r['model'] for r in report['recipes']] == ['resnet50', 'lenet']
     for r in report['recipes']:
         assert r['ema_max_rel_err'] == 0.0 and r['quantizers'] > 0
@@ -115,13 +125,13 @@ def test_chip_smoke_runs_end_to_end_on_cpu(monkeypatch, capsys, tmp_path):
     lines_train = [json.loads(ln)['train_phase'] for ln in lines
                    if ln.startswith('{"train_phase"')]
     assert lines_train == train['configs']
-    for c in train['configs']:
+    for c, counts in zip(train['configs'], R.TRAIN):
         assert len(c['losses']) == chip_smoke.TRAIN_STEPS
         assert c['losses'][-1] < c['losses'][0]
         assert set(c['split_ms']) == {'forward', 'teacher', 'backward',
                                       'optimizer'}
         assert c['batch'] == 2 and c['images_per_s'] > 0
-        assert c['launches'] == {'max_pool_3x3_s2_p1': 10}
+        assert c['launches'] == {k: v for k, v in counts.items() if v}
     cpu = train['against_cpu']
     assert cpu['loss_rel_err'] == cpu['grad_rel_err'] == 0.0
     assert cpu['grad_median_leaf_err'] == cpu['grad_worst_leaf_err'] == 0.0

@@ -51,8 +51,11 @@ def test_spatial_train_phase_runs_on_cpu(monkeypatch, capsys):
                          'digests': True}
     assert len(remat['losses']) == 2
     assert remat['single_losses']['on'] == remat['single_losses']['off']
-    assert remat['per_step'] == {'on': [{'max_pool_3x3_s2_p1': 1}] * 2,
-                                 'off': [{'max_pool_3x3_s2_p1': 1}] * 2}
+    # A step's stem pool (the teacher's) and the lloyd solves of the
+    # small student's 8 convs, again in the recomputation.
+    assert remat['per_step'] == {
+        'on': [{'max_pool_3x3_s2_p1': 1, 'lloyd_solve_rows': 16}] * 2,
+        'off': [{'max_pool_3x3_s2_p1': 1, 'lloyd_solve_rows': 8}] * 2}
     assert remat['captured'] == {'max_pool_3x3_s2_p1': 0.0}
     # The recomputation re-issues halos, statistics and the ls-2 solves'
     # gathers, equally on both ranks; remat off recomputes nothing, and

@@ -163,3 +163,110 @@ def test_least_squares_quantizers_match_jax(scheme, tdtype, mode):
     # The scales alone, as an 'off' forward solves them, are the same.
     torch.testing.assert_close(TQ.solve_scales(scheme, t, 3, mode), tvs,
                                rtol=0, atol=0)
+
+
+# The lloyd solve: lloyd_solve's plain twin (the CPU path) against the
+# eager ops it replaced and against JAX; the kernel itself runs on the
+# card only (tests/test_torch_port_solve_kernel.py, which holds it to the
+# twin and to LLOYD_ORACLE, JAX's scales of these rows, without JAX).
+LLOYD_ORACLE = os.path.join(os.path.dirname(__file__), 'data_oracle',
+                            'lloyd_jax.npz')
+LLOYD_ORACLE_SEED = 11
+
+
+def lloyd_oracle() -> dict[str, np.ndarray]:
+    """JAX's lloyd scales of _rows(LLOYD_ORACLE_SEED): 'ls2_s<skip>'
+    (2, rows) and 'lsT_s<skip>' (1, rows), skip 1 and 3."""
+    rows = _rows(LLOYD_ORACLE_SEED)
+    out = {'rows': rows}
+    for skip in (1, 3):
+        out[f'ls2_s{skip}'] = np.asarray(
+            j_ls_2(jnp.asarray(rows), None, skip=skip, mode='lloyd')[0])
+        out[f'lsT_s{skip}'] = np.asarray(
+            j_ls_t(jnp.asarray(rows), None, skip=skip, mode='lloyd')[0])
+    return out
+
+
+def _eager_lloyd(x: torch.Tensor, ternary: bool, skip: int) -> torch.Tensor:
+    """The ls-2 / ls-T lloyd solve as the eager ops computed it before
+    the kernel: (2, rows) or (1, rows)."""
+    xd = x.detach().reshape(x.shape[0], -1).to(torch.float32)
+    v1 = T._opt_v1_lloyd(xd, ternary, skip)
+    if ternary:
+        return v1[None]
+    residual = xd - v1[:, None] * torch.where(xd < 0, -1.0, 1.0)
+    return torch.stack([v1, residual.abs().mean(dim=-1)])
+
+
+@pytest.mark.parametrize('tdtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ternary', [False, True])
+@pytest.mark.parametrize('skip', [1, 3])
+def test_lloyd_twin_equals_the_eager_solve(tdtype, ternary, skip):
+    """Bit for bit, on the _rows families and on NHWC activations, both
+    through lloyd_solve_plain and through the quantizers' solves."""
+    for x in (torch.from_numpy(_rows(5)),
+              torch.from_numpy(_activations(8))):
+        x = x.to(tdtype)
+        want = _eager_lloyd(x, ternary, skip)
+        rows = x.reshape(x.shape[0], -1)
+        got = T.lloyd_solve_plain(rows, ternary, skip, with_v2=not ternary)
+        assert torch.equal(got.reshape(want.shape), want)
+        scheme = 'ls-T' if ternary else 'ls-2'
+        assert torch.equal(TQ.solve_scales(scheme, x, skip, 'lloyd'), want)
+        assert torch.equal(T.opt_v1(rows, ternary, skip, 'lloyd'), want[0])
+
+
+@pytest.mark.parametrize('ternary', [False, True])
+@pytest.mark.parametrize('skip', [1, 3])
+def test_lloyd_twin_matches_jax_scales(ternary, skip):
+    """v1 at V1_TOL (else a cost no higher, COST_TOL), ls-2's v2 at
+    V1_TOL where v1 is, against JAX's quantizer_ls_2 / _ternary, over the
+    normal, lognormal, bimodal, constant, zero and repeated rows."""
+    oracle = lloyd_oracle()
+    rows = oracle['rows']
+    want = oracle[f'{"lsT" if ternary else "ls2"}_s{skip}']
+    got = T.lloyd_solve(torch.from_numpy(rows), ternary, skip,
+                        with_v2=not ternary).numpy().reshape(want.shape)
+    _assert_v1_match(rows, skip, got[0], want[0], ternary)
+    if not ternary:
+        close = np.isclose(got[0], want[0], **V1_TOL)
+        np.testing.assert_allclose(got[1][close], want[1][close], **V1_TOL)
+
+
+def test_lloyd_oracle_is_jax():
+    """The committed oracle the card tests read is JAX's output today."""
+    stored = np.load(LLOYD_ORACLE)
+    fresh = lloyd_oracle()
+    assert set(stored.files) == set(fresh)
+    for k, v in fresh.items():
+        np.testing.assert_array_equal(stored[k], v, err_msg=k)
+
+
+def test_lloyd_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """Every lloyd caller on a CPU tensor takes the plain twin: nothing
+    is built or loaded and the kernel's launch counter stays 0."""
+    from quant_tpu_torch import _build
+
+    def refuse(*args, **kw):
+        raise AssertionError('a CPU solve reached _build')
+
+    monkeypatch.setattr(_build, 'load', refuse)
+    monkeypatch.setattr(_build, 'build', refuse)
+    T.launches.reset()
+    x = torch.from_numpy(_activations(9))
+    for tdtype in (torch.float32, torch.bfloat16):
+        xt = x.to(tdtype)
+        TQ.quantizer_ls_2(xt, None, skip=3, mode='lloyd')
+        TQ.quantizer_ls_ternary(xt, None, skip=3, mode='lloyd')
+        TQ.solve_scales('ls-2', xt, 3, 'lloyd')
+        T.opt_v1(xt.reshape(4, -1), True, 1, 'lloyd')
+    assert T.launches.count == 0
+
+
+def test_lloyd_solve_refuses_other_devices():
+    """A tensor neither on the CPU nor on CUDA is refused, as is a
+    matrix that is not 2D."""
+    with pytest.raises(ValueError, match='CPU or CUDA'):
+        T.lloyd_solve(torch.zeros((2, 6), device='meta'), False, 3, True)
+    with pytest.raises(ValueError, match='rows'):
+        T.lloyd_solve(torch.zeros(6), False, 3, True)

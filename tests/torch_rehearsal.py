@@ -36,7 +36,7 @@ import torch
 
 import chip_smoke
 from quant_tpu_torch import _build
-from quant_tpu_torch.ops import pool
+from quant_tpu_torch.ops import optimal, pool
 from quant_tpu_torch.probes import models
 
 # The model phases' models cut to probes.models.small_config (width 8,
@@ -57,8 +57,7 @@ def phase_counts() -> list[dict]:
     out = []
     for _, build, _, _, _, per_conv in chip_smoke.MODEL_PHASES:
         _, _, convs, pools = SMALL_MODELS[build]
-        want = {k: 0 for k in chip_smoke.SERVING_KERNELS
-                + chip_smoke.PROBE_KERNELS}
+        want = {k: 0 for k in chip_smoke.KERNELS}
         want.update({k: v * convs for k, v in per_conv.items()})
         want['max_pool_3x3_s2_p1'] = pools
         out.append(want)
@@ -100,7 +99,7 @@ SMALL_SPACE_TRAIN = dict(model='small', batch=2, input=[64, 64, 3],
                          control_input=[64, 64, 3], classes=10, warmup=1,
                          steps=1, eval_images=4)
 SMALL_REMAT_SERVE = {'xnor_conv2d_planes': 8, 'pack_sign_planes': 8,
-                     'max_pool_3x3_s2_p1': 1}
+                     'max_pool_3x3_s2_p1': 1, 'lloyd_solve_rows': 8}
 
 
 # The experiment phase's ImageNet recipes narrowed to small_config's
@@ -145,7 +144,7 @@ KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
 # The launch counts the phases read, in order. The main path: 16 binary
 # convs, 16 producers, 1 pool a forward; the probe path one of each
 # probe kernel beside them.
-IDLE = {k: 0 for k in chip_smoke.SERVING_KERNELS + chip_smoke.PROBE_KERNELS}
+IDLE = {k: 0 for k in chip_smoke.KERNELS}
 MAIN = dict(IDLE, xnor_conv2d=16, pack_sign_planes=16,
             max_pool_3x3_s2_p1=1)
 PROBE = dict(MAIN, **{k: 1 for k in chip_smoke.PROBE_KERNELS})
@@ -155,10 +154,16 @@ API = [MAIN, *[IDLE] * len(chip_smoke.API_GROUPED['x_quants'])]
 # The in-process frontend serves its 4 requests as 2 batches of 2.
 FRONTEND = dict(MAIN, xnor_conv2d=32, pack_sign_planes=32,
                 max_pool_3x3_s2_p1=2)
+# OFF_PHASE's lloyd solves (lloyd_phase): one of each of the small
+# model's 8 conv inputs in bf16, then in float32.
+LLOYD = [dict(IDLE, lloyd_solve_rows=8)] * 2
 # The train phase: each configuration's 10 timed steps launch the
-# teacher's pool once a step; the eval step's 2 batches the pool only;
-# the served small student (8 binary convs) one forward.
-TRAIN = [*[dict(IDLE, max_pool_3x3_s2_p1=10)] * 3,
+# teacher's pool once a step, and the TPU recipe's the lloyd solve of
+# each of the small student's 8 convs twice a step (remat); the eval
+# step's 2 batches the pool only; the served small student (8 binary
+# convs) one forward.
+TRAIN = [*[dict(IDLE, max_pool_3x3_s2_p1=10)] * 2,
+         dict(IDLE, max_pool_3x3_s2_p1=10, lloyd_solve_rows=160),
          dict(IDLE, max_pool_3x3_s2_p1=2),
          dict(IDLE, xnor_conv2d=8, pack_sign_planes=8,
               max_pool_3x3_s2_p1=1)]
@@ -228,6 +233,9 @@ def patch(monkeypatch, counts: list) -> None:
     # The occupancy query needs the built library.
     monkeypatch.setattr(chip_smoke, 'occupancy', lambda dt, *layout: dict(
         registers=len(layout), blocks_per_sm=3))
+    monkeypatch.setattr(optimal, 'lloyd_solve_layout',
+                        lambda dtype, rows, n, skip=3: dict.fromkeys(
+                            optimal.LAYOUT_KEYS, 0))
     monkeypatch.setattr(_build, 'build', lambda verbose=False: {})
     monkeypatch.setattr(chip_smoke, 'TRAIN_MODELS', (
         small_family('xnor'), small_family('regular'), (32, 32, 3), 10))
