@@ -18,8 +18,8 @@ Whatever implements a layer, its work is what the layer needs:
   the chain's dtype;
 - a train step's model work is 3 x the student's forward (forward,
   input gradient, weight gradient) plus 1 x the frozen teacher's
-  forward, every conv dense, at the train dtype's peak. Recomputation
-  under remat is not work.
+  forward (walked by the teacher's own block), every conv dense, at the
+  train dtype's peak. Recomputation under remat is not work.
 
 Peaks are NVIDIA's data sheet for the H100 SXM (dense, 700 W).
 """
@@ -100,7 +100,8 @@ def out_size(size: int, k: int, stride: int, pad: int) -> int:
 class Layer:
     """One conv or dense layer of a configuration, per image."""
     name: str
-    kind: str          # 'stem', 'binary', 'shortcut', 'fc'
+    kind: str          # 'stem', 'binary' (a block's conv: fp in a regular
+                       # teacher), 'shortcut', 'fc'
     h: int             # input height and width
     w: int
     c_in: int
@@ -125,10 +126,43 @@ class Layer:
             * valid_taps(self.w, self.w_out, self.stride, self.pad, self.k))
 
 
+def _basic(pre: str, size: int, c_in: int, planes: int, stride: int
+           ) -> tuple[list[Layer], int]:
+    """A basic block's convs: two 3x3, the block's stride on the first."""
+    conv1 = Layer(f'{pre}.conv1', 'binary', size, size, c_in, planes, 3,
+                  stride, 1)
+    return [conv1, Layer(f'{pre}.conv2', 'binary', conv1.h_out, conv1.w_out,
+                         planes, planes, 3, 1, 1)], planes
+
+
+def _bottleneck(pre: str, size: int, c_in: int, planes: int, stride: int
+                ) -> tuple[list[Layer], int]:
+    """A bottleneck's convs: a 1x1 reduce to `planes`, a 3x3 with the
+    block's stride, a 1x1 expand to 4 x `planes`."""
+    conv2 = Layer(f'{pre}.conv2', 'binary', size, size, planes, planes, 3,
+                  stride, 1)
+    return [Layer(f'{pre}.conv1', 'binary', size, size, c_in, planes, 1, 1,
+                  0),
+            conv2,
+            Layer(f'{pre}.conv3', 'binary', conv2.h_out, conv2.w_out, planes,
+                  4 * planes, 1, 1, 0)], 4 * planes
+
+
+# The block families the walk takes, by a configuration's `block`.
+BLOCK_WALKS = {'xnor': _basic, 'regular': _basic,
+               'xnor_bottleneck': _bottleneck,
+               'regular_bottleneck': _bottleneck}
+
+
 def layers(config: dict) -> list[Layer]:
-    """Every conv and the fc of a basic-block ResNet configuration, in
-    forward order: the stem, each block's two 3x3 convs and its 1x1
-    shortcut where the block changes width or resolution, the fc."""
+    """Every conv and the fc of a ResNet configuration, in forward order:
+    the stem, each block's convs (by its `block`: a basic block's two 3x3,
+    or a bottleneck's 1x1, 3x3 and 1x1) and its 1x1 shortcut where the
+    block changes width or resolution, the fc. A block not in
+    BLOCK_WALKS raises."""
+    walk = BLOCK_WALKS.get(config['block'])
+    if walk is None:
+        raise ValueError(f"no walk of the block {config['block']!r}")
     l0 = config['layer0']
     size, c = config['image_size'], config['in_channels']
     width = l0['n_in_channels']
@@ -145,15 +179,12 @@ def layers(config: dict) -> list[Layer]:
         for b in range(blocks):
             stride = 2 if (s > 0 and b == 0) else 1
             pre = f'layer{s + 1}_block{b}'
-            conv1 = Layer(f'{pre}.conv1', 'binary', size, size, in_planes,
-                          planes, 3, stride, 1)
-            out.append(conv1)
-            out.append(Layer(f'{pre}.conv2', 'binary', conv1.h_out,
-                             conv1.w_out, planes, planes, 3, 1, 1))
-            if stride != 1 or in_planes != planes:
+            convs, out_planes = walk(pre, size, in_planes, planes, stride)
+            out += convs
+            if stride != 1 or in_planes != out_planes:
                 out.append(Layer(f'{pre}.shortcut.conv', 'shortcut', size,
-                                 size, in_planes, planes, 1, stride, 0))
-            size, in_planes = conv1.h_out, planes
+                                 size, in_planes, out_planes, 1, stride, 0))
+            size, in_planes = convs[-1].h_out, out_planes
     out.append(Layer('fc', 'fc', 1, 1, in_planes, config['output_classes'],
                      1, 1, 0))
     return out
@@ -207,15 +238,17 @@ def serve_peak_s(config: dict) -> float:
 
 def train_peak_s(config: dict) -> float:
     """An image's train step at peak: 3 x the student's dense forward at
-    the train dtype's peak plus the teacher's forward at its dtype's."""
+    the train dtype's peak plus the teacher's forward, walked by its own
+    `block`, at its dtype's."""
     train = config['train']
     student_peak = PEAK_OPS_PER_S[_peak_key(train['train_dtype'],
                                             train.get('tf32', False))]
     teacher_peak = PEAK_OPS_PER_S[_peak_key(train['teacher']['dtype'],
                                             train.get('tf32', False))]
-    macs = sum(layer.macs for layer in layers(config))
-    # The teacher is a ResNet of the same stages and widths.
-    return 3 * 2 * macs / student_peak + 2 * macs / teacher_peak
+    student = sum(layer.macs for layer in layers(config))
+    teacher = sum(layer.macs
+                  for layer in layers({**config, **train['teacher']}))
+    return 3 * 2 * student / student_peak + 2 * teacher / teacher_peak
 
 
 def _peak_key(dtype: str, tf32: bool) -> str:

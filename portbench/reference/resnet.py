@@ -1,6 +1,8 @@
-"""Plain float32 ResNet-18 of the least-squares binary quantization paper:
-the serving forward of its XNOR form and the KD train step of its
-recipes.
+"""Plain float32 ResNets of the least-squares binary quantization paper:
+the serving forward of their XNOR form and the KD train step of their
+recipes, over basic blocks (ResNet-18) or bottlenecks (ResNet-50, He et
+al., CVPR 2016, Table 1, the stride on the 3x3 conv as torchvision's
+resnet50 puts it).
 
 Definitions (Pouransari et al., CVPR-W 2020, and the recipes of
 apple/ml-quant's examples/imagenet):
@@ -8,10 +10,21 @@ apple/ml-quant's examples/imagenet):
 - XNOR block (XNOR-Net ordering, Bi-Real double shortcut): h =
   PReLU(qconv1(BN1(x))) + shortcut(x); out = PReLU(qconv2(BN2(h))) + h,
   the shortcut a 1x1 conv with bias and a BN where width or resolution
-  changes, else the identity.
+  changes, else the identity. Without the double shortcut: h =
+  PReLU1(qconv1(BN1(x))); out = PReLU2(qconv2(BN2(h)) + shortcut(x)).
+- XNOR bottleneck (block `xnor_bottleneck`, stride s, planes p): h1 =
+  PReLU1(qconv1(BN1(x))), a 1x1 conv to p; h2 = PReLU2(qconv2(BN2(h1))),
+  a 3x3 conv of stride s; y = qconv3(BN3(h2)), a 1x1 conv to 4p; out =
+  PReLU3(y + shortcut(x)), the shortcut as above where s != 1 or the
+  width changes.
+- Teachers, fp: the regular block is conv -> BN -> ReLU, conv -> BN,
+  then ReLU after the sum with the shortcut (a 1x1 conv without bias and
+  a BN, or the identity); the regular bottleneck (`regular_bottleneck`)
+  is 1x1 conv -> BN -> ReLU, 3x3 conv of stride s -> BN -> ReLU, 1x1
+  conv to 4p -> BN, then ReLU after the sum.
 - qconv: the activation clamped to [-alpha, alpha], then quantized per
-  sample; the weight quantized per out-channel; a conv of the two plus
-  the conv's bias.
+  sample; the weight quantized per out-channel; a conv of the two, zero
+  padded by (k - 1) // 2 for a k x k kernel, plus the conv's bias.
 - ls-1: x_q = v * sign(x), v = mean |x| (eq. 4). ls-2: x_q = v1 * b1 + v2
   * sign(x - v1 * b1), b1 = sign(x), v1 the 2-bit optimum, v2 = mean
   |x - v1 * b1|. sign(0) = +1. A served model reads its scales from the
@@ -27,10 +40,10 @@ apple/ml-quant's examples/imagenet):
 - Training BN normalizes with the batch's mean and biased variance over
   N, H, W. The KD loss at temperature T is T^2 * KL(softmax(t / T) ||
   softmax(s / T)), summed over classes, averaged over the batch, against
-  a frozen fp ResNet-18 teacher (conv -> BN -> ReLU blocks) in train
-  mode. Adam (betas 0.9, 0.999, eps 1e-8, bias-corrected), its learning
-  rate the recipe's linear_lr: lr0 - step / ((epochs - 1) *
-  steps_per_epoch) * (lr0 + min_lr), floored at min_lr.
+  a frozen fp teacher (the regular blocks above) in train mode. Adam
+  (betas 0.9, 0.999, eps 1e-8, bias-corrected), its learning rate the
+  recipe's linear_lr: lr0 - step / ((epochs - 1) * steps_per_epoch) *
+  (lr0 + min_lr), floored at min_lr.
 
 Departures, each below rounding: the variance is taken in two passes
 (the recipes' flax takes E[x^2] - E[x]^2); the clamp passes a gradient
@@ -149,6 +162,11 @@ def _oihw(kernel_hwio: torch.Tensor) -> torch.Tensor:
     return kernel_hwio.permute(3, 2, 0, 1)
 
 
+def _same_pad(kernel_hwio: torch.Tensor) -> int:
+    """A binary conv's zero padding: (k - 1) // 2 for a k x k kernel."""
+    return (kernel_hwio.shape[0] - 1) // 2
+
+
 class Net:
     """One forward of a configuration's student or teacher over a state
     dict (the harness's names), in eval or train mode.
@@ -159,14 +177,27 @@ class Net:
     operands, as a bf16 chain keeps them; sums run in float32 and round
     once, a conv's output and then its sum with the bias. Served (eval),
     the BN before a binary conv is folded into thresholds (`served`).
+    The configuration's `block` names the blocks: a student's one of
+    STUDENT_BLOCKS, a teacher's one of TEACHER_BLOCKS; any other raises.
     """
+
+    STUDENT_BLOCKS = {'xnor': 'xnor_block',
+                      'xnor_bottleneck': 'xnor_bottleneck'}
+    TEACHER_BLOCKS = {'regular': 'regular_block',
+                      'regular_bottleneck': 'regular_bottleneck'}
 
     def __init__(self, config: dict, state: State, train: bool,
                  teacher: bool = False, rnd: Round = identity,
                  solver: str = 'exact'):
         self.c, self.s, self.train = config, state, train
-        self.teacher, self.rnd, self.solver = teacher, rnd, solver
+        self.rnd, self.solver = rnd, solver
         self.alpha = float(config['clamp'].get('alpha', float('inf')))
+        blocks = self.TEACHER_BLOCKS if teacher else self.STUDENT_BLOCKS
+        if config['block'] not in blocks:
+            raise ValueError(
+                f"the reference has no {'teacher' if teacher else 'student'}"
+                f" block {config['block']!r}")
+        self.block = getattr(self, blocks[config['block']])
 
     def bn(self, x: torch.Tensor, p: str) -> torch.Tensor:
         s = self.s
@@ -193,12 +224,12 @@ class Net:
 
     def qconv(self, x: torch.Tensor, p: str, stride: int) -> torch.Tensor:
         """The train form: clamp, quantize both operands, conv, bias."""
-        c = self.c
+        c, kernel = self.c, self.s[p + '.kernel']
         a = torch.clamp(x, -self.alpha, self.alpha)
-        w_q = quantize_weight(c['w_quant'], _oihw(self.s[p + '.kernel']))
+        w_q = quantize_weight(c['w_quant'], _oihw(kernel))
         vs = solve_activation(c['x_quant'], a, self.solver)
         x_q = quantize_activation(c['x_quant'], a, vs, self.rnd)
-        y = F.conv2d(x_q, self.rnd(w_q), None, stride, 1)
+        y = F.conv2d(x_q, self.rnd(w_q), None, stride, _same_pad(kernel))
         return self._bias(self.rnd(y), p)
 
     def served(self, x: torch.Tensor, bn: str, p: str, stride: int
@@ -229,12 +260,12 @@ class Net:
             raise NotImplementedError(f"activation scheme {c['x_quant']!r}")
         if c['w_quant'] != 'ls-1':
             raise NotImplementedError(f"weight scheme {c['w_quant']!r}")
-        w = _oihw(s[p + '.kernel'])
+        w, pad = _oihw(s[p + '.kernel']), _same_pad(s[p + '.kernel'])
         w_sign = torch.where(w < 0, -1.0, 1.0)
         w_scale = w.abs().mean((1, 2, 3))[None, :, None, None]
         y = None
         for plane, v in planes:
-            term = rnd(F.conv2d(plane, w_sign, None, stride, 1)
+            term = rnd(F.conv2d(plane, w_sign, None, stride, pad)
                        * (v * w_scale))
             y = term if y is None else rnd(y + term)
         return self._bias(y, p)
@@ -260,6 +291,14 @@ class Net:
         h2 = self.bn_qconv(h, p, '2', 1)
         return self.rnd(self.prelu(h2, p + '.nonlin2') + h)
 
+    def xnor_bottleneck(self, x: torch.Tensor, p: str, stride: int
+                        ) -> torch.Tensor:
+        h = self.prelu(self.bn_qconv(x, p, '1', 1), p + '.nonlin1')
+        h = self.prelu(self.bn_qconv(h, p, '2', stride), p + '.nonlin2')
+        y = self.bn_qconv(h, p, '3', 1)
+        return self.prelu(self.rnd(y + self.shortcut(x, p, stride)),
+                          p + '.nonlin3')
+
     def bn_qconv(self, x: torch.Tensor, p: str, n: str, stride: int
                  ) -> torch.Tensor:
         """BN then the binary conv: folded when served, else the train
@@ -275,6 +314,14 @@ class Net:
         h = self.bn(self.conv(h, p + '.conv2', 1, 1), p + '.bn2')
         return torch.relu(self.rnd(h + self.shortcut(x, p, stride)))
 
+    def regular_bottleneck(self, x: torch.Tensor, p: str, stride: int
+                           ) -> torch.Tensor:
+        h = torch.relu(self.bn(self.conv(x, p + '.conv1', 1, 0), p + '.bn1'))
+        h = torch.relu(self.bn(self.conv(h, p + '.conv2', stride, 1),
+                               p + '.bn2'))
+        h = self.bn(self.conv(h, p + '.conv3', 1, 0), p + '.bn3')
+        return torch.relu(self.rnd(h + self.shortcut(x, p, stride)))
+
     def __call__(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         c, l0 = self.c, self.c['layer0']
         x = self.rnd(x_nhwc.permute(0, 3, 1, 2).float())
@@ -284,11 +331,10 @@ class Net:
         if mp['type'] == 'maxpool2d':
             x = F.max_pool2d(x, mp['kernel_size'], mp['stride'],
                              mp['padding'])
-        block = self.regular_block if self.teacher else self.xnor_block
         for s, blocks in enumerate(c['num_blocks']):
             for b in range(blocks):
-                x = block(x, f'layer{s + 1}_block{b}',
-                          2 if (s > 0 and b == 0) else 1)
+                x = self.block(x, f'layer{s + 1}_block{b}',
+                               2 if (s > 0 and b == 0) else 1)
         x = self.rnd(x.mean((2, 3)))
         logits = self.rnd(x @ self.rnd(self.s['fc.kernel']))
         return self.rnd(logits + self.rnd(self.s['fc.bias'])).float()

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from portbench import counts
+
 EMA_BASE = (0.9, 0.45)
 NEGATIVE_GAMMA_SHARE = 0.3
 
@@ -41,48 +43,60 @@ def _planes(scheme: str) -> int:
     return {'fp': 0, 'ls-1': 1, 'ls-2': 2, 'ls-T': 1}[scheme]
 
 
+def _xnor_conv(name: str, k: int, c_in: int, c_out: int, k_w: int,
+               k_x: int, ema: bool) -> list[Leaf]:
+    """An XNOR block's nth BN -> binary conv -> PReLU (`name` the conv's:
+    `<block>.conv<n>`), the BN over the conv's input."""
+    p, n = name.rsplit('.conv', 1)
+    out = _bn(f'{p}.bn{n}', c_in) + _conv(name, k, c_in, c_out, True)
+    out.append((f'{name}.w_vs', (k_w, c_out), 'w_vs', 0))
+    if ema:
+        out.append((f'{name}.x_quantizer.ema', (k_x,), 'ema', 0))
+        out.append((f'{name}.x_quantizer.ema_count', (), 'ema_count', 0))
+    out.append((f'{p}.nonlin{n}.negative_slope', (), 'slope', 0))
+    return out
+
+
+def _regular_conv(name: str, k: int, c_in: int, c_out: int) -> list[Leaf]:
+    """A regular block's nth conv -> BN, the BN over the conv's output."""
+    p, n = name.rsplit('.conv', 1)
+    return _conv(name, k, c_in, c_out, False) + _bn(f'{p}.bn{n}', c_out)
+
+
+STUDENT_BLOCKS = ('xnor', 'xnor_bottleneck')
+TEACHER_BLOCKS = ('regular', 'regular_bottleneck')
+
+
 def leaves(config: dict, teacher: bool = False,
            ema: bool = False) -> list[Leaf]:
-    """Every parameter and buffer of a basic-block ResNet of `config`:
-    its XNOR student (with EMA activation scales where `ema`) or, with
-    `teacher`, its regular fp teacher."""
-    l0 = config['layer0']
-    width = l0['n_in_channels']
-    out = _conv('conv1', l0['kernel_size'], config['in_channels'], width,
-                l0['bias']) + _bn('bn1', width)
+    """Every parameter and buffer of a ResNet of `config`, named and
+    shaped as QResNet's state dict, in the forward order of its convs
+    (counts.layers, which walks the configuration's `block`): its XNOR
+    student (STUDENT_BLOCKS; with EMA activation scales where `ema`) or,
+    with `teacher`, its regular fp teacher (TEACHER_BLOCKS). Any other
+    block raises."""
+    families = TEACHER_BLOCKS if teacher else STUDENT_BLOCKS
+    if config['block'] not in families:
+        raise ValueError(
+            f"no {'teacher' if teacher else 'student'} state of the block "
+            f"{config['block']!r}")
     k_x, k_w = _planes(config['x_quant']), _planes(config['w_quant'])
-    in_planes = width
-    for s, blocks in enumerate(config['num_blocks']):
-        planes = width * 2 ** s
-        for b in range(blocks):
-            p = f'layer{s + 1}_block{b}'
-            down = (s > 0 and b == 0) or in_planes != planes
-            if teacher:
-                out += (_conv(f'{p}.conv1', 3, in_planes, planes, False)
-                        + _bn(f'{p}.bn1', planes)
-                        + _conv(f'{p}.conv2', 3, planes, planes, False)
-                        + _bn(f'{p}.bn2', planes))
-            else:
-                for n, c_in in (('1', in_planes), ('2', planes)):
-                    out += _bn(f'{p}.bn{n}', c_in)
-                    out += _conv(f'{p}.conv{n}', 3, c_in, planes, True)
-                    out.append((f'{p}.conv{n}.w_vs', (k_w, planes), 'w_vs',
-                                0))
-                    if ema:
-                        out.append((f'{p}.conv{n}.x_quantizer.ema', (k_x,),
-                                    'ema', 0))
-                        out.append((f'{p}.conv{n}.x_quantizer.ema_count',
-                                    (), 'ema_count', 0))
-                    out.append((f'{p}.nonlin{n}.negative_slope', (),
-                                'slope', 0))
-            if down:
-                out += _conv(f'{p}.shortcut.conv', 1, in_planes, planes,
-                             not teacher)
-                out += _bn(f'{p}.shortcut.norm', planes)
-            in_planes = planes
-    out += [('fc.kernel', (in_planes, config['output_classes']), 'uniform',
-             in_planes),
-            ('fc.bias', (config['output_classes'],), 'uniform', in_planes)]
+    out: list[Leaf] = []
+    for layer in counts.layers(config):
+        k, c_in, c_out = layer.k, layer.c_in, layer.c_out
+        if layer.kind == 'stem':
+            out += (_conv('conv1', k, c_in, c_out, config['layer0']['bias'])
+                    + _bn('bn1', c_out))
+        elif layer.kind == 'binary':
+            out += (_regular_conv(layer.name, k, c_in, c_out) if teacher
+                    else _xnor_conv(layer.name, k, c_in, c_out, k_w, k_x,
+                                    ema))
+        elif layer.kind == 'shortcut':
+            out += (_conv(layer.name, 1, c_in, c_out, not teacher)
+                    + _bn(layer.name[:-len('conv')] + 'norm', c_out))
+        else:
+            out += [('fc.kernel', (c_in, c_out), 'uniform', c_in),
+                    ('fc.bias', (c_out,), 'uniform', c_in)]
     return out
 
 

@@ -30,6 +30,27 @@ def card() -> torch.device:
     return torch.device('cuda')
 
 
+BOTTLENECK = 'bottleneck_r50'
+
+
+def bench_config(name: str) -> dict:
+    """A configuration of BENCHMARK.json by name, or BOTTLENECK: the
+    ImageNet ResNet-50 as a test's own configuration, r18_xnor_ls2_ls1's
+    keys with XNOR bottleneck blocks [3, 4, 6, 3] (no double shortcut,
+    which a bottleneck does not define) and a regular bottleneck
+    teacher."""
+    from portbench import run as bench_run
+    bench = bench_run.spec()
+    if name != BOTTLENECK:
+        return bench_run.config(bench, name)
+    c = copy.deepcopy(bench_run.config(bench, 'r18_xnor_ls2_ls1'))
+    c['name'], c['block'], c['num_blocks'] = name, 'xnor_bottleneck', [
+        3, 4, 6, 3]
+    del c['double_shortcut']
+    c['train']['teacher']['block'] = 'regular_bottleneck'
+    return c
+
+
 def small(config: dict, width: int = 8, size: int = 32,
           classes: int = 10) -> dict:
     """A configuration cut to a CPU test's size: one block a stage."""

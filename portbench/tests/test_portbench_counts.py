@@ -9,12 +9,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from conftest import BOTTLENECK, bench_config
 from portbench import counts, run as bench_run, state
 from quant_tpu_torch.nn import export
 from quant_tpu_torch.nn.layers import Conv, Dense, QuantConv2d
 from quant_tpu_torch.nn.resnet import QResNet
 
-CONFIGS = ('r18_xnor_ls1', 'r18_xnor_ls2_ls1')
+CONFIGS = ('r18_xnor_ls1', 'r18_xnor_ls2_ls1', BOTTLENECK)
 CPU = torch.device('cpu')
 
 
@@ -51,7 +52,7 @@ def _taps(h: int, w: int, k: int, stride: int, pad: int) -> int:
 
 @pytest.mark.parametrize('name', CONFIGS)
 def test_layers_match_the_model(name):
-    cfg = bench_run.config(bench_run.spec(), name)
+    cfg = bench_config(name)
     seen = _run_shapes(cfg)
     layers = counts.layers(cfg)
     assert {l.name for l in layers} == set(seen)
@@ -74,7 +75,7 @@ def test_layers_match_the_model(name):
 
 @pytest.mark.parametrize('name', CONFIGS)
 def test_binary_conv_bytes_match_the_served_tensors(name):
-    cfg = bench_run.config(bench_run.spec(), name)
+    cfg = bench_config(name)
     seen = _run_shapes(cfg)
     model = _model(cfg)
     model.load_state_dict(state.serve_state(
@@ -110,6 +111,46 @@ def test_work_of_resnet18():
     assert counts.serve_peak_s(ls2) == pytest.approx(dense_s + 2 * int8_s)
     assert counts.train_peak_s(ls1) == pytest.approx(
         8 * macs / counts.PEAK_OPS_PER_S['float32'])
+
+
+def test_work_of_resnet50():
+    """The bottleneck ResNet-50 at 224 px: 54 layers (the stem, 48 binary
+    convs, 32 of them 1x1, 4 fp 1x1 shortcuts, the fc), 3.948 G MACs an
+    image over the taps inside it, 3.470 G binary; at batch 256 of ls-2 x
+    ls-1 on the bf16 chain its binary convs' least time is 3.16 ms, 2.25
+    ms of it in the 1x1 convs, 26 of which their bytes bound (all but
+    layer4's six). The teacher's work follows the teacher's own
+    block."""
+    cfg = bench_config(BOTTLENECK)
+    layers = counts.layers(cfg)
+    binary = list(counts.walk_binary(cfg))
+    assert len(layers) == 54 and len(binary) == 48
+    assert sum(l.k == 1 for l in binary) == 32
+    assert [l.kind for l in layers].count('shortcut') == 4
+    assert layers[-1].c_in == 2048
+    macs = sum(l.macs for l in layers)
+    assert macs == 3_948_251_904
+    assert sum(l.macs for l in binary) == 3_470_327_808
+
+    def least_s(layer):
+        ops = 256 * counts.binary_conv_ops(layer, 'ls-2', 'ls-1')
+        nbytes = counts.binary_conv_bytes(layer, 256, 'ls-1', 'bfloat16')
+        return (max(ops / counts.PEAK_OPS_PER_S['int8'],
+                    nbytes / counts.HBM_BYTES_PER_S),
+                ops / counts.PEAK_OPS_PER_S['int8'])
+    one = [least_s(l) for l in binary if l.k == 1]
+    assert sum(bound > ops_s for bound, ops_s in one) == 26
+    assert sum(b for b, _ in one) == pytest.approx(2.2491e-3, rel=1e-4)
+    assert counts.binary_conv_bound_s(cfg, 256) == pytest.approx(
+        3.1614e-3, rel=1e-4)
+    peak = counts.PEAK_OPS_PER_S['bfloat16']
+    assert counts.train_peak_s(cfg) == pytest.approx(8 * macs / peak)
+    basic = {**cfg['train']['teacher'], 'block': 'regular'}
+    teacher = sum(l.macs for l in counts.layers({**cfg, **basic}))
+    assert counts.train_peak_s({**cfg, 'train': {
+        **cfg['train'], 'teacher': basic}}) == pytest.approx(
+        6 * macs / peak + 2 * teacher / peak)
+    assert teacher != macs
 
 
 def test_kernel_classes():

@@ -1,24 +1,25 @@
 """The plain reference against the program, at a small width and size on
-the CPU, for both configurations: the served logits and the first KD
-steps, both chains in float32 (the program's kernels run their plain
-twins here). Float32 against float32 differs by the order of sums alone:
-logits within 1e-5 of their spread, losses within 1e-5, the first
-gradients within 1e-4 of the largest."""
+the CPU, for both configurations and for a bottleneck ResNet-50 of the
+ls-2 x ls-1 recipe: the served logits and the first KD steps, both
+chains in float32 (the program's kernels run their plain twins here).
+Float32 against float32 differs by the order of sums alone: logits
+within 1e-5 of their spread, losses within 1e-5, the first gradients
+within 1e-4 of the largest."""
 
 import pytest
 import torch
 
-from conftest import float32_chain, small
-from portbench import judge, port, run as bench_run, state
+from conftest import BOTTLENECK, bench_config, float32_chain, small
+from portbench import judge, port, state
 from portbench.drivers import train_kd
 from portbench.reference import resnet as reference
 
-CONFIGS = ('r18_xnor_ls1', 'r18_xnor_ls2_ls1')
+CONFIGS = ('r18_xnor_ls1', 'r18_xnor_ls2_ls1', BOTTLENECK)
 CPU = torch.device('cpu')
 
 
 def _config(name: str) -> dict:
-    return float32_chain(small(bench_run.config(bench_run.spec(), name)))
+    return float32_chain(small(bench_config(name)))
 
 
 @pytest.mark.parametrize('name', CONFIGS)
