@@ -27,7 +27,8 @@ the chip-probe path:
    classes, the bench configuration of the JAX package) from seeded
    weights, prepares it with the port's own export, fold and strip,
    runs the bf16 chain at batch 128 and checks the launch counts (16
-   xnor_conv2d, 16 producer, 1 pool per forward, no other kernel), then
+   xnor_conv2d, each with its block's tail, 16 producer, 1 pool per
+   forward, no other kernel), then
    holds the fp32 chain on the card against the same model on the CPU,
    and holds xnor_conv2d (bf16 and f32 out) and the producer against
    their twins on every conv input the forward captured;
@@ -39,7 +40,10 @@ the chip-probe path:
    the grouped QAT block's step card against CPU and its packed-mode
    eval forward, which serves the dense conv as JAX's does; and a fresh
    interpreter's `import quant_tpu_torch.serving`, which must do no
-   work; one JSON line {"api_phase": ...};
+   work; one JSON line {"api_phase": ...}; then the tail phase
+   (TAIL_MODELS' comment): the served ResNet-18 and ResNet-50 with each
+   block's tail in the binary convs' epilogue, their logits equal bit
+   for bit to the eager chain's; one JSON line {"tail_phase": ...};
 5. times each kernel, its plain twin and a library yardstick with CUDA
    events behind a head start (the card's time, not the host's launch
    time; the report's `call_ms` times each kernel back to back, host
@@ -156,8 +160,9 @@ the chip-probe path:
    conv and pool at each band geometry of that path against their twins
    and the whole map's rows, and the raw-zero-edge control; then the
    pipeline phase (PIPE_STAGES' comment): layer1's packed blocks as two
-   stages over 'pipe', equal to the blocks in sequence, 2 xnor_conv2d
-   and 2 producers a stage a microbatch, and one step of JAX's quantized
+   stages over 'pipe', equal to the blocks in sequence and to the eager
+   chain, 2 xnor_conv2d (each with its block's tail) and 2 producers a
+   stage a microbatch, and one step of JAX's quantized
    stage against the sequential one, with the summing-backward control;
    one JSON line {"spatial_phase": ...} and one {"pipeline_phase": ...};
 14. runs the spatial train phase (SPACE_TRAIN's comment): the ls1_kd KD
@@ -311,8 +316,12 @@ SERVING_KERNELS = ('xnor_conv2d', 'xnor_conv2d_planes', 'pack_sign_planes',
                    'max_pool_3x3_s2_p1', 'xnor_gemm')
 # The per-sample solve's kernel, launched by lloyd solves only.
 SOLVE_KERNELS = ('lloyd_solve_rows',)
+# The binary convs' calls that carry a served block's tail
+# (ops.binary_infer.Tail): one a binary conv of a folded ResNet served
+# on the int8 route, unsharded and unbanded.
+TAIL = 'xnor_conv2d_tail'
 # Every counted kernel: a launch dict compares over all of them.
-KERNELS = SERVING_KERNELS + PROBE_KERNELS + SOLVE_KERNELS
+KERNELS = SERVING_KERNELS + PROBE_KERNELS + SOLVE_KERNELS + (TAIL,)
 # Models of the model phases: key: (build(x_quant, w_quant, **kwargs),
 # input (H, W, C), its QuantConv2d count, stem pool launches a forward).
 PHASE_MODELS = {
@@ -337,14 +346,14 @@ PHASE_MODELS = {
 # no activation scales).
 MODEL_PHASES = (
     ('resnet18_xnor_lsT_ls1', 'resnet18', 'ls-T', 'ls-1', {},
-     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1}),
+     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1, TAIL: 1}),
     ('resnet18_xnor_ls2_ls1', 'resnet18', 'ls-2', 'ls-1', {}, {}),
     ('resnet18_xnor_ls2_ls1_int8', 'resnet18', 'ls-2', 'ls-1',
      {'sign_compute': 'int8'},
-     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1}),
+     {'xnor_conv2d_planes': 1, 'pack_sign_planes': 1, TAIL: 1}),
     ('resnet18_xnor_gf2_ls1', 'resnet18', 'gf-2', 'ls-1', {}, {}),
     ('resnet18_regular_ls1', 'resnet18_regular', 'ls-1', 'ls-1', {},
-     {'xnor_conv2d': 1, 'pack_sign_planes': 1}),
+     {'xnor_conv2d': 1, 'pack_sign_planes': 1, TAIL: 1}),
     ('resnet18_xnor_fp32', 'resnet18', 'fp', 'fp',
      {'inference_mode': 'dense'}, {}),
     ('resnet18_regular_fp32', 'resnet18_regular', 'fp', 'fp',
@@ -470,7 +479,7 @@ EXPERIMENT_IMAGENET = dict(
     data={'dataset': 'synthetic', 'image_shape': [224, 224, 3],
           'num_classes': 1000, 'train_size': 512, 'test_size': 256},
     epochs=1, calibrate_synthetic=4,
-    per_forward={'xnor_conv2d': 16, 'pack_sign_planes': 16,
+    per_forward={'xnor_conv2d': 16, 'pack_sign_planes': 16, TAIL: 16,
                  'max_pool_3x3_s2_p1': 1})
 # Overrides of a recipe's sections beyond the cuts above, by recipe path
 # ({section: {key: value}}): none on the card (the CPU rehearsal narrows
@@ -677,8 +686,11 @@ BAND_POOL_SHAPE = (4, 112, 112, 64)
 # that ResNet-18 as the two stages (torch.func.functional_call over each
 # block's parameters and buffers, bf16, threshold-folded), its batch as
 # PIPE_MICROBATCHES microbatches of its layer1 input: the outputs equal
-# to the blocks applied in sequence, 2 xnor_conv2d and 2 producers a
-# stage a microbatch. (b) One step of JAX's quantized stage
+# to the blocks applied in sequence and, bit for bit, to the blocks with
+# every tail run by the eager ops (the stages are folded, unsharded,
+# unbanded blocks: their binary convs take the block's tail), 2
+# xnor_conv2d with their tails and 2 producers a stage a microbatch. (b)
+# One step of JAX's quantized stage
 # (tests/parallel/test_pipeline.py:90-113: ls-1 activations and weights
 # by the STE, a 3x3 conv, x + tanh) at PIPE_STEP, float32 with cuDNN off
 # as the DP step: the stacked weights' gradients within PIPE_STEP_TOL of
@@ -796,7 +808,7 @@ SPACE_REMAT_SERVE = {'xnor_conv2d_planes': 16, 'pack_sign_planes': 16,
 # does (no kernel launch), within API_STEP_TOL of the CPU's; (c) a fresh
 # interpreter's `import quant_tpu_torch.serving` loads no kernel
 # library, starts no process, opens no socket and no process group.
-API_PER_FORWARD = {'xnor_conv2d': 16, 'pack_sign_planes': 16,
+API_PER_FORWARD = {'xnor_conv2d': 16, 'pack_sign_planes': 16, TAIL: 16,
                    'max_pool_3x3_s2_p1': 1}
 API_GROUPED = dict(batch=4, size=16, channels=16, x_quants=('ls-1', 'fp'))
 API_STEP_TOL = 2e-5
@@ -1283,24 +1295,43 @@ def probe_phase() -> tuple[list[dict], dict[str, int]]:
 
 
 def capture_conv_inputs(model: torch.nn.Module) -> tuple[list, list]:
-    """Forward pre-hooks that record each QuantConv2d's input."""
+    """Forward pre-hooks that record each QuantConv2d's input and the
+    block's tail it was handed (None where it took none), as (conv,
+    input, tail)."""
     from quant_tpu_torch.nn.layers import QuantConv2d
     seen: list = []
     hooks = [m.register_forward_pre_hook(
-        lambda mod, args: seen.append((mod, args[0])))
+        lambda mod, args, kw: seen.append((mod, args[0], kw.get('tail'))),
+        with_kwargs=True)
         for m in model.modules() if isinstance(m, QuantConv2d)]
     return seen, hooks
+
+
+def tail_as(tail: Any, dtype: torch.dtype) -> Any:
+    """A captured tail (ops.binary_infer.Tail or None) for a conv of
+    `dtype` out: its residual cast to dtype (the BN's raw input too)."""
+    if tail is None or tail.residual is None:
+        return tail
+    return tail._replace(residual=tail.residual.to(dtype))
+
+
+def tail_bytes(tail: Any) -> int:
+    """The bytes a conv's tail adds to its traffic: the residual it
+    reads."""
+    if tail is None or tail.residual is None:
+        return 0
+    return tail.residual.numel() * tail.residual.element_size()
 
 
 def captured_phases(conv_inputs: list) -> dict[str, float]:
     """The producer and xnor_conv2d against their twins on every conv
     input the forward captured: the real block inputs, thresholds, words,
-    scales and biases, the conv in bf16 and f32 out; returns {kernel: max
-    abs error}."""
+    scales, biases and tails, the conv in bf16 and f32 out; returns
+    {kernel: max abs error}."""
     from quant_tpu_torch.ops import binary_infer as B
 
     pack_err = conv_err = 0.0
-    for i, (conv, xin) in enumerate(conv_inputs):
+    for i, (conv, xin, tail) in enumerate(conv_inputs):
         fold = (None, conv.x_thresh, conv.x_flip)
         for x in (xin, xin.float()):
             pack_err = max(pack_err, check_equal(
@@ -1313,10 +1344,11 @@ def captured_phases(conv_inputs: list) -> dict[str, float]:
         kw = dict(in_channels=xin.shape[-1], stride=conv.stride,
                   padding=conv.padding)
         for dt in (torch.bfloat16, torch.float32):
+            t = tail_as(tail, dt)
             conv_err = max(conv_err, check_equal(
                 f'xnor_conv2d captured {i} {dt}',
-                B.xnor_conv2d(*args, out_dtype=dt, **kw),
-                B.xnor_conv2d_plain(*args, out_dtype=dt, **kw)))
+                B.xnor_conv2d(*args, out_dtype=dt, tail=t, **kw),
+                B.xnor_conv2d_plain(*args, out_dtype=dt, tail=t, **kw)))
     _sync()
     return {'pack_sign_planes': pack_err, 'xnor_conv2d': conv_err}
 
@@ -1324,7 +1356,9 @@ def captured_phases(conv_inputs: list) -> dict[str, float]:
 def time_kernels(model: torch.nn.Module, x: torch.Tensor,
                  conv_inputs: list, iters: int) -> list[dict]:
     """Per kernel, summed over the launches of one forward at the path's
-    shapes: kernel, plain twin and library ms, and the bound."""
+    shapes, xnor_conv2d with each conv's tail: kernel, plain twin and
+    library ms (the conv alone), and the bound (the residual's read
+    counted)."""
     from quant_tpu_torch.ops import binary_gemm as G
     from quant_tpu_torch.ops import binary_infer as B
     from quant_tpu_torch.ops.conv import max_pool2d
@@ -1344,7 +1378,7 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
         row['call_ms'] += card_ms(fn, iters, head_start_ms=0)
 
     shapes = []
-    for conv, xin in conv_inputs:
+    for conv, xin, tail in conv_inputs:
         n, h, w, c = xin.shape
         wc = packed_width(c)
         fold = (None, conv.x_thresh, conv.x_flip)
@@ -1361,7 +1395,8 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
         r['bytes'] += nb
         r['bound_ms'] += bound_ms(nb, 2 * xin.numel(), FP32_OPS_PER_S)[0]
 
-        kw = dict(in_channels=c, stride=s, padding=1, out_dtype=dt)
+        kw = dict(in_channels=c, stride=s, padding=1, out_dtype=dt,
+                  tail=tail)
         out = B.xnor_conv2d(words, wp, vx, vw, conv.bias, **kw)
         oh, ow, o = out.shape[1:]
         r = rows['xnor_conv2d']
@@ -1378,7 +1413,7 @@ def time_kernels(model: torch.nn.Module, x: torch.Tensor,
         macs = n * o * c * valid_taps(h, oh, s, 1, 3) * valid_taps(
             w, ow, s, 1, 3)
         nb = (words.numel() + wp.numel()) * 4 + 4 * (n + 2 * o) \
-            + out.numel() * out.element_size()
+            + out.numel() * out.element_size() + tail_bytes(tail)
         r['bytes'] += nb
         r['ops'] += 2 * macs
         r['bound_ms'] += bound_ms(nb, 2 * macs, INT8_OPS_PER_S)[0]
@@ -1567,7 +1602,7 @@ def planes_captured(seen: list) -> dict[str, float]:
     from quant_tpu_torch.ops import binary_infer as B
 
     pack_err = conv_err = 0.0
-    for i, (conv, xin) in enumerate(seen):
+    for i, (conv, xin, tail) in enumerate(seen):
         k = B.sign_planes(conv.x_quant)
         xp, args = _producer_args(conv, xin)
         for x in (xp, xp.float()):
@@ -1577,10 +1612,12 @@ def planes_captured(seen: list) -> dict[str, float]:
                 B.pack_sign_planes_plain(x, k, *args)))
         conv_args, kw = _planes_conv_args(conv, xin)
         for dt in (torch.bfloat16, torch.float32):
+            t = tail_as(tail, dt)
             conv_err = max(conv_err, check_equal(
                 f'xnor_conv2d_planes captured {i} {dt}',
-                B.xnor_conv2d_planes(*conv_args, out_dtype=dt, **kw),
-                B.xnor_conv2d_planes_plain(*conv_args, out_dtype=dt, **kw)))
+                B.xnor_conv2d_planes(*conv_args, out_dtype=dt, tail=t, **kw),
+                B.xnor_conv2d_planes_plain(*conv_args, out_dtype=dt, tail=t,
+                                           **kw)))
     torch.cuda.synchronize()
     return {'pack_sign_planes': pack_err, 'xnor_conv2d_planes': conv_err}
 
@@ -1639,7 +1676,7 @@ def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
         row['call_ms'] += card_ms(fn, iters, head_start_ms=0)
 
     pairs = layout = None
-    for conv, xin in seen:
+    for conv, xin, tail in seen:
         n, h, w, c = xin.shape
         k = B.sign_planes(conv.x_quant)
         xp, args = _producer_args(conv, xin)
@@ -1654,6 +1691,7 @@ def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
         r['bound_ms'] += bound_ms(nb, 2 * k * xp.numel(), FP32_OPS_PER_S)[0]
 
         (words, wp, vx, vw, bias), kw = _planes_conv_args(conv, xin)
+        kw['tail'] = tail
         args_c = (words, wp, vx, vw, bias)
         out = B.xnor_conv2d_planes(*args_c, out_dtype=torch.bfloat16, **kw)
         r = rows['xnor_conv2d_planes']
@@ -1682,7 +1720,7 @@ def time_planes_kernels(seen: list, iters: int) -> tuple[dict, dict]:
             w, ow, s, p, kk)
         nb = (words.numel() + wp.numel()) * 4 + 4 * (n * ga + gw * o) \
             + (0 if bias is None else bias.numel() * 2) \
-            + out.numel() * out.element_size()
+            + out.numel() * out.element_size() + tail_bytes(tail)
         r['bytes'] += nb
         r['ops'] += 2 * macs * pairs
         r['bound_ms'] += bound_ms(nb, 2 * macs * pairs, INT8_OPS_PER_S)[0]
@@ -1717,7 +1755,7 @@ def _solve_rows(seen: list) -> dict:
 
     rel = shift = 0.0
     off_tol = 0
-    for conv, xin in seen:
+    for conv, xin, _ in seen:
         quant = conv.x_quantizer
         ternary = quant.scheme == 'ls-T'
         xc = conv.clamp_fn()(xin)
@@ -1799,7 +1837,7 @@ def lloyd_phase(seen: list, seen32: list, iters: int) -> dict:
     for key, captured in (('bf16', seen), ('f32', seen32)):
         for ternary in (False, True):
             worst: dict = {}
-            for conv, xin in captured:
+            for conv, xin, _ in captured:
                 xc = conv.clamp_fn()(xin)
                 r = _lloyd_check(xc.reshape(xc.shape[0], -1), ternary,
                                  conv.x_quantizer.skip)
@@ -1807,7 +1845,7 @@ def lloyd_phase(seen: list, seen32: list, iters: int) -> dict:
                     worst[k] = max(worst.get(k, 0), v)
             checks[f'{key}_{"ls-T" if ternary else "ls-2"}'] = worst
     rows = []
-    for conv, xin in seen:
+    for conv, xin, _ in seen:
         xc = conv.clamp_fn()(xin).reshape(xin.shape[0], -1)
         reps = -(-LLOYD_BATCH // xc.shape[0])
         rows.append((xc.repeat(reps, 1)[:LLOYD_BATCH].contiguous(),
@@ -1845,7 +1883,7 @@ def solve_phase(seen: list, seen32: list, iters: int) -> dict:
     on the inputs of that forward (bf16 values) and of its float32 chain
     (seen32), and lloyd_phase on the same inputs. Returns the record."""
     ms = 0.0
-    for conv, xin in seen:
+    for conv, xin, _ in seen:
         xc = conv.clamp_fn()(xin)
         ms += card_ms(lambda: conv.x_quantizer.solve(xc), iters)
     return dict(solve_ms=ms, convs=len(seen), bf16_rows=_solve_rows(seen),
@@ -1927,8 +1965,9 @@ def frontend_phase(model: torch.nn.Module, seed: int) -> dict:
         frontend.stop()
     batches = stats['batches']
     want = {k: 0 for k in KERNELS}
-    want.update(xnor_conv2d=16 * batches, pack_sign_planes=16 * batches,
-                max_pool_3x3_s2_p1=batches)
+    want.update({'xnor_conv2d': 16 * batches,
+                 'pack_sign_planes': 16 * batches, TAIL: 16 * batches,
+                 'max_pool_3x3_s2_p1': batches})
     if launches != want:
         raise AssertionError(f'frontend: launches {launches}, expected '
                              f'{want}')
@@ -1959,13 +1998,13 @@ def _worker_launches(before: dict, after: dict,
                      per_batch: Optional[dict] = None) -> dict[str, int]:
     """A worker's launches between two of its stats, checked against its
     batches: per_batch's counts each, by default the ResNet-18's 16
-    xnor_conv2d, 16 pack_sign_planes and 1 pool."""
+    xnor_conv2d, 16 pack_sign_planes (16 with a tail) and 1 pool."""
     got = {k: after['kernel_launches'][k] - before['kernel_launches'][k]
            for k in after['kernel_launches']}
     n = after['batches'] - before['batches']
     want = {k: 0 for k in got}
-    per_batch = per_batch or dict(xnor_conv2d=16, pack_sign_planes=16,
-                                  max_pool_3x3_s2_p1=1)
+    per_batch = per_batch or {'xnor_conv2d': 16, 'pack_sign_planes': 16,
+                              TAIL: 16, 'max_pool_3x3_s2_p1': 1}
     want.update({k: v * n for k, v in per_batch.items()})
     if got != want:
         raise AssertionError(f'worker launches {got}, expected {want}')
@@ -2409,8 +2448,8 @@ def serve_trained(model: torch.nn.Module, seed: int) -> dict:
     got = engine.predict(x)
     torch.cuda.synchronize()
     launches = {k: v for k, v in launch_counts().items() if v}
-    expect = dict(xnor_conv2d=n_convs, pack_sign_planes=n_convs,
-                  max_pool_3x3_s2_p1=1)
+    expect = {'xnor_conv2d': n_convs, 'pack_sign_planes': n_convs,
+              TAIL: n_convs, 'max_pool_3x3_s2_p1': 1}
     spread = float(want.max() - want.min())
     err = float(np.abs(got - want).max())
     err32 = float(np.abs(got32 - want).max())
@@ -2870,12 +2909,12 @@ def oracle_captured(seen: list) -> dict[str, float]:
     from quant_tpu_torch.ops import binary_infer as B
 
     errs = {'pack_sign_planes': 0.0}
-    multi = [(c, x) for c, x in seen
+    multi = [(c, x, t) for c, x, t in seen
              if B.sign_planes(c.x_quant) > 1 or c.w_packed.shape[0] > 1]
     if multi:
         errs.update(planes_captured(multi))
-    for i, (conv, xin) in enumerate(seen):
-        if any(conv is c for c, _ in multi):
+    for i, (conv, xin, tail) in enumerate(seen):
+        if any(conv is c for c, *_ in multi):
             continue
         xp, args = _producer_args(conv, xin)
         for x in (xp, xp.float()):
@@ -2890,11 +2929,13 @@ def oracle_captured(seen: list) -> dict[str, float]:
         kw = dict(in_channels=xin.shape[-1], stride=conv.stride,
                   padding=conv.padding)
         for dt in (torch.bfloat16, torch.float32):
+            t = tail_as(tail, dt)
             errs['xnor_conv2d'] = max(errs.get('xnor_conv2d', 0.0),
                                       check_equal(
                 f'xnor_conv2d oracle {i} {dt}',
-                B.xnor_conv2d(*conv_args, out_dtype=dt, **kw),
-                B.xnor_conv2d_plain(*conv_args, out_dtype=dt, **kw)))
+                B.xnor_conv2d(*conv_args, out_dtype=dt, tail=t, **kw),
+                B.xnor_conv2d_plain(*conv_args, out_dtype=dt, tail=t,
+                                    **kw)))
     torch.cuda.synchronize()
     return errs
 
@@ -3626,7 +3667,7 @@ def _tp_serving(mesh: Any, spec: dict, leader: bool) -> dict:
              model.bn1.register_forward_hook(
                  lambda mod, args, out: first(stems, torch.relu(out)))]
     hooks += [m.register_forward_pre_hook(
-        lambda mod, args: first(seen, (mod, args[0]))) for m in convs]
+        lambda mod, args: first(seen, (mod, args[0], None))) for m in convs]
     _sync()
     _build.reset_launch_counts()
     out = dict(bf16=_tp_round(model, images, leader, torch.bfloat16,
@@ -4196,9 +4237,15 @@ def pipe_blocks(model: torch.nn.Module, stages: int) -> list:
 
 
 def _pipe_packed(mesh: Any, spec: dict) -> dict:
-    """Layer1's packed blocks pipelined against the blocks in sequence:
-    equal outputs, launches a call, ms a call against sequential."""
+    """Layer1's packed blocks pipelined against the blocks in sequence,
+    both with each block's tail in its binary convs, and against the
+    blocks in sequence with every tail run by the eager ops
+    (nn.resnet._Block.tail_engages held false): equal outputs, launches
+    a call, ms a call against sequential."""
+    from unittest import mock
+
     from quant_tpu_torch import _build
+    from quant_tpu_torch.nn import resnet
     from quant_tpu_torch.parallel import pipeline_apply, stack_stage_params
 
     serving, stages, m = spec['serving'], spec['world'], spec['microbatches']
@@ -4232,10 +4279,16 @@ def _pipe_packed(mesh: Any, spec: dict) -> dict:
         got = pipelined()
         _sync()
         launches = _build.launch_counts()
+        with mock.patch.object(resnet._Block, 'tail_engages',
+                               lambda self, *a, **kw: False):
+            eager = sequential()
         out = dict(shape=list(mb.shape), launches=launches,
                    max_abs_err=check_equal('pipeline packed blocks',
                                            got.reshape(x.shape),
-                                           sequential()))
+                                           sequential()),
+                   eager_abs_err=check_equal(
+                       'pipeline packed blocks against the eager tails',
+                       got.reshape(x.shape), eager))
         out.update(pipeline_ms=_host_ms(pipelined, spec['iters']),
                    sequential_ms=_host_ms(sequential, spec['iters']))
     return out
@@ -4864,10 +4917,11 @@ def pipeline_phase(seed: int) -> dict:
         world=SPACE_WORLD, backend='gloo', mesh=['pipe'],
         stages=PIPE_STAGES, shape=packed['shape'],
         max_abs_err=max(r['packed']['max_abs_err'] for r in ranks),
+        eager_abs_err=max(r['packed']['eager_abs_err'] for r in ranks),
         per_microbatch=[_tp_launches(r['packed']['launches'],
                                      PIPE_MICROBATCHES,
                                      {'xnor_conv2d': 2,
-                                      'pack_sign_planes': 2})
+                                      'pack_sign_planes': 2, TAIL: 2})
                         for r in ranks],
         pipeline_ms=[r['packed']['pipeline_ms'] for r in ranks],
         sequential_ms=[r['packed']['sequential_ms'] for r in ranks],
@@ -5109,6 +5163,112 @@ def serving_import_probe() -> dict:
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=300, check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def xnor_resnet50(x_quant: str, w_quant: str, **kwargs: Any
+                  ) -> torch.nn.Module:
+    """The benchmark's ImageNet ResNet-50 (portbench's r50_xnor_ls2_ls1
+    configuration): XNOR bottleneck blocks [3, 4, 6, 3], bench_resnet18's
+    stem, clamp and PReLUs, no double shortcut, 1000 classes."""
+    from quant_tpu_torch.nn.resnet import QResNet
+
+    config = models.bench_resnet18_config(x_quant, w_quant)
+    for layer in ('layer1', 'layer2', 'layer3', 'layer4'):
+        config[layer].pop('double_shortcut')
+    return QResNet(**dict(config, block='xnor_bottleneck',
+                          num_blocks=[3, 4, 6, 3]), **kwargs)
+
+
+@contextlib.contextmanager
+def tail_calls() -> Iterator[list]:
+    """Counts the binary conv calls (xnor_conv2d, xnor_conv2d_planes)
+    handed a block's tail (ops.binary_infer.Tail), on the card and on the
+    CPU alike (where the launch counter `TAIL` stays put): yields a
+    one-item list that holds the count."""
+    from unittest import mock
+
+    from quant_tpu_torch.ops import binary_infer as B
+
+    n = [0]
+
+    def counted(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args: Any, tail: Any = None, **kw: Any) -> Any:
+            n[0] += tail is not None
+            return fn(*args, tail=tail, **kw)
+        return call
+
+    with mock.patch.object(B, 'xnor_conv2d', counted(B.xnor_conv2d)), \
+            mock.patch.object(B, 'xnor_conv2d_planes',
+                              counted(B.xnor_conv2d_planes)):
+        yield n
+
+
+# The tail phase (tail_phase): served, folded models whose blocks hand
+# their tails to the binary convs (ops.binary_infer.Tail), against the
+# same modules with every tail run by the eager ops
+# (nn.resnet._Block.tail_engages held false), at the main path's batch of
+# seeded images of TAIL_INPUT: logits equal bit for bit in the bf16 and
+# the float32 chain; the convs handed a tail (tail_calls) and, on the
+# card, the tail launches at the count a forward; none on the eager side.
+# {name: (build, x_quant, w_quant, options, tails a forward)}: the main
+# path's ResNet-18 and the benchmark's ResNet-50 (ls-2 x ls-1 on the int8
+# route).
+TAIL_MODELS = {
+    'resnet18_xnor_ls1': (models.bench_resnet18, 'ls-1', 'ls-1', {}, 16),
+    'resnet50_xnor_ls2_ls1': (xnor_resnet50, 'ls-2', 'ls-1',
+                              {'sign_compute': 'int8'}, 48),
+}
+TAIL_INPUT = (224, 224, 3)
+
+
+def tail_phase(seed: int, batch: int) -> dict:
+    """The tail phase (TAIL_MODELS' comment) at `batch` images; one JSON
+    line {"tail_phase": ...}."""
+    from unittest import mock
+
+    from quant_tpu_torch.nn import resnet
+    from quant_tpu_torch.ops import binary_infer as B
+
+    def forward(model: torch.nn.Module, x: torch.Tensor) -> tuple:
+        before = B.tail_launches.count
+        with tail_calls() as calls, torch.inference_mode():
+            logits = model(x)
+        _sync()
+        return logits, calls[0], B.tail_launches.count - before
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    for i, (name, (make, xq, wq, options, tails)) in enumerate(
+            TAIL_MODELS.items()):
+        model = models.seeded_model(make, xq, wq, DEVICE, seed + i,
+                                    moving_average_mode='eval_only',
+                                    **options)
+        x = torch.randn((batch,) + TAIL_INPUT,
+                        generator=torch.Generator().manual_seed(seed + i))
+        x = x.to(DEVICE)
+        launched = tails if x.is_cuda else 0
+        out[name] = {}
+        for dt in (torch.bfloat16, None):
+            model.eval_dtype = dt
+            got, n, n_launched = forward(model, x)
+            with mock.patch.object(resnet._Block, 'tail_engages',
+                                   lambda self, *a, **kw: False):
+                want, n_eager, _ = forward(model, x)
+            rec = dict(tails=n, tail_launches=n_launched,
+                       eager_tails=n_eager,
+                       bit_equal=torch.equal(got.view(torch.int32),
+                                             want.view(torch.int32)),
+                       max_abs_err=(got - want).abs().max().item())
+            out[name]['bfloat16' if dt else 'float32'] = rec
+            if not (rec['bit_equal'] and n == tails
+                    and n_launched == launched and n_eager == 0):
+                raise AssertionError(f'tail phase {name} {dt}: {rec}, '
+                                     f'{tails} tails expected')
+        del model
+    out.update(batch=batch, s=time.perf_counter() - t0)
+    print(json.dumps({'tail_phase': out}), flush=True)
+    return out
 
 
 def _api_resnet18(seed: int) -> torch.nn.Module:
@@ -5392,7 +5552,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     for h in hooks:
         h.remove()
     want = {k: 0 for k in KERNELS}
-    want.update(xnor_conv2d=16, pack_sign_planes=16, max_pool_3x3_s2_p1=1)
+    want.update({'xnor_conv2d': 16, 'pack_sign_planes': 16, TAIL: 16,
+                 'max_pool_3x3_s2_p1': 1})
     if launches != want:
         raise AssertionError(f'launches {launches}, expected {want}')
     if logits.shape != (args.batch, 1000) or not logits.isfinite().all():
@@ -5421,6 +5582,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     print(f'serving: {served}', flush=True)
     api = api_phase(model, x, args.seed)
     print(f'api phase: {api["s"]:.1f} s', flush=True)
+    tail = tail_phase(args.seed, args.batch)
 
     # Forwards back to back, host included: what a caller gets. The card's
     # share: the same forwards queued behind a head start.
@@ -5590,7 +5752,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                            ms_per_forward_card=ms_fwd_card,
                            card_alone_calls=card_calls,
                            fp32_max_abs_err=fp32_err, fp32_spread=spread,
-                           serving=served, api=api, kernels=rows,
+                           serving=served, api=api, tail=tail,
+                           kernels=rows,
                            serving_stack=stack,
                            model_phases=phases, model_phases_s=phases_s,
                            oracle=oracle,

@@ -74,6 +74,16 @@
 //   or kept f32, then + bias in the out dtype. Each warp stages a 16x32
 //   piece of outputs in the then idle ring and stores it in 16-byte
 //   chunks, a row's 64 (bf16) or 128 (f32) bytes at a time.
+//   The block's tail (ops/binary_infer.py `Tail`), where one is given,
+//   is applied to each chunk as it is stored: a PReLU, the residual add
+//   (the residual read in the same 16-byte chunks, optionally through the
+//   shortcut's eval BN: ((float(c) - mean) * mul) + bias, rounded to the
+//   out dtype), a PReLU; each op rounded where PyTorch's eager ops round
+//   (_rn intrinsics, no FMA), so the result equals the eager chain bit
+//   for bit, NaN, +-inf and -0.0 included. The PReLU slopes are read from
+//   their float32 parameters on the card and rounded to the out dtype, as
+//   `.to(x.dtype)` does. The tail is a template parameter: a launch
+//   without one runs the instance that has no tail code at all.
 //
 // qtt_xnor_conv2d_planes_* -- the conv's multi-plane form: JAX's int8
 //   pass loop (binary_infer.py:280-324, fused=False) over k_a activation
@@ -96,9 +106,9 @@
 //   groups past 3) are further passes; (3) the running sum
 //   of the terms, each rounded to the out dtype and added in JAX's order,
 //   stays in registers within a pass and in shared memory between passes,
-//   and `out` is written once, with the bias. One launch, not k_a * k_w
-//   launches and an add: the host's launch time already shows at batch
-//   128.
+//   and `out` is written once, with the bias and the tail (as the ls-1
+//   conv's). One launch, not k_a * k_w launches and an add: the host's
+//   launch time already shows at batch 128.
 //
 // qtt_pack_sign_planes_* -- the producer, no TPU kernel (XLA fused
 //   binary_infer.py:149-206 with packing.py:27-43): one pass over the
@@ -333,6 +343,117 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* dst,
   *reinterpret_cast<__nv_bfloat162*>(dst) = p;
 }
 
+// A block's tail (ops/binary_infer.py `Tail`): the residual (M, O) in
+// the out dtype, the shortcut BN's float32 (O,) mean, mul and bias, and
+// the PReLU slopes (one float32 each); null pointers leave a step out
+// (mean, mul and add are all set or all null, and only with res).
+struct Tail {
+  const void* res;
+  const float *mean, *mul, *add;
+  const float *slope_a, *slope_b;
+  bool any() const {
+    return res != nullptr || slope_a != nullptr || slope_b != nullptr;
+  }
+};
+
+// PReLU of v with slope s (already rounded to OutT): v >= 0 ? v :
+// round(s * v), as torch.where(x >= 0, x, s * x) (NaN takes s * v).
+template <typename OutT>
+__device__ __forceinline__ OutT prelu(OutT v, float s) {
+  const float f = to_float(v);
+  return f >= 0.0f ? v : from_float<OutT>(__fmul_rn(s, f));
+}
+
+// The tail of one output value v at channel oc, r its residual; sa and
+// sb are the slopes rounded to OutT.
+template <typename OutT>
+__device__ __forceinline__ OutT tail_value(OutT v, OutT r, int oc,
+                                           const Tail& t, float sa,
+                                           float sb) {
+  if (t.slope_a != nullptr) v = prelu(v, sa);
+  if (t.res != nullptr) {
+    float rf = to_float(r);
+    if (t.mean != nullptr) {
+      rf = round_to<OutT>(__fadd_rn(
+          __fmul_rn(__fsub_rn(rf, __ldg(t.mean + oc)), __ldg(t.mul + oc)),
+          __ldg(t.add + oc)));
+    }
+    v = from_float<OutT>(__fadd_rn(to_float(v), rf));
+  }
+  if (t.slope_b != nullptr) v = prelu(v, sb);
+  return v;
+}
+
+// The slopes of a tail rounded to OutT, as `slope.to(x.dtype)` does.
+template <typename OutT>
+__device__ __forceinline__ void tail_slopes(const Tail& t, float& sa,
+                                            float& sb) {
+  sa = t.slope_a != nullptr ? round_to<OutT>(__ldg(t.slope_a)) : 0.0f;
+  sb = t.slope_b != nullptr ? round_to<OutT>(__ldg(t.slope_b)) : 0.0f;
+}
+
+// The tail of one 16-byte chunk u of outputs at channels oc.., r its
+// residual chunk: tail_value on each value.
+template <typename OutT>
+__device__ __forceinline__ void tail_chunk(uint4& u, const uint4& r, int oc,
+                                           const Tail& t, float sa,
+                                           float sb) {
+  OutT* v = reinterpret_cast<OutT*>(&u);
+  const OutT* rv = reinterpret_cast<const OutT*>(&r);
+#pragma unroll
+  for (int e = 0; e < 16 / static_cast<int>(sizeof(OutT)); ++e)
+    v[e] = tail_value(v[e], rv[e], oc + e, t, sa, sb);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// PReLU of a register of two bf16 values with the slope pair s2: the
+// product with one mul.rn.bf16x2 (two bf16 values multiply exactly in
+// float32, so its one rounding is the float32 product's rounding to
+// bf16), the value kept where it is >= 0 (set.ge's mask; NaN takes the
+// product).
+__device__ __forceinline__ uint32_t prelu2(uint32_t v, __nv_bfloat162 s2) {
+  const uint32_t ge = __hge2_mask(as_bf2(v), __float2bfloat162_rn(0.0f));
+  return (v & ge) | (as_u32(__hmul2(s2, as_bf2(v))) & ~ge);
+}
+
+// bf16 out: tail_value two values a register, in bf16x2 instructions.
+// The PReLUs as prelu2; the add as one add.rn.bf16x2, whose one rounding
+// equals the float32 sum's rounding to bf16 (float32's 24 bits are more
+// than twice bf16's 8 plus two, so rounding twice changes nothing); the
+// residual's BN in float32 as tail_value's.
+template <>
+__device__ __forceinline__ void tail_chunk<__nv_bfloat16>(
+    uint4& u, const uint4& r, int oc, const Tail& t, float sa, float sb) {
+  uint32_t v[4] = {u.x, u.y, u.z, u.w};
+  uint32_t rr[4] = {r.x, r.y, r.z, r.w};
+  const __nv_bfloat162 sa2 = __float2bfloat162_rn(sa);
+  const __nv_bfloat162 sb2 = __float2bfloat162_rn(sb);
+  auto bn = [&](float x, int c) {
+    return __fadd_rn(
+        __fmul_rn(__fsub_rn(x, __ldg(t.mean + c)), __ldg(t.mul + c)),
+        __ldg(t.add + c));
+  };
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (t.mean != nullptr) {
+      const int c = oc + 2 * i;  // the low half's channel
+      rr[i] = as_u32(__floats2bfloat162_rn(
+          bn(__uint_as_float(rr[i] << 16), c),
+          bn(__uint_as_float(rr[i] & 0xFFFF0000u), c + 1)));
+    }
+    if (t.slope_a != nullptr) v[i] = prelu2(v[i], sa2);
+    if (t.res != nullptr) v[i] = as_u32(__hadd2(as_bf2(v[i]), as_bf2(rr[i])));
+    if (t.slope_b != nullptr) v[i] = prelu2(v[i], sb2);
+  }
+  u = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
 constexpr int kConvBM = 128;     // block tile: output pixels
 constexpr int kConvBN = 64;      // block tile: output channels
 constexpr int kConvThreads = 128;
@@ -554,43 +675,106 @@ __device__ __forceinline__ uint32_t last_words(const ConvShape& s, int kt) {
   return last;
 }
 
+// A lane's share of the tail of one staged 16 x kCols piece of outputs
+// (store_staged): the residual chunks it stores, loaded by `load` before
+// the epilogue computes the piece, so that their latency overlaps that
+// arithmetic. The lane's chunk q is chunk lane + 32 q of the piece, kRow
+// chunks a row; none is loaded past M or O, nor where O leaves chunks off
+// 16 bytes, nor where a lane stores more than 4 chunks (float32 out of
+// the multi-plane conv's 64-column pieces, whose 32 registers would
+// spill): store_staged then reads the residual as it stores.
+template <typename OutT, int kCols>
+struct TailPiece {
+  static constexpr int kChunk = 16 / static_cast<int>(sizeof(OutT));
+  static constexpr int kRow = kCols / kChunk;
+  static constexpr int kChunks = 16 * kRow / 32;
+  static constexpr bool kAhead = kChunks <= 4;
+  uint4 res[kChunks];
+
+  __device__ __forceinline__ void load(const Tail& t, long long mt0, int col0,
+                                       const ConvShape& s, int lane) {
+    if constexpr (!kAhead) return;
+    const OutT* r = static_cast<const OutT*>(t.res);
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const int c = lane + 32 * q;
+      const long long m = mt0 + c / kRow;
+      const int col = col0 + (c % kRow) * kChunk;
+      res[q] = make_uint4(0, 0, 0, 0);
+      if (r != nullptr && s.o % kChunk == 0 && m < s.m && col < s.o)
+        res[q] = __ldg(reinterpret_cast<const uint4*>(r + m * s.o + col));
+    }
+  }
+};
+
 // Stores a warp's staged 16 x kCols piece of outputs (row pitch kCols
 // plus one 16-byte chunk, so the pair writes meet no bank conflict) at
 // rows mt0.. and columns col0.. of out, in 16-byte chunks where O keeps
-// them on 16 bytes; rows past M and columns past O are not stored.
-template <typename OutT, int kCols>
-__device__ __forceinline__ void store_staged(const OutT* tile, OutT* out,
-                                             long long mt0, int col0,
-                                             const ConvShape& s, int lane) {
+// them on 16 bytes; rows past M and columns past O are not stored. With
+// kTail, each value takes the tail (tail_chunk, tail_value) on its way
+// out, its residual from `piece`, or read as it is stored where `piece`
+// holds none.
+template <typename OutT, int kCols, bool kTail>
+__device__ __forceinline__ void store_staged(
+    const OutT* tile, OutT* out, long long mt0, int col0, const ConvShape& s,
+    int lane, const Tail& tail, const TailPiece<OutT, kCols>& piece,
+    float sa, float sb) {
   constexpr int kChunk = 16 / static_cast<int>(sizeof(OutT));
   constexpr int kPitch = kCols + kChunk;
   constexpr int kRow = kCols / kChunk;  // chunks a row
   const bool vec = s.o % kChunk == 0;   // whole chunks lie on 16 B
-  for (int c = lane; c < 16 * kRow; c += 32) {
+  const OutT* res = static_cast<const OutT*>(tail.res);
+  // Chunk c of the piece, the lane's chunk q.
+  auto store = [&](int c, int q) {
     int r = c / kRow;
     int cc = (c % kRow) * kChunk;
     long long m = mt0 + r;
-    if (m >= s.m || col0 + cc >= s.o) continue;
+    if (m >= s.m || col0 + cc >= s.o) return;
     const OutT* src = tile + r * kPitch + cc;
-    OutT* o = out + m * s.o + col0 + cc;
+    const long long at = m * s.o + col0 + cc;
+    OutT* o = out + at;
     if (vec) {
-      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+      uint4 u = *reinterpret_cast<const uint4*>(src);
+      if constexpr (kTail) {
+        uint4 rc = make_uint4(0, 0, 0, 0);
+        if constexpr (TailPiece<OutT, kCols>::kAhead) {
+          rc = piece.res[q];
+        } else if (res != nullptr) {
+          rc = __ldg(reinterpret_cast<const uint4*>(res + at));
+        }
+        tail_chunk<OutT>(u, rc, col0 + cc, tail, sa, sb);
+      }
+      *reinterpret_cast<uint4*>(o) = u;
     } else {
-      for (int e = 0; e < kChunk && col0 + cc + e < s.o; ++e) o[e] = src[e];
+      for (int e = 0; e < kChunk && col0 + cc + e < s.o; ++e) {
+        OutT v = src[e];
+        if constexpr (kTail) {
+          v = tail_value(v, res != nullptr ? res[at + e] : v, col0 + cc + e,
+                         tail, sa, sb);
+        }
+        o[e] = v;
+      }
     }
+  };
+  if constexpr (kTail) {
+#pragma unroll
+    for (int q = 0; q < TailPiece<OutT, kCols>::kChunks; ++q)
+      store(lane + 32 * q, q);
+  } else {
+    for (int c = lane; c < 16 * kRow; c += 32) store(c, 0);
   }
 }
 
 // The serving path's ls-1 conv: one activation plane against one weight
-// plane.
-template <typename OutT>
+// plane; with kTail, the tail applied as the outputs are stored.
+template <typename OutT, bool kTail>
 __global__ void __launch_bounds__(kConvThreads)
     xnor_conv2d_kernel(const uint32_t* __restrict__ x,
                        const uint32_t* __restrict__ wt,
                        const float* __restrict__ vx,
                        const float* __restrict__ vw,
                        const OutT* __restrict__ bias, OutT* __restrict__ out,
-                       ConvShape s) {
+                       ConvShape s, Tail tail) {
   __shared__ __align__(16) uint32_t sa[kConvStages][kConvBM * kKS];
   __shared__ __align__(16) uint32_t sb[kConvStages][kKS * kConvBN];
   __shared__ uint32_t sv[kConvStages][kConvBM];  // valid bit per row, word
@@ -706,9 +890,13 @@ __global__ void __launch_bounds__(kConvThreads)
   const long long pix = static_cast<long long>(s.oh) * s.ow;
   const bool narrow = s.m <= 0xFFFFFFFFLL;  // 32-bit division suffices
   const int col0 = n0 + wn * 32;
+  float slope_a = 0.0f, slope_b = 0.0f;
+  if constexpr (kTail) tail_slopes<OutT>(tail, slope_a, slope_b);
 #pragma unroll
   for (int i = 0; i < kConvMT; ++i) {
     const long long mt0 = m0 + wm * 64 + i * 16;
+    TailPiece<OutT, 32> piece;
+    if constexpr (kTail) piece.load(tail, mt0, col0, s, lane);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       long long m = mt0 + hh * 8 + g;
@@ -726,7 +914,8 @@ __global__ void __launch_bounds__(kConvThreads)
       }
     }
     __syncwarp();
-    store_staged<OutT, 32>(tile, out, mt0, col0, s, lane);
+    store_staged<OutT, 32, kTail>(tile, out, mt0, col0, s, lane, tail,
+                                  piece, slope_a, slope_b);
     __syncwarp();
   }
 }
@@ -819,8 +1008,8 @@ __device__ __forceinline__ void expand_b(uint4* eb, const uint32_t* b,
 // pass's terms, each rounded to OutT, to the running sum in JAX's order,
 // rounded after every add; the sum stays in registers within a pass and
 // in shared memory between passes, and `out` is stored once, with the
-// bias, after the last.
-template <typename OutT, int GA, int PA, int PW>
+// bias (and with kTail the tail), after the last.
+template <typename OutT, int GA, int PA, int PW, bool kTail>
 __global__ void __launch_bounds__(kConvThreads, kPlanesBlocks)
     xnor_conv2d_planes_kernel(const uint32_t* __restrict__ x,
                               const uint32_t* __restrict__ wt,
@@ -828,7 +1017,7 @@ __global__ void __launch_bounds__(kConvThreads, kPlanesBlocks)
                               const float* __restrict__ vw,
                               const OutT* __restrict__ bias,
                               OutT* __restrict__ out, ConvShape s,
-                              PlaneShape pl) {
+                              PlaneShape pl, Tail tail) {
   using T = PlanesTile<GA>;
   using S = PlanesSmem<GA, PA, PW>;
   extern __shared__ __align__(16) uint32_t planes_smem[];
@@ -964,6 +1153,10 @@ __global__ void __launch_bounds__(kConvThreads, kPlanesBlocks)
                                                : from_float<OutT>(0.0f);
       }
     }
+    float slope_a = 0.0f, slope_b = 0.0f;
+    if constexpr (kTail) {
+      if (final_pass) tail_slopes<OutT>(tail, slope_a, slope_b);
+    }
     constexpr int kCols = 8 * T::kNT;
     constexpr int kPitch = kCols + 16 / static_cast<int>(sizeof(OutT));
     static_assert(4 * 16 * kPitch * sizeof(OutT) <= S::kRing, "staging");
@@ -973,6 +1166,10 @@ __global__ void __launch_bounds__(kConvThreads, kPlanesBlocks)
 #pragma unroll
     for (int i = 0; i < T::kMT; ++i) {
       const long long mt0 = m0 + (wm * T::kMT + i) * 16;
+      TailPiece<OutT, kCols> piece;
+      if constexpr (kTail) {
+        if (final_pass) piece.load(tail, mt0, n0 + wn * kCols, s, lane);
+      }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         long long m = mt0 + hh * 8 + g;
@@ -1017,7 +1214,9 @@ __global__ void __launch_bounds__(kConvThreads, kPlanesBlocks)
       }
       if (final_pass) {
         __syncwarp();
-        store_staged<OutT, kCols>(tile, out, mt0, n0 + wn * kCols, s, lane);
+        store_staged<OutT, kCols, kTail>(tile, out, mt0, n0 + wn * kCols, s,
+                                         lane, tail, piece, slope_a,
+                                         slope_b);
         __syncwarp();
       }
     }
@@ -1235,27 +1434,43 @@ ConvShape conv_shape(const void* x, const void* w, int n, int h, int wd,
   return s;
 }
 
+template <typename OutT, bool kTail>
+void launch_conv_instance(const void* x, const void* w, const void* vx,
+                          const void* vw, const void* bias, void* out,
+                          const Tail& tail, const ConvShape& s,
+                          cudaStream_t stream) {
+  dim3 grid(static_cast<unsigned>((s.m + kConvBM - 1) / kConvBM),
+            static_cast<unsigned>((s.o + kConvBN - 1) / kConvBN));
+  xnor_conv2d_kernel<OutT, kTail><<<grid, kConvThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
+      static_cast<const float*>(vx), static_cast<const float*>(vw),
+      static_cast<const OutT*>(bias), static_cast<OutT*>(out), s, tail);
+}
+
 template <typename OutT>
 int launch_conv(const void* x, const void* w, const void* vx, const void* vw,
-                const void* bias, void* out, const ConvShape& s,
-                void* stream) {
+                const void* bias, void* out, const Tail& tail,
+                const ConvShape& s, void* stream) {
   if (s.m > 0 && s.o > 0) {
-    dim3 grid(static_cast<unsigned>((s.m + kConvBM - 1) / kConvBM),
-              static_cast<unsigned>((s.o + kConvBN - 1) / kConvBN));
-    xnor_conv2d_kernel<OutT>
-        <<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(w),
-            static_cast<const float*>(vx), static_cast<const float*>(vw),
-            static_cast<const OutT*>(bias), static_cast<OutT*>(out), s);
+    auto st = static_cast<cudaStream_t>(stream);
+    if (tail.any()) {
+      launch_conv_instance<OutT, true>(x, w, vx, vw, bias, out, tail, s, st);
+    } else {
+      launch_conv_instance<OutT, false>(x, w, vx, vw, bias, out, tail, s,
+                                        st);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // A multi-plane conv call: its operands and shapes, or (regs set) a query
-// of the instance it would launch: registers a thread, blocks an SM.
+// of the instance it would launch: registers a thread, blocks an SM. With
+// `tailed` the instance with the tail (set where `tail` has any part).
 struct PlanesCall {
   const void *x, *w, *vx, *vw, *bias;
   void* out;
+  Tail tail;
+  bool tailed;
   ConvShape s;
   PlaneShape pl;
   cudaStream_t stream;
@@ -1276,12 +1491,12 @@ cudaError_t occupancy(Kernel kernel, int smem, int* regs, int* blocks) {
 
 // One instance: its dynamic shared memory is the ring, plus the running
 // sum where a block runs more than one pass.
-template <typename OutT, int GA, int PA, int PW>
+template <typename OutT, int GA, int PA, int PW, bool kTail>
 cudaError_t planes_instance(const PlanesCall& c) {
   using S = PlanesSmem<GA, PA, PW>;
   const int passes = c.pl.gw * ((c.pl.ga + GA - 1) / GA);
   const int smem = S::kRing + (passes > 1 ? S::kSum : 0);
-  auto kernel = xnor_conv2d_planes_kernel<OutT, GA, PA, PW>;
+  auto kernel = xnor_conv2d_planes_kernel<OutT, GA, PA, PW, kTail>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1296,7 +1511,7 @@ cudaError_t planes_instance(const PlanesCall& c) {
         static_cast<const uint32_t*>(c.x), static_cast<const uint32_t*>(c.w),
         static_cast<const float*>(c.vx), static_cast<const float*>(c.vw),
         static_cast<const OutT*>(c.bias), static_cast<OutT*>(c.out), c.s,
-        c.pl);
+        c.pl, c.tail);
   }
   return cudaGetLastError();
 }
@@ -1304,24 +1519,30 @@ cudaError_t planes_instance(const PlanesCall& c) {
 // The instance for a plane layout: merged activation planes (pa = 2) one
 // group a pass; single planes all ga groups in one pass up to 3, beyond
 // that 2 or 3 a pass (2 where ga is even).
-template <typename OutT, int PW>
+template <typename OutT, int PW, bool kTail>
 cudaError_t planes_by_groups(const PlanesCall& c) {
-  if (c.pl.pa == 2) return planes_instance<OutT, 1, 2, PW>(c);
+  if (c.pl.pa == 2) return planes_instance<OutT, 1, 2, PW, kTail>(c);
   const int ga = c.pl.ga;
   switch (ga <= 3 ? ga : (ga % 2 == 0 ? 2 : 3)) {
     case 1:
-      return planes_instance<OutT, 1, 1, PW>(c);
+      return planes_instance<OutT, 1, 1, PW, kTail>(c);
     case 2:
-      return planes_instance<OutT, 2, 1, PW>(c);
+      return planes_instance<OutT, 2, 1, PW, kTail>(c);
     default:
-      return planes_instance<OutT, 3, 1, PW>(c);
+      return planes_instance<OutT, 3, 1, PW, kTail>(c);
   }
+}
+
+template <typename OutT, bool kTail>
+cudaError_t planes_by_weights(const PlanesCall& c) {
+  return c.pl.pw == 2 ? planes_by_groups<OutT, 2, kTail>(c)
+                      : planes_by_groups<OutT, 1, kTail>(c);
 }
 
 template <typename OutT>
 int planes_call(const PlanesCall& c) {
-  return static_cast<int>(c.pl.pw == 2 ? planes_by_groups<OutT, 2>(c)
-                                       : planes_by_groups<OutT, 1>(c));
+  return static_cast<int>(c.tailed ? planes_by_weights<OutT, true>(c)
+                                   : planes_by_weights<OutT, false>(c));
 }
 
 // Pixels one grid-stride step of a wide producer covers: enough threads
@@ -1415,14 +1636,30 @@ extern "C" int qtt_xnor_gemm(const void* a, const void* bt, const void* vx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tail's pointers (ops/binary_infer.py `_tail_ptrs`), null where a
+// step is left out.
+inline Tail make_tail(const void* res, const void* mean, const void* mul,
+                      const void* add, const void* slope_a,
+                      const void* slope_b) {
+  return Tail{res,
+              static_cast<const float*>(mean),
+              static_cast<const float*>(mul),
+              static_cast<const float*>(add),
+              static_cast<const float*>(slope_a),
+              static_cast<const float*>(slope_b)};
+}
+
 #define QTT_CONV(SUFFIX, OUT_T)                                               \
   extern "C" int qtt_xnor_conv2d_##SUFFIX(                                     \
       const void* x, const void* w, const void* vx, const void* vw,          \
-      const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
-      int o, int oh, int ow, int kh, int kw, int stride, int pad,            \
-      int pad_top, void* stream) {                                           \
+      const void* bias, void* out, const void* res, const void* mean,        \
+      const void* mul, const void* add, const void* slope_a,                 \
+      const void* slope_b, int n, int h, int wd, int wc, int c, int o,       \
+      int oh, int ow, int kh, int kw, int stride, int pad, int pad_top,      \
+      void* stream) {                                                        \
     return launch_conv<OUT_T>(                                               \
         x, w, vx, vw, bias, out,                                             \
+        make_tail(res, mean, mul, add, slope_a, slope_b),                    \
         conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad,    \
                    pad_top),                                                 \
         stream);                                                             \
@@ -1433,13 +1670,16 @@ QTT_CONV(bf16, __nv_bfloat16)
 #define QTT_CONV_PLANES(SUFFIX, OUT_T)                                        \
   extern "C" int qtt_xnor_conv2d_planes_##SUFFIX(                              \
       const void* x, const void* w, const void* vx, const void* vw,          \
-      const void* bias, void* out, int n, int h, int wd, int wc, int c,      \
-      int o, int oh, int ow, int kh, int kw, int stride, int pad,            \
-      int pad_top, int ga, int pa, int gw, int pw, void* stream) {           \
+      const void* bias, void* out, const void* res, const void* mean,        \
+      const void* mul, const void* add, const void* slope_a,                 \
+      const void* slope_b, int n, int h, int wd, int wc, int c, int o,       \
+      int oh, int ow, int kh, int kw, int stride, int pad, int pad_top,      \
+      int ga, int pa, int gw, int pw, void* stream) {                        \
     PlaneShape pl{ga, pa, gw, pw, n, static_cast<long long>(n) * h * wd * wc,  \
                   static_cast<long long>(kh) * kw * wc * o};                 \
+    const Tail tail = make_tail(res, mean, mul, add, slope_a, slope_b);      \
     return planes_call<OUT_T>(PlanesCall{                                    \
-        x, w, vx, vw, bias, out,                                             \
+        x, w, vx, vw, bias, out, tail, tail.any(),                           \
         conv_shape(x, w, n, h, wd, wc, c, o, oh, ow, kh, kw, stride, pad,    \
                    pad_top),                                                 \
         pl, static_cast<cudaStream_t>(stream), nullptr, nullptr});           \
@@ -1447,17 +1687,25 @@ QTT_CONV(bf16, __nv_bfloat16)
 QTT_CONV_PLANES(f32, float)
 QTT_CONV_PLANES(bf16, __nv_bfloat16)
 
+template <typename OutT>
+cudaError_t conv_occupancy(bool tail, int* regs, int* blocks) {
+  return tail ? occupancy(xnor_conv2d_kernel<OutT, true>, 0, regs, blocks)
+              : occupancy(xnor_conv2d_kernel<OutT, false>, 0, regs, blocks);
+}
+
 // Registers a thread and blocks an SM of the conv kernel a launch with
 // these plane groups takes (ga = pa = gw = pw = 1: the ls-1 conv), with
-// f32 (f32 != 0) or bf16 out.
+// f32 (f32 != 0) or bf16 out, with a tail (tail != 0) or without.
 extern "C" int qtt_xnor_conv2d_occupancy(int f32, int ga, int pa, int gw,
-                                         int pw, int* regs, int* blocks) {
+                                         int pw, int tail, int* regs,
+                                         int* blocks) {
   if (ga == 1 && pa == 1 && gw == 1 && pw == 1) {
     return static_cast<int>(
-        f32 ? occupancy(xnor_conv2d_kernel<float>, 0, regs, blocks)
-            : occupancy(xnor_conv2d_kernel<__nv_bfloat16>, 0, regs, blocks));
+        f32 ? conv_occupancy<float>(tail != 0, regs, blocks)
+            : conv_occupancy<__nv_bfloat16>(tail != 0, regs, blocks));
   }
   PlanesCall c{};
+  c.tailed = tail != 0;
   c.pl = PlaneShape{ga, pa, gw, pw, 0, 0, 0};
   c.regs = regs;
   c.blocks = blocks;

@@ -134,7 +134,7 @@ class PReLU(nn.Module):
             torch.tensor(negative_slope_init, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
+        return BI.prelu(x, self.negative_slope)
 
 
 class Conv(nn.Module):
@@ -262,15 +262,27 @@ class BatchNorm(nn.Module):
         var = self.running_var + eps
         return g / torch.sqrt(var.double()).to(var.dtype)
 
-    def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
-                   var: torch.Tensor) -> torch.Tensor:
+    def _affine(self, mean: torch.Tensor, var: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+        """(mean, mul, bias) of the normalization (x - mean) * mul +
+        bias, mul = rsqrt(var + eps) * weight."""
         mul = torch.rsqrt(var + self.epsilon)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x.to(torch.promote_types(x.dtype, torch.float32)) - mean) * mul
-        if self.bias is not None:
-            y = y + _gathered(self, self.bias)
-        return y
+        bias = None if self.bias is None else _gathered(self, self.bias)
+        return mean, mul, bias
+
+    def eval_affine(self) -> tuple[torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+        """The eval forward's (mean, mul, bias), float32 (O,) vectors: a
+        block's tail applies its shortcut's BN with them
+        (ops.binary_infer.Tail)."""
+        return self._affine(self.running_mean, self.running_var)
+
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor) -> torch.Tensor:
+        return BI.bn_affine(x, *self._affine(mean, var))
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -497,6 +509,11 @@ class QuantConv2d(nn.Module):
     per input channel: whole) and gathers it. The weight solves of train
     mode then run on the slice: they reduce over (kh, kw, I) alone.
 
+    Served on the int8 route, unsharded and unbanded (`takes_tail`), a
+    conv takes its block's tail (ops.binary_infer.Tail: PReLU, residual
+    add with the shortcut's BN, PReLU), which its kernel applies before
+    it stores the output.
+
     Banded (`space`, parallel.spatial.band_model), a packed conv runs on
     its row band: the int8 route exchanges the halo rows of its packed
     sign words, the other routes those of x, and each conv pads only the
@@ -635,10 +652,26 @@ class QuantConv2d(nn.Module):
         one_pass = one_plane(self.x_quant) and one_plane(self.w_quant)
         return 'int8' if one_pass else 'bf16'
 
+    def takes_tail(self) -> bool:
+        """Whether this conv's eval forward can apply a block's tail
+        (ops.binary_infer.Tail) in its kernel's epilogue: it serves packed
+        through the int8 route with binary activations, unsharded and
+        unbanded."""
+        return (not self.training and self.packed and self.x_quant != 'fp'
+                and self._sign_compute() == 'int8' and self.tp is None
+                and self.space is None)
+
     def forward(self, x: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
-                bn_folded: bool = False) -> torch.Tensor:
+                bn_folded: bool = False,
+                tail: Optional[BI.Tail] = None) -> torch.Tensor:
+        """The conv of x; with `tail` (where takes_tail holds), the
+        conv's output with the tail applied."""
         with span(self.span_name, 'qconv'):
+            if tail is not None:
+                if not self.takes_tail():
+                    raise ValueError(f'{self.span_name} takes no tail')
+                return self._forward(x, out_dtype, bn_folded, tail=tail)
             x, band = spatial.conv_band(self.space, x, self.kernel_size,
                                         self.stride, self.padding)
             if band is not None:
@@ -653,8 +686,8 @@ class QuantConv2d(nn.Module):
         return self.b_fold.chunk(self.tp.size)[self.tp.index]
 
     def _forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype],
-                 bn_folded: bool,
-                 band: Optional[BI.RowBand] = None) -> torch.Tensor:
+                 bn_folded: bool, band: Optional[BI.RowBand] = None,
+                 tail: Optional[BI.Tail] = None) -> torch.Tensor:
         if self.training:
             return self._train(x, out_dtype, band)
         if not self.packed:
@@ -713,4 +746,4 @@ class QuantConv2d(nn.Module):
             x, x_scheme=self.x_quant, x_vs=x_vs,
             w_planes_share_scale=self.w_quant == 'ls-T',
             compute_dtype='int8' if self._sign_compute() == 'int8' else None,
-            **common, **thresh_kw)
+            tail=tail, **common, **thresh_kw)

@@ -8,6 +8,12 @@ shortcut). With `bn_fold` the blocks skip the BNs that an export fold
 put into their convs: the epilogue's (`b_fold`, regular families) or
 the thresholds (`x_thresh`, XNOR families).
 
+A served block hands the pointwise ops after each binary conv (its
+nonlinearity, the residual add with the shortcut's BN, the nonlinearity
+after it) to the conv's kernel as its tail (`_Block._conv`,
+ops.binary_infer.Tail) where the conv and the ops allow it; everywhere
+else the same ops run eagerly after the conv.
+
 Models are built in eval mode; `model.train()` runs the train forward
 (nn.layers: batch statistics, solved and cached scales, the dense QAT
 convs), with the chain in `train_dtype` and, with `remat`, each block
@@ -26,6 +32,7 @@ from quant_tpu_torch.nn.layers import (
     BatchNorm, Conv, Dense, DtypeLike, PReLU, QuantConv2d, as_dtype,
     state_unchanged,
 )
+from quant_tpu_torch.ops import binary_infer as BI
 from quant_tpu_torch.ops.conv import max_pool2d
 from quant_tpu_torch.ops.pool import max_pool_3x3_s2_p1, pool_fusable
 from quant_tpu_torch.parallel import global_stats, spatial
@@ -67,6 +74,23 @@ class _Shortcut(nn.Module):
         with span(self.span_name, 'shortcut'):
             return self.norm(self.conv(x, dtype), dtype)
 
+    def takes_tail(self) -> bool:
+        """Whether a tail can apply this shortcut's BN: identity, or an
+        unsharded, unbanded downsample."""
+        return self.identity or (self.conv.tp is None
+                                 and self.conv.space is None
+                                 and self.norm.tp is None)
+
+    def for_tail(self, x: torch.Tensor, dtype: Optional[torch.dtype]
+                 ) -> tuple[torch.Tensor, Optional[tuple]]:
+        """(r, bn) of a block's tail (ops.binary_infer.Tail): x and None
+        for the identity, else the downsample conv's output and its BN's
+        eval (mean, mul, bias), in the shortcut's span."""
+        if self.identity:
+            return x, None
+        with span(self.span_name, 'shortcut'):
+            return self.conv(x, dtype), self.norm.eval_affine()
+
 
 class _Block(nn.Module):
     """What the four block families share: the quantized-conv settings
@@ -100,6 +124,55 @@ class _Block(nn.Module):
                 and self.inference_mode == 'packed'
                 and self.w_quant != 'fp'
                 and not (self.xnor and self.x_quant == 'fp'))
+
+    def tail_engages(self, conv: QuantConv2d, fold: bool,
+                     dtype: Optional[torch.dtype],
+                     acts: Sequence[Optional[nn.Module]],
+                     residual: Optional[torch.Tensor],
+                     shortcut: Optional[_Shortcut]) -> bool:
+        """Whether `conv` applies the tail in its kernel (_conv): the
+        block serves folded, the conv takes a tail, the nonlinearities
+        are PReLU or identity, the residual has the conv's output dtype
+        and the shortcut's BN can go into the tail."""
+        return (fold and conv.takes_tail()
+                and all(a is None or isinstance(a, (PReLU, nn.Identity))
+                        for a in acts)
+                and (residual is None
+                     or (residual.dtype == (dtype or torch.float32)
+                         and (shortcut is None or shortcut.takes_tail()))))
+
+    def _conv(self, conv: QuantConv2d, x: torch.Tensor,
+              dtype: Optional[torch.dtype], fold: bool,
+              bn: Optional[BatchNorm] = None,
+              act_a: Optional[nn.Module] = None,
+              residual: Optional[torch.Tensor] = None,
+              shortcut: Optional[_Shortcut] = None,
+              act_b: Optional[nn.Module] = None) -> torch.Tensor:
+        """conv(x), then bn where the block is not folded (the regular
+        families' BN after the conv), then the tail, each part where
+        given: act_a, + r, act_b, with r = shortcut(residual), or the
+        residual itself where no shortcut is given. Where tail_engages
+        holds the conv's kernel applies the tail (the shortcut's conv
+        runs first, its BN goes into the tail); otherwise the eager ops
+        run it after the conv, the shortcut last."""
+        acts = (act_a, act_b)
+        if self.tail_engages(conv, fold, dtype, acts, residual, shortcut):
+            bn_vecs = None
+            if residual is not None and shortcut is not None:
+                residual, bn_vecs = shortcut.for_tail(residual, dtype)
+            slope_a, slope_b = (a.negative_slope if isinstance(a, PReLU)
+                                else None for a in acts)
+            return conv(x, dtype, fold, tail=BI.Tail(
+                slope_a, residual, bn_vecs, slope_b))
+        y = conv(x, dtype, fold)
+        if bn is not None and not fold:
+            y = bn(y, dtype)
+        if act_a is not None:
+            y = act_a(y)
+        if residual is not None:
+            y = y + (residual if shortcut is None
+                     else shortcut(residual, dtype))
+        return y if act_b is None else act_b(y)
 
     def fold_pairs(self) -> list[tuple[str, QuantConv2d, BatchNorm]]:
         """(name, conv, the BN folded into it): convN and bnN, the BN
@@ -139,13 +212,10 @@ class RegularBasicBlock(_Block):
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
                 bn_fold: bool = False) -> torch.Tensor:
         fold = self._fold(bn_fold)
-        out = self.conv1(x, dtype, fold)
-        if not fold:
-            out = self.bn1(out, dtype)
-        out = self.conv2(self.nonlin1(out), dtype, fold)
-        if not fold:
-            out = self.bn2(out, dtype)
-        return self.nonlin2(out + self.shortcut(x, dtype))
+        out = self._conv(self.conv1, x, dtype, fold, self.bn1, self.nonlin1)
+        return self._conv(self.conv2, out, dtype, fold, self.bn2,
+                          residual=x, shortcut=self.shortcut,
+                          act_b=self.nonlin2)
 
 
 class XnorBasicBlock(_Block):
@@ -182,15 +252,17 @@ class XnorBasicBlock(_Block):
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
                 bn_fold: bool = False) -> torch.Tensor:
         fold = self._fold(bn_fold)
+        double = self.double_shortcut
         out1 = x if fold else self.bn1(x, dtype)
-        out1 = self.nonlin1(self.conv1(out1, dtype, fold))
-        if self.double_shortcut:
-            out1 = out1 + self.shortcut(x, dtype)
+        out1 = self._conv(self.conv1, out1, dtype, fold, act_a=self.nonlin1,
+                          residual=x if double else None,
+                          shortcut=self.shortcut)
         out2 = out1 if fold else self.bn2(out1, dtype)
-        out2 = self.conv2(out2, dtype, fold)
-        if self.double_shortcut:
-            return self.nonlin2(out2) + out1
-        return self.nonlin2(out2 + self.shortcut(x, dtype))
+        if double:
+            return self._conv(self.conv2, out2, dtype, fold,
+                              act_a=self.nonlin2, residual=out1)
+        return self._conv(self.conv2, out2, dtype, fold, residual=x,
+                          shortcut=self.shortcut, act_b=self.nonlin2)
 
 
 class RegularBottleneckBlock(_Block):
@@ -232,14 +304,11 @@ class RegularBottleneckBlock(_Block):
         fold = self._fold(bn_fold)
         out = x
         for conv, bn, nonlin in ((self.conv1, self.bn1, self.nonlin1),
-                                 (self.conv2, self.bn2, self.nonlin2),
-                                 (self.conv3, self.bn3, None)):
-            out = conv(out, dtype, fold)
-            if not fold:
-                out = bn(out, dtype)
-            if nonlin is not None:
-                out = nonlin(out)
-        return self.nonlin3(out + self.shortcut(x, dtype))
+                                 (self.conv2, self.bn2, self.nonlin2)):
+            out = self._conv(conv, out, dtype, fold, bn, nonlin)
+        return self._conv(self.conv3, out, dtype, fold, self.bn3,
+                          residual=x, shortcut=self.shortcut,
+                          act_b=self.nonlin3)
 
 
 class XnorBottleneckBlock(_Block):
@@ -288,14 +357,14 @@ class XnorBottleneckBlock(_Block):
         fold = self._fold(bn_fold)
         out = x
         for bn, conv, nonlin in ((self.bn1, self.conv1, self.nonlin1),
-                                 (self.bn2, self.conv2, self.nonlin2),
-                                 (self.bn3, self.conv3, None)):
+                                 (self.bn2, self.conv2, self.nonlin2)):
             if not fold:
                 out = bn(out, dtype)
-            out = conv(out, dtype, fold)
-            if nonlin is not None:
-                out = nonlin(out)
-        return self.nonlin3(out + self.shortcut(x, dtype))
+            out = self._conv(conv, out, dtype, fold, act_a=nonlin)
+        if not fold:
+            out = self.bn3(out, dtype)
+        return self._conv(self.conv3, out, dtype, fold, residual=x,
+                          shortcut=self.shortcut, act_b=self.nonlin3)
 
 
 def remat_block(block: nn.Module, x: torch.Tensor,

@@ -34,6 +34,13 @@ JAX (`quant_conv2d_infer`):
 For CPU tensors every kernel wrapper runs its plain twin, which repeats
 JAX's ops; for CUDA tensors it launches its kernel or raises.
 
+The block's tail (`Tail`): a served residual block hands the pointwise
+ops that follow a binary conv (a PReLU, the residual add with the
+shortcut's eval BatchNorm, a PReLU) to the conv, which applies them to
+each output value before it stores it, every op rounded where the eager
+ops round. The plain twins take the same tail and apply it with those
+eager ops (`apply_tail`).
+
 Row bands (parallel/spatial.py): a rank of an H-banded model runs a conv
 on its band of rows and the halo rows its neighbours sent it. The conv
 then pads H by its own `pad_top` and `pad_bottom` (the symmetric pad by
@@ -58,8 +65,8 @@ from quant_tpu_torch.ops.ste import binary_sign
 
 SIGN_COMPUTE_DTYPE = torch.bfloat16
 
-_CONV_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-_PLANES_CONV_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 17
+_CONV_SIG = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_PLANES_CONV_SIG = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 17
                     + [ctypes.c_void_p])
 _PLANES_PACK_SIG = ([ctypes.c_void_p] * 5
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -68,7 +75,7 @@ _SIGNATURES = {'qtt_xnor_conv2d_f32': _CONV_SIG,
                'qtt_xnor_conv2d_bf16': _CONV_SIG,
                'qtt_xnor_conv2d_planes_f32': _PLANES_CONV_SIG,
                'qtt_xnor_conv2d_planes_bf16': _PLANES_CONV_SIG,
-               'qtt_xnor_conv2d_occupancy': ([ctypes.c_int] * 5
+               'qtt_xnor_conv2d_occupancy': ([ctypes.c_int] * 6
                                              + [ctypes.c_void_p] * 2),
                'qtt_pack_sign_planes_f32': _PLANES_PACK_SIG,
                'qtt_pack_sign_planes_bf16': _PLANES_PACK_SIG}
@@ -77,6 +84,9 @@ _DTYPE_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 conv_launches = _build.LaunchCounter('xnor_conv2d')
 planes_conv_launches = _build.LaunchCounter('xnor_conv2d_planes')
 pack_launches = _build.LaunchCounter('pack_sign_planes')
+# Launches of either conv that carry a tail: where the served blocks
+# hand their tail over.
+tail_launches = _build.LaunchCounter('xnor_conv2d_tail')
 
 
 class RowBand(NamedTuple):
@@ -311,6 +321,101 @@ def pack_sign_planes(x: torch.Tensor, k: int,
     return out
 
 
+# -------------------------------------------------------------------- tail
+
+
+class Tail(NamedTuple):
+    """A residual block's tail after a binary conv, applied to each output
+    value v (the conv's result with its bias, in out_dtype) in this order:
+
+        a = prelu(v, slope_a)       where slope_a is given
+        b = a + r                   where residual is given
+        y = prelu(b, slope_b)       where slope_b is given
+
+    r is `residual`, a tensor of the output's shape and dtype, or, with
+    `bn` = (mean, mul, bias) (float32, (O,)), the shortcut conv's raw
+    output put through its eval BatchNorm: bn_affine(residual, *bn) in
+    float32, rounded to out_dtype. The slopes are the PReLUs' float32
+    parameters (one value each): the kernels read them on the card, so
+    no launch waits on the host."""
+
+    slope_a: Optional[torch.Tensor] = None
+    residual: Optional[torch.Tensor] = None
+    bn: Optional[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    slope_b: Optional[torch.Tensor] = None
+
+
+def prelu(x: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
+    """PReLU with one shared slope, cast to x's dtype. At x = 0 the
+    gradient is 1, as jnp.where's (F.prelu's is the slope)."""
+    return torch.where(x >= 0, x, slope.to(x.dtype) * x)
+
+
+def bn_affine(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """(x - mean) * mul + bias in x's dtype promoted to float32, each op
+    rounded on its own (nn.layers.BatchNorm's normalization)."""
+    y = (x.to(torch.promote_types(x.dtype, torch.float32)) - mean) * mul
+    return y if bias is None else y + bias
+
+
+def apply_tail(y: torch.Tensor, tail: Tail) -> torch.Tensor:
+    """The tail (Tail) applied to a conv's output y with eager ops."""
+    if tail.slope_a is not None:
+        y = prelu(y, tail.slope_a)
+    if tail.residual is not None:
+        r = tail.residual
+        if tail.bn is not None:
+            r = bn_affine(r, *tail.bn).to(y.dtype)
+        y = y + r
+    if tail.slope_b is not None:
+        y = prelu(y, tail.slope_b)
+    return y
+
+
+def _tail_tensors(tail: Optional[Tail], shape: tuple,
+                  dtype: torch.dtype) -> tuple:
+    """The tail's tensors (none without a tail); raises unless the tail
+    fits an output of this shape and dtype."""
+    if tail is None:
+        return ()
+    r = tail.residual
+    _build.require(r is None or (tuple(r.shape) == tuple(shape)
+                                 and r.dtype == dtype),
+                   f'the residual must be {tuple(shape)} {dtype}')
+    _build.require(r is not None or tail.bn is None,
+                   'a tail BatchNorm needs a residual')
+    if tail.bn is not None:
+        _build.require(len(tail.bn) == 3 and all(
+            v.shape == (shape[-1],) and v.dtype == torch.float32
+            for v in tail.bn), f'the tail BatchNorm takes three float32 '
+            f'({shape[-1]},) vectors')
+    _build.require(all(s is None or (s.numel() == 1
+                                     and s.dtype == torch.float32)
+                       for s in (tail.slope_a, tail.slope_b)),
+                   'a PReLU slope is one float32 value')
+    return tuple(t for t in (tail.slope_a, r, tail.slope_b,
+                             *(tail.bn or ())) if t is not None)
+
+
+def _tail_ptrs(tail: Optional[Tail]) -> tuple[list, list]:
+    """The six tail pointers of a launch (residual, BN mean, mul and
+    bias, slope_a, slope_b; null where left out) and the tensors they
+    point into, which the caller keeps alive until the launch is
+    queued."""
+    if tail is None:
+        return [_build.ptr(None)] * 6, []
+    r = tail.residual
+    if r is not None:
+        r = r.contiguous()
+        if r.data_ptr() % 16:  # the kernels read it in 16-byte chunks
+            r = r.clone()
+    bn = [v.contiguous() for v in tail.bn] if tail.bn is not None else [
+        None] * 3
+    held = [r, *bn, tail.slope_a, tail.slope_b]
+    return [_build.ptr(t) for t in held], held
+
+
 # -------------------------------------------------------------------- conv
 
 
@@ -348,12 +453,14 @@ def xnor_conv2d_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
                       stride: IntOr2 = 1, padding: IntOr2 = 1,
                       out_dtype: torch.dtype = torch.float32,
                       pad_top: Optional[int] = None,
-                      pad_bottom: Optional[int] = None) -> torch.Tensor:
+                      pad_bottom: Optional[int] = None,
+                      tail: Optional[Tail] = None) -> torch.Tensor:
     """Plain twin of xnor_conv2d: the integer conv over unpacked +-1
-    planes (zero padding), then the kernel's epilogue."""
+    planes (zero padding), then the kernel's epilogue and the tail."""
     dot = _plane_dot(x_words, w_packed, in_channels, stride, padding,
                      pad_top, pad_bottom)
-    return _epilogue([[dot]], vx[None], vw[None], bias, out_dtype)
+    y = _epilogue([[dot]], vx[None], vw[None], bias, out_dtype)
+    return y if tail is None else apply_tail(y, tail)
 
 
 def _conv_checks(x_words: torch.Tensor, w_packed: torch.Tensor,
@@ -374,13 +481,11 @@ def _conv_checks(x_words: torch.Tensor, w_packed: torch.Tensor,
     return sh, ph
 
 
-def _conv_out(x_words: torch.Tensor, w_packed: torch.Tensor, s: int, p: int,
-              rows: tuple[int, int], out_dtype: torch.dtype) -> torch.Tensor:
+def _out_shape(x_words: torch.Tensor, w_packed: torch.Tensor, s: int,
+               p: int, rows: tuple[int, int]) -> tuple[int, int, int, int]:
     n, h, w = x_words.shape[-4:-1]
     kh, kw, _, o = w_packed.shape[-4:]
-    oh, ow = (h + sum(rows) - kh) // s + 1, (w + 2 * p - kw) // s + 1
-    return torch.empty((n, oh, ow, o), dtype=out_dtype,
-                       device=x_words.device)
+    return n, (h + sum(rows) - kh) // s + 1, (w + 2 * p - kw) // s + 1, o
 
 
 def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
@@ -389,7 +494,8 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
                 stride: IntOr2 = 1, padding: IntOr2 = 1,
                 out_dtype: torch.dtype = torch.float32,
                 pad_top: Optional[int] = None,
-                pad_bottom: Optional[int] = None) -> torch.Tensor:
+                pad_bottom: Optional[int] = None,
+                tail: Optional[Tail] = None) -> torch.Tensor:
     """Binary conv over packed words, NHWC out.
 
     Args:
@@ -401,6 +507,7 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
             +-1 operand is zero-padded).
         pad_top / pad_bottom: H padding of a row band (module
             docstring); `padding` pads W, and H where these are None.
+        tail: the block's tail (Tail), applied before the store.
     """
     _build.require(x_words.ndim == 4 and w_packed.ndim == 4,
                    'x_words must be (N,H,W,Wc) and w_packed (kh,kw,Wc,O)')
@@ -413,28 +520,36 @@ def xnor_conv2d(x_words: torch.Tensor, w_packed: torch.Tensor,
                    'vx must be (N,), vw and bias (O,)')
     rows = _row_pads(padding, pad_top, pad_bottom)
     _build.require(min(rows) >= 0, f'row pads {rows}')
-    tensors = (x_words, w_packed, vx, vw) + (() if bias is None else (bias,))
+    shape = _out_shape(x_words, w_packed, s, p, rows)
+    tensors = ((x_words, w_packed, vx, vw) + (() if bias is None else (bias,))
+               + _tail_tensors(tail, shape, out_dtype))
     if _build.on_cpu(*tensors):
-        return xnor_conv2d_plain(x_words, w_packed, vx, vw, bias,
-                                 in_channels=in_channels, stride=stride,
-                                 padding=padding, out_dtype=out_dtype,
-                                 pad_top=rows[0], pad_bottom=rows[1])
-    _build.require(x_words.is_contiguous() and w_packed.is_contiguous(),
-                   'packed operands must be contiguous')
-    out = _conv_out(x_words, w_packed, s, p, rows, out_dtype)
-    vx = vx.to(torch.float32).contiguous()
-    vw = vw.to(torch.float32).contiguous()
-    if bias is not None:
-        bias = bias.to(out_dtype).contiguous()
-    lib = _build.load('xnor', _SIGNATURES)
-    entry = getattr(lib, f'qtt_xnor_conv2d_{_DTYPE_SUFFIX[out_dtype]}')
-    status = entry(_build.ptr(x_words), _build.ptr(w_packed),
-                   _build.ptr(vx), _build.ptr(vw), _build.ptr(bias),
-                   _build.ptr(out), n, h, wd, wc, in_channels, o,
-                   out.shape[1], out.shape[2], kh, kw, s, p, rows[0],
-                   _build.stream(x_words))
-    _build.check(lib, status, 'xnor_conv2d')
-    conv_launches.bump()
+        out = xnor_conv2d_plain(x_words, w_packed, vx, vw, bias,
+                                in_channels=in_channels, stride=stride,
+                                padding=padding, out_dtype=out_dtype,
+                                pad_top=rows[0], pad_bottom=rows[1],
+                                tail=tail)
+    else:
+        _build.require(x_words.is_contiguous()
+                       and w_packed.is_contiguous(),
+                       'packed operands must be contiguous')
+        out = torch.empty(shape, dtype=out_dtype, device=x_words.device)
+        vx = vx.to(torch.float32).contiguous()
+        vw = vw.to(torch.float32).contiguous()
+        if bias is not None:
+            bias = bias.to(out_dtype).contiguous()
+        tail_ptrs, _held = _tail_ptrs(tail)
+        lib = _build.load('xnor', _SIGNATURES)
+        entry = getattr(lib, f'qtt_xnor_conv2d_{_DTYPE_SUFFIX[out_dtype]}')
+        status = entry(_build.ptr(x_words), _build.ptr(w_packed),
+                       _build.ptr(vx), _build.ptr(vw), _build.ptr(bias),
+                       _build.ptr(out), *tail_ptrs, n, h, wd, wc,
+                       in_channels, o, shape[1], shape[2], kh, kw, s, p,
+                       rows[0], _build.stream(x_words))
+        _build.check(lib, status, 'xnor_conv2d')
+        conv_launches.bump()
+        if tail is not None:
+            tail_launches.bump()
     return out
 
 
@@ -446,11 +561,12 @@ def xnor_conv2d_planes_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
                              padding: IntOr2 = 1,
                              out_dtype: torch.dtype = torch.float32,
                              pad_top: Optional[int] = None,
-                             pad_bottom: Optional[int] = None
+                             pad_bottom: Optional[int] = None,
+                             tail: Optional[Tail] = None
                              ) -> torch.Tensor:
     """Plain twin of xnor_conv2d_planes: the integer dot of every plane
     pair, summed within each (weight group, activation group), then the
-    pass-loop epilogue."""
+    pass-loop epilogue and the tail."""
     k_a, k_w = x_words.shape[0], w_packed.shape[0]
     dots = []
     for j in range(k_w // w_group):
@@ -462,7 +578,8 @@ def xnor_conv2d_planes_plain(x_words: torch.Tensor, w_packed: torch.Tensor,
                            padding, pad_top, pad_bottom)
                 for b in range(w_group) for a in range(x_group)))
         dots.append(row)
-    return _epilogue(dots, vx, vw, bias, out_dtype)
+    y = _epilogue(dots, vx, vw, bias, out_dtype)
+    return y if tail is None else apply_tail(y, tail)
 
 
 def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
@@ -472,7 +589,8 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
                        stride: IntOr2 = 1, padding: IntOr2 = 1,
                        out_dtype: torch.dtype = torch.float32,
                        pad_top: Optional[int] = None,
-                       pad_bottom: Optional[int] = None) -> torch.Tensor:
+                       pad_bottom: Optional[int] = None,
+                       tail: Optional[Tail] = None) -> torch.Tensor:
     """Multi-plane binary conv over packed words: JAX's int8 route, bit
     for bit (see the module docstring).
 
@@ -482,7 +600,7 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
         vx: (k_a / x_group, N) per-sample scales, one per group.
         vw: (k_w / w_group, O) per-out-channel scales, one per group.
         x_group / w_group: planes a scale covers, 1 or 2 (ls-T).
-        pad_top / pad_bottom: as xnor_conv2d's.
+        pad_top / pad_bottom, tail: as xnor_conv2d's.
     """
     _build.require(x_words.ndim == 5 and w_packed.ndim == 5,
                    'x_words must be (k_a,N,H,W,Wc) and w_packed '
@@ -498,47 +616,57 @@ def xnor_conv2d_planes(x_words: torch.Tensor, w_packed: torch.Tensor,
     _build.require(vx.shape == (ga, n) and vw.shape == (gw, o)
                    and (bias is None or bias.shape == (o,)),
                    f'vx must be ({ga}, N), vw ({gw}, O) and bias (O,)')
-    tensors = (x_words, w_packed, vx, vw) + (() if bias is None else (bias,))
     rows = _row_pads(padding, pad_top, pad_bottom)
     _build.require(min(rows) >= 0, f'row pads {rows}')
-    kw_args = dict(in_channels=in_channels, x_group=x_group,
-                   w_group=w_group, stride=stride, padding=padding,
-                   out_dtype=out_dtype, pad_top=rows[0], pad_bottom=rows[1])
+    shape = _out_shape(x_words, w_packed, s, p, rows)
+    tensors = ((x_words, w_packed, vx, vw) + (() if bias is None else (bias,))
+               + _tail_tensors(tail, shape, out_dtype))
     if _build.on_cpu(*tensors):
-        return xnor_conv2d_planes_plain(x_words, w_packed, vx, vw, bias,
-                                        **kw_args)
-    _build.require(x_words.is_contiguous() and w_packed.is_contiguous(),
-                   'packed operands must be contiguous')
-    out = _conv_out(x_words, w_packed, s, p, rows, out_dtype)
-    vx = vx.to(torch.float32).contiguous()
-    vw = vw.to(torch.float32).contiguous()
-    if bias is not None:
-        bias = bias.to(out_dtype).contiguous()
-    lib = _build.load('xnor', _SIGNATURES)
-    entry = getattr(lib, f'qtt_xnor_conv2d_planes_{_DTYPE_SUFFIX[out_dtype]}')
-    status = entry(_build.ptr(x_words), _build.ptr(w_packed),
-                   _build.ptr(vx), _build.ptr(vw), _build.ptr(bias),
-                   _build.ptr(out), n, h, wd, wc, in_channels, o,
-                   out.shape[1], out.shape[2], kh, kw, s, p, rows[0], ga,
-                   x_group, gw, w_group, _build.stream(x_words))
-    _build.check(lib, status, 'xnor_conv2d_planes')
-    planes_conv_launches.bump()
+        out = xnor_conv2d_planes_plain(
+            x_words, w_packed, vx, vw, bias, in_channels=in_channels,
+            x_group=x_group, w_group=w_group, stride=stride,
+            padding=padding, out_dtype=out_dtype, pad_top=rows[0],
+            pad_bottom=rows[1], tail=tail)
+    else:
+        _build.require(x_words.is_contiguous()
+                       and w_packed.is_contiguous(),
+                       'packed operands must be contiguous')
+        out = torch.empty(shape, dtype=out_dtype, device=x_words.device)
+        vx = vx.to(torch.float32).contiguous()
+        vw = vw.to(torch.float32).contiguous()
+        if bias is not None:
+            bias = bias.to(out_dtype).contiguous()
+        tail_ptrs, _held = _tail_ptrs(tail)
+        lib = _build.load('xnor', _SIGNATURES)
+        entry = getattr(
+            lib, f'qtt_xnor_conv2d_planes_{_DTYPE_SUFFIX[out_dtype]}')
+        status = entry(_build.ptr(x_words), _build.ptr(w_packed),
+                       _build.ptr(vx), _build.ptr(vw), _build.ptr(bias),
+                       _build.ptr(out), *tail_ptrs, n, h, wd, wc,
+                       in_channels, o, shape[1], shape[2], kh, kw, s, p,
+                       rows[0], ga, x_group, gw, w_group,
+                       _build.stream(x_words))
+        _build.check(lib, status, 'xnor_conv2d_planes')
+        planes_conv_launches.bump()
+        if tail is not None:
+            tail_launches.bump()
     return out
 
 
 def conv_occupancy(out_dtype: torch.dtype, ga: int = 1, pa: int = 1,
-                   gw: int = 1, pw: int = 1) -> tuple[int, int]:
+                   gw: int = 1, pw: int = 1,
+                   tail: bool = False) -> tuple[int, int]:
     """(registers a thread, blocks an SM) of the conv kernel that a launch
     with ga activation groups of pa planes and gw weight groups of pw
-    planes takes (all 1: xnor_conv2d's), from the built library on the
-    current CUDA device."""
+    planes takes (all 1: xnor_conv2d's), with a tail or without, from the
+    built library on the current CUDA device."""
     _build.require(out_dtype in _DTYPE_SUFFIX,
                    f'unsupported out dtype {out_dtype}')
     lib = _build.load('xnor', _SIGNATURES)
     regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
     status = lib.qtt_xnor_conv2d_occupancy(
-        int(out_dtype == torch.float32), ga, pa, gw, pw, ctypes.byref(regs),
-        ctypes.byref(blocks))
+        int(out_dtype == torch.float32), ga, pa, gw, pw, int(tail),
+        ctypes.byref(regs), ctypes.byref(blocks))
     _build.check(lib, status, 'conv_occupancy')
     return regs.value, blocks.value
 
@@ -550,9 +678,11 @@ def _int8_route(x: torch.Tensor, x_scheme: str, x_vs: torch.Tensor,
                 w_packed: torch.Tensor, w_vs: torch.Tensor, w_group: int,
                 folded: bool, conv_kw: dict, x_thresh: Optional[torch.Tensor],
                 x_flip: Optional[torch.Tensor], x_va: Optional[torch.Tensor],
-                band: Optional[RowBand]) -> torch.Tensor:
-    """Producer + conv kernels: the bit-exact pass loop; a band's halo
-    rows are exchanged as packed words."""
+                band: Optional[RowBand],
+                tail: Optional[Tail] = None) -> torch.Tensor:
+    """Producer + conv kernels: the bit-exact pass loop, with the tail in
+    the conv's epilogue; a band's halo rows are exchanged as packed
+    words."""
     k_a, k_w = sign_planes(x_scheme), w_packed.shape[0]
     x_group = 2 if x_scheme == 'ls-T' else 1
     x = x.contiguous()
@@ -567,9 +697,10 @@ def _int8_route(x: torch.Tensor, x_scheme: str, x_vs: torch.Tensor,
     vx, vw = x_vs[:k_a // x_group], w_vs[:k_w // w_group]
     w_packed = w_packed.contiguous()
     if k_a == 1 and k_w == 1:
-        return xnor_conv2d(words[0], w_packed[0], vx[0], vw[0], **conv_kw)
+        return xnor_conv2d(words[0], w_packed[0], vx[0], vw[0], tail=tail,
+                           **conv_kw)
     return xnor_conv2d_planes(words, w_packed, vx, vw, x_group=x_group,
-                              w_group=w_group, **conv_kw)
+                              w_group=w_group, tail=tail, **conv_kw)
 
 
 def _bf16_route(x_planes: list, x_scales: list,
@@ -638,7 +769,8 @@ def quant_conv2d_infer(x: torch.Tensor, *,
                        x_thresh: Optional[torch.Tensor] = None,
                        x_flip: Optional[torch.Tensor] = None,
                        x_va: Optional[torch.Tensor] = None,
-                       band: Optional[RowBand] = None) -> torch.Tensor:
+                       band: Optional[RowBand] = None,
+                       tail: Optional[Tail] = None) -> torch.Tensor:
     """Packed-weight quantized conv (JAX's quant_conv2d_infer).
 
     Args:
@@ -654,6 +786,8 @@ def quant_conv2d_infer(x: torch.Tensor, *,
             never fused; None or 'bf16' the bf16 route.
         band: x is a row band (module docstring); x_vs are the whole
             samples' scales.
+        tail: the block's tail (Tail), which the int8 route's conv
+            applies; the other routes and a band take none.
     """
     if w_packed.ndim == 4:
         w_packed = w_packed[None]
@@ -664,9 +798,13 @@ def quant_conv2d_infer(x: torch.Tensor, *,
         x = clamp_fn(x)
     conv_kw = dict(in_channels=in_channels, stride=stride, padding=padding,
                    out_dtype=out_dtype, bias=bias)
-    if _compute_is_int8(compute_dtype):
+    int8 = _compute_is_int8(compute_dtype)
+    _build.require(tail is None or (int8 and band is None),
+                   'a tail needs the int8 route and no band')
+    if int8:
         return _int8_route(x, x_scheme, x_vs, w_packed, w_vs, w_group,
-                           folded, conv_kw, x_thresh, x_flip, x_va, band)
+                           folded, conv_kw, x_thresh, x_flip, x_va, band,
+                           tail)
     rows = (None, None)
     if band is not None:
         x, rows = band.extend(x), (band.pad_top, band.pad_bottom)

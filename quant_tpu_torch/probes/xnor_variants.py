@@ -59,7 +59,9 @@ on two timers: card time behind a head start (`common.card_ms`) and
 back to back, host launch time included (bare launches, no Python
 wrapper). Both libraries' results must equal the plain twins'. The
 conv and pool entry points take a row band's `pad_top` after `pad` (the
-pool after C): an older source without it does not share the interface.
+pool after C), the convs the six pointers of a block's tail after `out`
+(null: no tail) and the occupancy query a tail flag: an older source
+without them does not share the interface.
 
 `--parts` picks what runs, of conv (conv knock-outs and SASS), planes
 (the multi-plane variants, SASS and occupancy), gemm (wgmma knock-outs
@@ -476,6 +478,7 @@ def knockouts(libs: dict[str, dict[str, ctypes.CDLL]],
                 continue
             got = torch.empty_like(want)
             args = [_build.ptr(v) for v in (x, w, vx, vw, bias, got)] + [
+                _build.ptr(None)] * 6 + [
                 n, hw, hw, c // 32, c, o, hw, hw, 3, 3, 1, 1, 1,
                 _build.stream(x)]
             lib = libs[name]['xnor']
@@ -600,7 +603,8 @@ def planes_calls(lib: ctypes.CDLL, seen: list
         out = torch.empty(n, oh, ow, o, dtype=torch.bfloat16,
                           device=xin.device)
         convs.append(launcher(
-            lib.qtt_xnor_conv2d_planes_bf16, (words, wp, vx, vw, bias, out),
+            lib.qtt_xnor_conv2d_planes_bf16,
+            (words, wp, vx, vw, bias, out) + NO_TAIL,
             (n, h, w, wp.shape[-2], c, o, oh, ow, kk, kk, s, p, p, k // xg,
              xg, wp.shape[0] // wg, wg, _build.stream(xin))))
         want = B.xnor_conv2d_planes_plain(
@@ -629,7 +633,7 @@ def planes_occupancy(libs: dict[str, dict[str, ctypes.CDLL]],
         for inst in ((1, 1, 1, 1),) + PLANES_INSTANCES:
             regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
             status = lib.qtt_xnor_conv2d_occupancy(
-                0, *inst, ctypes.byref(regs), ctypes.byref(blocks))
+                0, *inst, 0, ctypes.byref(regs), ctypes.byref(blocks))
             common.record('conv_occupancy', dev, variant=name,
                           instance=list(inst), status=status,
                           registers=regs.value, blocks_per_sm=blocks.value)
@@ -655,6 +659,11 @@ def planes_variants(libs: dict[str, dict[str, ctypes.CDLL]],
                           round=rnd, launches=len(calls[name][0]),
                           card_ms=sum(common.card_ms(f, ITERS)
                                       for f in calls[name][0]))
+
+
+# A conv launch's tail pointers (residual, BN mean, mul, bias, slopes):
+# none.
+NO_TAIL = (None,) * 6
 
 
 def launcher(entry: Callable[..., int], tensors: tuple, ints: tuple
@@ -699,7 +708,8 @@ def lib_calls(lib: ctypes.CDLL, seen: list
         out = torch.empty(n, oh, ow, o, dtype=torch.bfloat16,
                           device=xin.device)
         convs.append(launcher(
-            lib.qtt_xnor_conv2d_bf16, (want_words, wp, vx, vw, bias, out),
+            lib.qtt_xnor_conv2d_bf16,
+            (want_words, wp, vx, vw, bias, out) + NO_TAIL,
             (n, h, w, wc, c, o, oh, ow, 3, 3, s, 1, 1, _build.stream(xin))))
         want_out = B.xnor_conv2d_plain(want_words, wp, vx, vw, bias,
                                        in_channels=c, stride=s, padding=1,

@@ -140,8 +140,18 @@ def test_chip_smoke_runs_end_to_end_on_cpu(monkeypatch, capsys, tmp_path):
         'loss_rel_err'] == 0.0
     assert train['eval']['launches'] == {'max_pool_3x3_s2_p1': 2}
     assert train['serve']['launches'] == {
-        'xnor_conv2d': 8, 'pack_sign_planes': 8, 'max_pool_3x3_s2_p1': 1}
+        'xnor_conv2d': 8, 'pack_sign_planes': 8, 'max_pool_3x3_s2_p1': 1,
+        chip_smoke.TAIL: 8}
     assert train['serve']['fp32_rel_err'] < 1e-5
+    tail = report['tail']
+    assert [json.loads(ln)['tail_phase'] for ln in lines
+            if ln.startswith('{"tail_phase"')] == [tail]
+    assert tail['batch'] == 2
+    for name, (*_, tails) in R.SMALL_TAIL_MODELS.items():
+        for rec in tail[name].values():
+            # The CPU's convs run their plain twins: no tail launches.
+            assert rec == dict(tails=tails, tail_launches=0, eager_tails=0,
+                               bit_equal=True, max_abs_err=0.0), (name, rec)
     oracle = report['oracle']
     assert [(r['oracle'], r['mode'], r['sign_compute'], r['launches'])
             for r in oracle['runs']] == [
@@ -159,7 +169,8 @@ def test_chip_smoke_runs_end_to_end_on_cpu(monkeypatch, capsys, tmp_path):
     stack = report['serving_stack']
     assert stack['frontend']['batches'] == 2
     assert stack['frontend']['launches'] == {
-        'xnor_conv2d': 32, 'pack_sign_planes': 32, 'max_pool_3x3_s2_p1': 2}
+        'xnor_conv2d': 32, 'pack_sign_planes': 32, 'max_pool_3x3_s2_p1': 2,
+        chip_smoke.TAIL: 32}
     workers = stack['workers']
     assert workers['requests'] == 4 and workers['startup_s'] > 0
     assert workers['failover']['alive'] == [False, True]

@@ -46,11 +46,14 @@ def test_pipeline_phase_runs_on_cpu(monkeypatch, capsys):
     assert [json.loads(ln)['pipeline_phase'] for ln in lines
             if ln.startswith('{"pipeline_phase"')] == [pipe]
     assert pipe['max_abs_err'] == 0.0 and pipe['shape'] == [2, 1, 8, 8, 8]
+    assert pipe['eager_abs_err'] == 0.0  # the tails equal the eager ops
     assert pipe['per_microbatch'] == [{'xnor_conv2d': 2,
-                                       'pack_sign_planes': 2}] * 2
+                                       'pack_sign_planes': 2,
+                                       chip_smoke.TAIL: 2}] * 2
     assert pipe['step']['rel_err'] <= chip_smoke.PIPE_STEP_TOL
     assert pipe['step']['summing_diff'] > chip_smoke.PIPE_SUMMING_MIN_DIFF
-    # 2 microbatches of 1 binary conv and 1 producer a stage, 2 stages.
+    # 2 microbatches of 1 binary conv (with its tail) and 1 producer a
+    # stage, 2 stages.
     paths = chip_smoke.path_launches(None, None, None, pipe, None)
     assert {k: v for k, v in paths['pipe_launches'].items() if v} == {
-        'xnor_conv2d': 4, 'pack_sign_planes': 4}
+        'xnor_conv2d': 4, 'pack_sign_planes': 4, chip_smoke.TAIL: 4}

@@ -114,6 +114,7 @@ def _packed_blocks(stages: int) -> tuple:
 
 
 def _packed(mesh, stages: int) -> dict:
+    from chip_smoke import tail_calls
     from quant_tpu_torch import _build
     from quant_tpu_torch.parallel import pipeline_apply, stack_stage_params
     blocks, x, fold = _packed_blocks(stages)
@@ -125,10 +126,10 @@ def _packed(mesh, stages: int) -> dict:
         return torch.func.functional_call(blocks[0], p,
                                           (xb, torch.bfloat16, fold))
     before = _build.launch_counts()
-    with torch.no_grad():
+    with tail_calls() as tails, torch.no_grad():
         out = pipeline_apply(stage, params, x, mesh=mesh)
     return dict(out=out.float().numpy(),
-                launched=_build.launch_counts() != before)
+                launched=_build.launch_counts() != before, tails=tails[0])
 
 
 def _world4(rank: int) -> dict:
@@ -326,6 +327,9 @@ def test_packed_block_stages_equal_sequential(world):
     for r in world:
         np.testing.assert_array_equal(r['packed']['out'], want)
         assert not r['packed']['launched']  # CPU: the plain twins
+        # Each stage's served block hands both convs their tails, on the
+        # microbatches its rank computes.
+        assert r['packed']['tails'] == 2 * x.shape[0]
 
 
 def test_stack_stage_params_refuses_mixed_trees():

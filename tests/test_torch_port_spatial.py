@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import band_rows, plant_specials
+from chip_smoke import band_rows, plant_specials, tail_calls
 from tests.test_torch_port_tp import run_world
 
 WORLD = 4
@@ -216,11 +216,13 @@ def _world4(rank: int) -> dict:
             out['errors'][name] = None
         except ValueError as e:
             out['errors'][name] = str(e)
-    out['models'] = {}
+    out['models'], out['model_tails'] = {}, {}
     with torch.no_grad():
         for case in MODEL_CASES:
-            out['models'][case] = _banded_forward(_model(case),
-                                                  _x((2, 32, 32, 3), 8), mesh)
+            with tail_calls() as tails:
+                out['models'][case] = _banded_forward(
+                    _model(case), _x((2, 32, 32, 3), 8), mesh)
+            out['model_tails'][case] = tails[0]
     out['lenet'] = _serve_lenet(rank, mesh)
     return out
 
@@ -464,6 +466,18 @@ def test_banded_packed_model(world, case):
         np.testing.assert_allclose(logits, want, **MODEL_TOL)
         assert [n for n, b in ran if b] == banded
         assert all(not b for n, b in ran if n not in banded)
+
+
+def test_banded_forward_takes_no_tail(world):
+    """A banded model's blocks keep their tails on the eager ops, the ones
+    past the gather too (no binary conv is handed a tail on any rank);
+    unbanded, the same model hands each binary conv its tail."""
+    for r in world:
+        assert r['model_tails'] == {case: 0 for case in MODEL_CASES}
+    model = _model('folded')
+    with tail_calls() as tails, torch.no_grad():
+        model(torch.from_numpy(_x((2, 32, 32, 3), 8)))
+    assert tails[0] == 8
 
 
 def test_banded_engine_serves_lenet_like_jax(world):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tail_calls
 from tests.test_torch_port_tp import (
     FOLDED, FOLDED_TOL, FORWARD_TOL, _port_model, jax_forward_case,
     run_world,
@@ -39,6 +40,14 @@ def _engine(model: torch.nn.Module, x: np.ndarray):
 
 def _serve(rank: int, case: str, tree: dict, x: np.ndarray,
            mesh: object) -> dict:
+    with tail_calls() as tails:
+        out = _serve_rank(rank, case, tree, x, mesh)
+    out['tails'] = tails[0]
+    return out
+
+
+def _serve_rank(rank: int, case: str, tree: dict, x: np.ndarray,
+                mesh: object) -> dict:
     from quant_tpu_torch.parallel import shard_model
     engine = _engine(shard_model(_port_model(case, tree), mesh), x)
     out: dict = {'leader': engine.leader}
@@ -103,6 +112,15 @@ def test_tp_engine_equals_unsharded_engine(served, case):
     assert got['requests'] == x.shape[0]
     tol = FOLDED_TOL if case in FOLDED else FORWARD_TOL
     np.testing.assert_allclose(got['predict'], jax_sharded, **tol)
+
+
+@pytest.mark.parametrize('case', SERVE_CASES)
+def test_tp_forward_takes_no_tail(served, case):
+    """A sharded conv serves its slice of the channels: its block's tail
+    stays with the eager ops (no binary conv is handed a tail on either
+    rank)."""
+    _, ranks = served
+    assert [r[case]['tails'] for r in ranks] == [0, 0]
 
 
 @pytest.mark.parametrize('case', SERVE_CASES)

@@ -52,6 +52,17 @@ SMALL_MODELS = {
         ('lenet', 'lenet', (28, 28, 1), 1, 0))}
 
 
+# The tail phase's models cut to small_config's XNOR families (one block
+# a stage): 8 and 12 binary convs, each with its block's tail.
+SMALL_TAIL_MODELS = {
+    'resnet18_xnor_ls1': (lambda xq, wq, **kw: models.build(
+        'xnor', models.small_config('xnor', xq, wq), **kw), 'ls-1', 'ls-1',
+        {}, 8),
+    'resnet50_xnor_ls2_ls1': (lambda xq, wq, **kw: models.build(
+        'xnor_bottleneck', models.small_config('xnor_bottleneck', xq, wq),
+        **kw), 'ls-2', 'ls-1', {'sign_compute': 'int8'}, 12)}
+
+
 def phase_counts() -> list[dict]:
     """The launch counts each model phase expects of its small model."""
     out = []
@@ -113,7 +124,7 @@ SMALL_RECIPE = {
         'num_blocks': [1, 1, 1, 1], 'output_classes': 10},
     'data': {'train_batch_size': 4, 'test_batch_size': 4}}
 SMALL_SERVED = {'xnor_conv2d': 8, 'pack_sign_planes': 8,
-                'max_pool_3x3_s2_p1': 1}
+                chip_smoke.TAIL: 8, 'max_pool_3x3_s2_p1': 1}
 
 
 def small_family(family: str):
@@ -142,18 +153,18 @@ KERNEL_KEYS = {'name', 'route', 'source', 'replaces', 'launches',
 
 
 # The launch counts the phases read, in order. The main path: 16 binary
-# convs, 16 producers, 1 pool a forward; the probe path one of each
-# probe kernel beside them.
+# convs, each with its block's tail, 16 producers, 1 pool a forward; the
+# probe path one of each probe kernel beside them.
 IDLE = {k: 0 for k in chip_smoke.KERNELS}
 MAIN = dict(IDLE, xnor_conv2d=16, pack_sign_planes=16,
-            max_pool_3x3_s2_p1=1)
+            max_pool_3x3_s2_p1=1, **{chip_smoke.TAIL: 16})
 PROBE = dict(MAIN, **{k: 1 for k in chip_smoke.PROBE_KERNELS})
 # The API phase: the package-level model's forward, then each grouped
 # block's eval forward (the dense path: nothing).
 API = [MAIN, *[IDLE] * len(chip_smoke.API_GROUPED['x_quants'])]
 # The in-process frontend serves its 4 requests as 2 batches of 2.
 FRONTEND = dict(MAIN, xnor_conv2d=32, pack_sign_planes=32,
-                max_pool_3x3_s2_p1=2)
+                max_pool_3x3_s2_p1=2, **{chip_smoke.TAIL: 32})
 # OFF_PHASE's lloyd solves (lloyd_phase): one of each of the small
 # model's 8 conv inputs in bf16, then in float32.
 LLOYD = [dict(IDLE, lloyd_solve_rows=8)] * 2
@@ -166,7 +177,7 @@ TRAIN = [*[dict(IDLE, max_pool_3x3_s2_p1=10)] * 2,
          dict(IDLE, max_pool_3x3_s2_p1=10, lloyd_solve_rows=160),
          dict(IDLE, max_pool_3x3_s2_p1=2),
          dict(IDLE, xnor_conv2d=8, pack_sign_planes=8,
-              max_pool_3x3_s2_p1=1)]
+              max_pool_3x3_s2_p1=1, **{chip_smoke.TAIL: 8})]
 # The experiment phase: the LeNet-5 artifact's forward, the teacher's
 # run (its eval's pool), the KD student's run (2 steps of the frozen
 # teacher, 1 eval batch), the small ResNet artifact's forward.
@@ -207,6 +218,8 @@ def patch(monkeypatch, counts: list) -> None:
     monkeypatch.setattr(_THREADS, 'count', THREADS)
     monkeypatch.setenv('OMP_NUM_THREADS', str(THREADS))
     monkeypatch.setattr(chip_smoke, 'PHASE_MODELS', SMALL_MODELS)
+    monkeypatch.setattr(chip_smoke, 'TAIL_MODELS', SMALL_TAIL_MODELS)
+    monkeypatch.setattr(chip_smoke, 'TAIL_INPUT', (32, 32, 3))
     monkeypatch.setattr(chip_smoke, 'DEVICE', 'cpu')
     monkeypatch.setattr(chip_smoke, 'card_ms',
                         lambda fn, *args, **kw: (fn(), 1.0)[1])
